@@ -1,0 +1,65 @@
+"""Flax parameter tree → the port's state_dict (JAX: flipped_tpu/ckpt/convert.py).
+
+The port's parameter names are the reference state_dict names, which the
+JAX package maps to Flax paths with `torch_name_to_flax_path` and
+`needs_transpose` (ckpt/convert.py:76-91). This module is the inverse, for
+every leaf, trainables included:
+
+    tok_embeddings/embedding          → tok_embeddings.weight
+    layers_N/attention/wq/kernel      → layers.N.attention.wq.weight  (transposed)
+    layers_N/attention/gate1          → layers.N.attention.gate1
+    layers_N/attention_norm/weight    → layers.N.attention_norm.weight
+    output/kernel                     → output.weight                 (transposed)
+    adapter_query, temporal_emb       → adapter_query.weight, temporal_emb.weight
+    visual_proj/kernel                → visual_proj.weight            (transposed)
+
+Flax kernels are (in, out) and torch Linear weights (out, in), so every
+`kernel` leaf transposes. Gates keep their (H,) shape.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def flatten_flax(tree, prefix: str = "") -> Dict[str, object]:
+    """Nested dict → {'a/b/c': leaf}."""
+    flat = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            flat.update(flatten_flax(v, path))
+        else:
+            flat[path] = v
+    return flat
+
+
+def flax_path_to_torch_name(path: str) -> str:
+    """'layers_3/attention/wq/kernel' → 'layers.3.attention.wq.weight'."""
+    parts = path.split("/")
+    if parts[0].startswith("layers_"):
+        parts = ["layers", parts[0][len("layers_"):]] + parts[1:]
+    if parts[-1] in ("kernel", "embedding"):
+        parts[-1] = "weight"
+    elif len(parts) == 1:          # bare top-level tables: adapter_query, ...
+        parts.append("weight")
+    return ".".join(parts)
+
+
+def needs_transpose(path: str) -> bool:
+    """Every Flax `kernel` is (in, out); its torch weight is (out, in)."""
+    return path.rsplit("/", 1)[-1] == "kernel"
+
+
+def params_from_flax(flax_params) -> Dict[str, torch.Tensor]:
+    """Flax param tree (leaves as numpy or jax arrays) → state_dict of f32
+    CPU tensors; `load_state_dict` casts them to each parameter's dtype."""
+    sd = {}
+    for path, leaf in flatten_flax(flax_params).items():
+        arr = np.asarray(leaf, dtype=np.float32)
+        if needs_transpose(path):
+            arr = arr.T
+        sd[flax_path_to_torch_name(path)] = torch.tensor(arr)
+    return sd
