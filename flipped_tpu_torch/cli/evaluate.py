@@ -6,8 +6,9 @@
 The port of flipped_tpu/cli/evaluate.py plus the classification half of
 `val_one_epoch` (flipped_tpu/cli/train.py:134-221): the deploy/serve use of
 an adapter, scoring every answer option of each video question and taking
-the argmin. Batches come from the JAX package's numpy-only readers and
-loader, so both packages score identical batches.
+the argmin. Batches come from the port's copies of the JAX package's
+numpy readers and loader (`flipped_tpu_torch.data`), which the tests hold
+equal to the originals.
 
 Not ported yet, and raising rather than ignored: --resume (adapter
 checkpoints), --is_generation_task (generation eval), audio merges, and
@@ -22,10 +23,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from flipped_tpu.data.datasets import build_dataset
-from flipped_tpu.data.pipeline import Loader
-
 from ..core.config import get_args_parser, run_config_from_args
+from ..data.datasets import build_dataset
+from ..data.pipeline import Loader
 from ..train.builder import build_eval_state
 from ..train.step import make_eval_step
 from ..utils.metrics import MetricLogger, log_qtype

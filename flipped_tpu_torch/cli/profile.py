@@ -1,0 +1,135 @@
+"""Where the time of a train or eval step goes on the card.
+
+    python -m flipped_tpu_torch.cli.profile --mode train --model llama7B \
+        --data_root ./data --batch_size 8 --max_seq_len 128 --vaq --qav \
+        --no_remat --output_dir '' --device cuda
+
+The card's name and power limit come from nvidia-smi. Builds the model the
+CLIs build (random weights from the seed), takes one batch from the loader,
+runs two warm-up steps, STEPS steps timed on the host clock, then STEPS more
+under `torch.profiler` (CUDA activity only: recording every CPU op as well
+doubles the wall time), each step ending in `torch.cuda.synchronize()`.
+Prints one JSON line: wall seconds per step without and with the profiler,
+device busy seconds per step (the union of kernel intervals) and its share
+of the profiled window's wall time, kernel launches per step, device time by
+kernel class (bf16 and f32 GEMMs, the port's flash kernels, other), and the
+top kernels by device time.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+from ..core.config import get_args_parser, run_config_from_args
+from ..data.pipeline import load_data
+from ..train.builder import build_eval_state, build_train_state
+from ..train.optim import make_optimizer
+from ..train.step import make_eval_step, make_train_step
+from .evaluate import batch_to_device
+
+STEPS = 3
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    if "flash_text" in low or "flash_bwd" in low:
+        return "flash (K1/K2)"
+    if any(m in low for m in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
+        return "gemm f32" if "f32f32" in low else "gemm"
+    return "other"
+
+
+def summarize(prof, steps: int, wall: float, wall_plain: float) -> dict:
+    """`wall` is the profiled window's, `wall_plain` that of the same steps
+    run without the profiler."""
+    kernels = [e for e in prof.profiler.function_events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no kernel on the card")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:                       # union of kernel intervals, us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    by_class: dict = {}
+    for name, (t, _) in by_name.items():
+        c = kernel_class(name)
+        by_class[c] = by_class.get(c, 0.0) + t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    return {
+        "wall_s_per_step": wall_plain / steps,
+        "profiled_wall_s_per_step": wall / steps,
+        "device_busy_s_per_step": busy * 1e-6 / steps,
+        "device_busy_share": busy * 1e-6 / wall,
+        "launches_per_step": len(kernels) / steps,
+        "device_ms_per_step_by_class": {c: t * 1e-3 / steps
+                                        for c, t in by_class.items()},
+        "top_kernels": [{"name": n[:120], "ms_per_step": t * 1e-3 / steps,
+                         "calls_per_step": c / steps}
+                        for n, (t, c) in top],
+    }
+
+
+def main(argv=None) -> dict:
+    extra = argparse.ArgumentParser(add_help=False)
+    extra.add_argument("--mode", choices=["train", "eval"], default="train")
+    opts, rest = extra.parse_known_args(argv)
+    args = get_args_parser().parse_args(rest)
+    run_cfg = run_config_from_args(args)
+    device = torch.device(run_cfg.device)
+    if device.type != "cuda":
+        raise ValueError("the profile measures the card: --device cuda")
+    build = build_train_state if opts.mode == "train" else build_eval_state
+    model, _, tokenizer = build(run_cfg, device, seed=run_cfg.train.seed)
+    split = "train" if opts.mode == "train" else "val"
+    loader = load_data(run_cfg.data, tokenizer, split,
+                       accum_iter=run_cfg.train.accum_iter)
+    it = iter(loader)
+    host_batch = next(it)
+    it.close()
+    batch = batch_to_device(host_batch, device)
+    if opts.mode == "train":
+        step = make_train_step(
+            model, make_optimizer(model, run_cfg.train, len(loader),
+                                  run_cfg.data.batch_size),
+            vaq=run_cfg.train.vaq, qav=run_cfg.train.qav)
+        run = lambda: step(batch)
+    else:
+        step = make_eval_step(model, cached=True)
+        span = (int(host_batch["span_need"]), bool(host_batch["span_exact"]))
+        run = lambda: step(batch, span_info=span)
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        run()
+        torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            run()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    out = {"mode": opts.mode, "remat": model.remat, "card": card,
+           **summarize(prof, STEPS, wall, wall_plain)}
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,11 @@
-"""Configuration for the evaluate path (JAX counterpart: flipped_tpu/core/config.py).
+"""Configuration of the train and evaluate CLIs (JAX counterpart:
+flipped_tpu/core/config.py).
 
-The dataclasses keep the JAX package's field names, so the JAX package's
-numpy-only dataset readers (`flipped_tpu.data.build_dataset`), which read
-attributes only, accept the port's `DataConfig` as they are. Only the
-fields the classification eval reads are ported; the training fields come
-with the training slice.
+The dataclasses and flags keep the JAX package's names and defaults, so a
+reference run script translates one to one. What the port does not run yet
+is still parsed, and refused by `check_quantize` / `check_train_ported` with
+the ROADMAP item it waits for. The mesh flags (--dp/--tp/--sp/--pp) are not
+parsed: the port runs in one process on one card.
 """
 from __future__ import annotations
 
@@ -77,7 +78,8 @@ def check_quantize(mode: str) -> None:
     if mode != "none":
         raise NotImplementedError(
             f"--quantize {mode}: not ported yet (only 'none' runs in "
-            f"flipped_tpu_torch)")
+            f"flipped_tpu_torch; ROADMAP Queue 1, w8a8 with K3 and the "
+            f"quantize modes)")
 
 
 @dataclass(frozen=True)
@@ -99,12 +101,57 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The eval fields of the JAX TrainConfig (core/config.py:105-150)."""
+    """Optimizer, schedule and objective configuration
+    (JAX: core/config.py:105-150)."""
 
+    epochs: int = 5
+    warmup_epochs: float = 2.0
+    accum_iter: int = 1
+    blr: float = 9e-2
+    lr: Optional[float] = None  # absolute lr; derived from blr when None
+    min_lr: float = 0.0
+    weight_decay: float = 0.14
+    vaq: bool = False           # VQA is always on
+    qav: bool = False
     is_generation_task: bool = False
     seed: int = 0
+    output_dir: str = "./output_dir"
     resume: str = ""
+    start_epoch: int = 0
+    clip_grad: Optional[float] = None
+    remat: bool = True          # recompute each block in the backward
+    remat_policy: str = "full"
+    remat_group: int = 1
     quantize: str = "none"
+    lm_head_chunk: int = 0
+
+    def absolute_lr(self, world_batch: int) -> float:
+        # lr = blr * eff_batch / 256 (reference: train.py:104-107)
+        if self.lr is not None:
+            return self.lr
+        return self.blr * world_batch / 256.0
+
+
+def check_train_ported(train: "TrainConfig") -> None:
+    """Refuse the training options the port does not run yet, naming the
+    ROADMAP item each waits for."""
+    check_quantize(train.quantize)
+    if train.remat_policy != "full":
+        raise NotImplementedError(
+            f"--remat_policy {train.remat_policy}: not ported yet (ROADMAP "
+            f"Queue 1, rest of training: the qkv remat policy)")
+    if train.remat_group != 1:
+        raise NotImplementedError(
+            f"--remat_group {train.remat_group}: not ported yet (ROADMAP "
+            f"Queue 1, rest of training: remat_group)")
+    if train.lm_head_chunk:
+        raise NotImplementedError(
+            f"--lm_head_chunk {train.lm_head_chunk}: not ported yet (ROADMAP "
+            f"Queue 1, rest of training: lm_ce_rowwise_chunked)")
+    if train.resume:
+        raise NotImplementedError(
+            "--resume: adapter checkpoints are not ported yet (ROADMAP "
+            "Queue 1, checkpoints)")
 
 
 @dataclass
@@ -120,10 +167,12 @@ class RunConfig:
 
 
 def get_args_parser() -> argparse.ArgumentParser:
-    """The evaluate subset of the JAX parser (core/config.py:227-325), with
-    the same flag names, plus --device."""
-    p = argparse.ArgumentParser("flipped_tpu_torch evaluate", add_help=False)
+    """The JAX parser (core/config.py:227-325) without the mesh and tracing
+    flags, with the same names and defaults, plus --device."""
+    p = argparse.ArgumentParser("flipped_tpu_torch", add_help=False)
     p.add_argument("--batch_size", default=8, type=int)
+    p.add_argument("--epochs", default=5, type=int)
+    p.add_argument("--accum_iter", default=1, type=int)
     p.add_argument("--llama_model_path", default="./pretrained/llama/", type=str)
     p.add_argument("--tokenizer_path", default="", type=str)
     p.add_argument("--model", default="llama7B", type=str)
@@ -131,10 +180,19 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--adapter_len", type=int, default=10)
     p.add_argument("--max_seq_len", type=int, default=128)
     p.add_argument("--max_feats", type=int, default=10)
+    p.add_argument("--weight_decay", type=float, default=0.14)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--blr", type=float, default=9e-2)
+    p.add_argument("--min_lr", type=float, default=0.0)
+    p.add_argument("--warmup_epochs", type=float, default=2.0)
     p.add_argument("--dataset", default="nextqa", type=str)
     p.add_argument("--data_root", default="./data", type=str)
+    p.add_argument("--output_dir", default="./output_dir")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--resume", default="")
+    p.add_argument("--start_epoch", default=0, type=int)
+    p.add_argument("--vaq", action="store_true")
+    p.add_argument("--qav", action="store_true")
     p.add_argument("--bias", type=float, default=3.0)
     p.add_argument("--tau", type=float, default=100.0)
     p.add_argument("--sub", action="store_true")
@@ -144,7 +202,13 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--audio_only", action="store_true")
     p.add_argument("--audio_merge", type=str, default="none",
                    choices=["sum", "concat", "attention", "none"])
+    p.add_argument("--loader", default="thread", choices=["thread", "grain"])
+    p.add_argument("--remat_policy", default="full", choices=["full", "qkv"])
+    p.add_argument("--remat_group", type=int, default=1)
     p.add_argument("--quantize", default="none", choices=QUANTIZE_CHOICES)
+    p.add_argument("--lm_head_chunk", type=int, default=0)
+    p.add_argument("--no_remat", action="store_true")
+    p.add_argument("--clip_grad", type=float, default=None)
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device to run on: cuda, cuda:N or cpu")
     return p
@@ -185,8 +249,15 @@ def run_config_from_args(args: argparse.Namespace) -> RunConfig:
         audio_merge=args.audio_merge,
         is_generation_task=args.is_generation_task, seed=args.seed)
     train = TrainConfig(
-        is_generation_task=args.is_generation_task, seed=args.seed,
-        resume=args.resume, quantize=args.quantize)
+        epochs=args.epochs, warmup_epochs=args.warmup_epochs,
+        accum_iter=args.accum_iter, blr=args.blr, lr=args.lr,
+        min_lr=args.min_lr, weight_decay=args.weight_decay, vaq=args.vaq,
+        qav=args.qav, is_generation_task=args.is_generation_task,
+        seed=args.seed, output_dir=args.output_dir, resume=args.resume,
+        start_epoch=args.start_epoch, clip_grad=args.clip_grad,
+        remat=not args.no_remat, remat_policy=args.remat_policy,
+        remat_group=args.remat_group, quantize=args.quantize,
+        lm_head_chunk=args.lm_head_chunk)
     return RunConfig(model=model, data=data, train=train,
                      llama_model_path=args.llama_model_path,
                      model_name=args.model,

@@ -9,7 +9,7 @@
 //   s[r, c] = -1e30     where c > r (causal) or c >= S (key padding)
 //   out[r]  = softmax(s[r]) @ v                          f32 softmax, P in bf16,
 //                                                        f32 accumulation
-//   lse[r]  = log sum_c exp(s[r, c])                     for the backward (K2)
+//   lse[r]  = log sum_c exp(s[r, c])                     read by the backward (K2)
 //
 // Layout: q, k, v, out are (B, S, H, Dh) bf16, read and written through their
 // batch/sequence/head strides with no transposed or padded copies; gate2 is
@@ -34,40 +34,25 @@
 // Tiles with the longest causal loop are scheduled first.
 // Not yet done (later work): cp.async/TMA double buffering of K/V, wgmma.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using flash::bf16;
+using flash::in_video_block;
+using flash::mma_16816;
+using flash::NEG_INF;
+using flash::pack_f32;
+using flash::pack_raw;
 
 constexpr int BQ = 64;  // q rows per block (4 warps x 16)
 constexpr int BK = 64;  // keys per K/V tile
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, f32 accumulation.
-__device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
@@ -172,10 +157,7 @@ flash_text_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int row = i < 2 ? r0 : r1;
         const int col = k0 + n * 8 + t * 2 + (i & 1);
         float s = sc[n][i] * scale;
-        if (vs >= 0 && row >= vs + max_feats && col >= vs &&
-            col < vs + max_feats) {
-          s += g2;
-        }
+        if (in_video_block(row, col, vs, max_feats)) s += g2;
         if (col > row || col >= S) s = NEG_INF;
         sc[n][i] = s;
         mx[i >> 1] = fmaxf(mx[i >> 1], s);

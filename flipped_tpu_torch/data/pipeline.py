@@ -1,0 +1,206 @@
+"""Input pipeline: per-process sharding, epoch shuffling, fixed-shape batches.
+
+The port's own copy of flipped_tpu/data/pipeline.py, kept here so that
+flipped_tpu_torch imports nothing of the JAX package. It differs in three
+places: the process index and count come from the caller (a single process
+is index 0 of 1; JAX read them from `jax.process_index()`), the Grain
+backend is not copied (`--loader grain` raises), and `pinned_eval_span`
+pins nothing in a single process.
+
+Replacement of the reference's DataLoader + DistributedSampler
+(reference: dataloader/__init__.py:19-24): each process reads its own
+contiguous shard of a seeded permutation (equivalent to DistributedSampler's
+rank slicing), tokenizes on the host CPU, and emits fixed-shape numpy
+batches. The final partial batch is padded by wrap-around with a `valid`
+count so eval statistics match drop_last=False semantics.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+from .batching import (add_accum_axis, mask_tail_rows, pack_eval_batch,
+                       pack_train_batch)
+from .datasets import VideoQADataset
+
+
+class Loader:
+    """Deterministic sharded loader with background prefetch."""
+
+    def __init__(self, dataset: VideoQADataset, batch_size: int,
+                 accum_iter: int = 1, shuffle: bool = True, seed: int = 0,
+                 split: str = "train", process_index: int = 0,
+                 process_count: int = 1, prefetch: int = 2,
+                 drop_last: Optional[bool] = None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.accum_iter = accum_iter
+        self.shuffle = shuffle
+        self.seed = seed
+        self.split = split
+        self.process_index = process_index
+        self.process_count = process_count
+        self.prefetch = prefetch
+        self.max_feats = dataset.max_feats
+        # fixed shapes: the tail batch is padded by wrap-around, with padded
+        # rows masked out of the loss (train) or sliced off by `valid`
+        # (eval) — reference DataLoader drop_last=False semantics
+        self.drop_last = False if drop_last is None else drop_last
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        # (reference: train.py:132-134 sampler.set_epoch)
+        self.epoch = epoch
+
+    def _indices(self) -> np.ndarray:
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed + self.epoch)
+            order = rng.permutation(n)
+        # DistributedSampler-style per-process slice with wrap-around padding
+        per = (n + self.process_count - 1) // self.process_count
+        padded = np.concatenate([order, order[:per * self.process_count - n]])
+        return padded[self.process_index::self.process_count]
+
+    def __len__(self):
+        n = len(self._indices())
+        group = self.batch_size * self.accum_iter
+        if self.drop_last:
+            return n // group
+        return (n + group - 1) // group
+
+    def _batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        idx = self._indices()
+        group = self.batch_size * self.accum_iter
+        n_batches = len(self)
+        for b in range(n_batches):
+            sel = idx[b * group:(b + 1) * group]
+            valid = len(sel)
+            if valid < group:  # pad tail by wrap-around (tiled: the shard
+                sel = np.concatenate(  # may be smaller than the deficit)
+                    [sel, np.resize(idx, group - valid)])
+            items = [self.dataset.get_item(int(i)) for i in sel]
+            if self.split == "train":
+                batch = pack_train_batch(items, self.max_feats)
+                if valid < group:
+                    mask_tail_rows(batch, valid)
+                batch = add_accum_axis(batch, self.accum_iter)
+            else:
+                batch = pack_eval_batch(items, self.max_feats)
+            batch["valid"] = np.asarray(valid, np.int32)
+            yield batch
+
+    def __iter__(self):
+        if self.prefetch <= 0:
+            yield from self._batches()
+            return
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        stop = threading.Event()
+        err: list = []
+
+        def worker():
+            try:
+                for b in self._batches():
+                    while not stop.is_set():  # bounded put so an abandoned
+                        try:                  # consumer (debug break, raise)
+                            q.put(b, timeout=0.1)  # doesn't pin this thread
+                            break              # + its batches forever
+                        except queue.Full:
+                            continue
+                    if stop.is_set():
+                        return
+            except BaseException as e:  # surface worker errors on the consumer
+                err.append(e)
+            finally:
+                while not stop.is_set():  # the sentinel must not be dropped
+                    try:                  # when the queue is full, or the
+                        q.put(sentinel, timeout=0.1)  # consumer blocks on
+                        break                         # q.get() forever
+                    except queue.Full:
+                        continue
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                b = q.get()
+                if b is sentinel:
+                    if err:
+                        raise err[0]
+                    return
+                yield b
+        finally:
+            stop.set()  # release the worker when the consumer goes away
+
+
+def dataset_eval_span(dataset: VideoQADataset) -> tuple:
+    """Global cached-scorer span bound over the WHOLE dataset, from text
+    features only (video/audio loading skipped via `text_only`).
+
+    A deterministic function of (dataset files, tokenizer) — both of which
+    every process loads in full (only index *selection* is sharded) — so
+    all processes compute identical values with NO collective. Replaces the
+    per-eval-batch `process_allgather` span agreement (round-2 verdict,
+    weak #3): the CLI pins this value into `make_eval_step(span_len=...)`
+    once, and multi-process eval then runs with zero host syncs per batch.
+
+    Costs one text-only tokenization pass over the dataset at setup (media
+    loading skipped); the result is memoized on the dataset object so
+    repeated pinning (train CLI + evaluate CLI, re-entry) pays it once.
+    """
+    from .batching import eval_span
+
+    cached = getattr(dataset, "_eval_span_cache", None)
+    if cached is not None:
+        return cached
+    need, exact = 1, True
+    old = dataset.text_only
+    dataset.text_only = True
+    try:
+        for i in range(len(dataset)):
+            f = dataset.get_item(i).features
+            n, e = eval_span(f.label["vqa"], f.prefix_index["vqa"])
+            need = max(need, n)
+            exact = exact and e
+    finally:
+        dataset.text_only = old
+    dataset._eval_span_cache = (need, exact)
+    return need, exact
+
+
+def pinned_eval_span(dataset, max_seq_len: int, process_count: int = 1):
+    """The shared policy for setup-time span pinning: multi-process
+    classification eval pins a bucketed dataset-level span so every process
+    runs the same eval program; a single process returns None and uses the
+    loader's pack-time scalars instead. Returns the span to pass as
+    make_eval_step(span_len=...), or None."""
+    if process_count <= 1:
+        return None
+    from ..train.step import bucket_span
+
+    need, exact = dataset_eval_span(dataset)
+    if not exact:   # impossible under this repo's masking; defensive
+        return None
+    return bucket_span(need, max_seq_len)
+
+
+def load_data(cfg, tokenizer, split: str = "train", accum_iter: int = 1,
+              process_index: int = 0, process_count: int = 1,
+              backend: str = "thread"):
+    """(reference: dataloader/__init__.py:15-26)"""
+    from .datasets import build_dataset
+
+    if backend != "thread":
+        raise NotImplementedError(
+            f"--loader {backend}: only the thread loader is ported (the Grain "
+            f"backend of flipped_tpu/data/pipeline.py is not copied)")
+    dataset = build_dataset(cfg, tokenizer, split)
+    return Loader(dataset, cfg.batch_size,
+                  accum_iter=accum_iter if split == "train" else 1,
+                  shuffle=split == "train", seed=cfg.seed, split=split,
+                  process_index=process_index, process_count=process_count)

@@ -1,0 +1,60 @@
+"""Synthetic NExT-QA fixtures, shaped like the reference's artifacts.
+
+The port's own writer of what `scripts/make_synthetic_data.py` writes for
+NExT-QA (train/val CSVs and the `clipvitl14.pth` feature dict; audio is
+not ported, so its feature files are not written), from the port's own
+vocabulary (`data.batching._WORDS`), so runs and tests of the port need
+nothing of the JAX package:
+
+    python -m flipped_tpu_torch.data.synthetic --root ./data --n 32
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from .batching import _WORDS
+
+NEXTQA_QTYPES = ("CH", "CW", "TN", "TC", "TP", "DL", "DC", "DO")
+
+
+def _features(path, vids, n_frames=16, dim=768, seed=0):
+    rs = np.random.RandomState(seed)
+    torch.save({v: torch.tensor(rs.randn(n_frames, dim).astype(np.float32))
+                for v in vids}, path)
+
+
+def make_nextqa(root, n, rs: np.random.RandomState):
+    """`n` train rows over `n` videos and max(n // 4, 2) val rows under
+    root/nextqa, drawn from `rs` (the same draws, in the same order, as the
+    script's `make_nextqa`)."""
+    d = os.path.join(root, "nextqa")
+    os.makedirs(d, exist_ok=True)
+    for split, count in (("train", n), ("val", max(n // 4, 2))):
+        rows = ["video,type,answer,question,a0,a1,a2,a3,a4"]
+        for i in range(count):
+            opts = ",".join(rs.choice(_WORDS) for _ in range(5))
+            rows.append(f"vid{i % n},{rs.choice(NEXTQA_QTYPES)},"
+                        f"{rs.randint(5)},what does the {rs.choice(_WORDS)} "
+                        f"do,{opts}")
+        with open(os.path.join(d, f"{split}.csv"), "w") as f:
+            f.write("\n".join(rows))
+    vids = [f"vid{i}" for i in range(n)]
+    _features(os.path.join(d, "clipvitl14.pth"), vids)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser("synthetic NExT-QA fixtures")
+    ap.add_argument("--root", default="./data")
+    ap.add_argument("--n", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    make_nextqa(args.root, args.n, np.random.RandomState(args.seed))
+    print(f"synthetic NExT-QA written under {args.root}/nextqa")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,12 @@
 """Build the CUDA sources under flipped_tpu_torch/csrc/ and load them.
 
-All `csrc/*.cu` files compile, with a plain C interface and no PyTorch
-headers, into one shared library:
+Each `csrc/*.cu` file compiles, with a plain C interface and no PyTorch
+headers, into an object, all nvcc processes started together; one more
+nvcc links the objects into one shared library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<hash>/libflipped_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+         -fPIC -Xptxas -v -c -o build/kernels/<hash>/<name>.o csrc/<name>.cu
+    nvcc -shared -o build/kernels/<hash>/libflipped_kernels.so *.o
 
 The library goes under `build/kernels/` at the repository root, in a
 directory named by a hash of the sources and flags, and is built at first
@@ -31,7 +33,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "libflipped_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class KernelBuildError(RuntimeError):
@@ -52,6 +54,12 @@ class KernelLibrary:
             + [ctypes.c_longlong] * 3                  # out strides b s h
             + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
         self.lib.flash_text_fwd.restype = ctypes.c_int
+        self.lib.flash_text_bwd.argtypes = (
+            [ctypes.c_void_p] * 13    # q k v out dout lse gate2 vs dq dk dv
+                                      # delta dg2_part
+            + [ctypes.c_int] * 5      # B S H Dh max_feats
+            + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
+        self.lib.flash_text_bwd.restype = ctypes.c_int
         self.lib.flash_error_string.argtypes = [ctypes.c_int]
         self.lib.flash_error_string.restype = ctypes.c_char_p
 
@@ -90,6 +98,50 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen); raise with the log of the first that
+    failed, after all have ended (no compiler is left running)."""
+    log, failed = "", None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, code, out = failed
+        raise KernelBuildError(
+            f"nvcc failed (exit {code}):\n{' '.join(cmd)}\n{out}")
+    return log
+
+
+def _compile_and_link(nvcc: str, out_dir: Path, lib_path: Path) -> str:
+    """One nvcc per source, all started together, then one link. The
+    library is written under a temp name and renamed, so a concurrent
+    loader never sees a half-written file."""
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(out_dir / f"{src.stem}.o"),
+               str(src)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = _run(procs)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc, "-shared", "-o", tmp,
+           *[str(out_dir / f"{src.stem}.o")
+             for src in sorted(CSRC.glob("*.cu"))]]
+    try:
+        log += _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))])
+    except KernelBuildError:
+        os.unlink(tmp)
+        raise
+    os.replace(tmp, lib_path)
+    return log
+
+
 def build(force: bool = False) -> KernelLibrary:
     """Compile csrc/*.cu (once per source hash) and load the library."""
     key = source_hash()
@@ -101,19 +153,7 @@ def build(force: bool = False) -> KernelLibrary:
     if force or not lib_path.exists():
         nvcc = find_nvcc()
         out_dir.mkdir(parents=True, exist_ok=True)
-        # build into a temp name and rename: a concurrent loader never sees
-        # a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise KernelBuildError(
-                f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        os.replace(tmp, lib_path)
+        log = _compile_and_link(nvcc, out_dir, lib_path)
         (out_dir / "build.log").write_text(log)
     elif (out_dir / "build.log").exists():
         log = (out_dir / "build.log").read_text()

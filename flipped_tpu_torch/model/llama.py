@@ -15,12 +15,19 @@ Only the last `adapter_layer` blocks exist and run, as in the reference
 (`layers[-adapter_layer:]`, JAX: llama.py:610-619); `layers` is a ModuleDict
 keyed by the absolute layer index, so names stay `layers.N.*`.
 Audio merges are not ported: `audio_merge` other than None raises.
+
+Every parameter is created with requires_grad=False; `train.optim.
+trainable_parameters` turns it on for the trainables, so a backward takes
+only dx through the frozen backbone. `remat=True` recomputes each block in
+the backward (`torch.utils.checkpoint`, the JAX "full" remat policy,
+llama.py:637-660).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import ModelConfig
 from .attention import chunk_extend_attention
@@ -70,8 +77,8 @@ class RMSNorm(nn.Module):
 
 class Attention(nn.Module):
     """Adapter-gated attention (JAX: llama.py:180-326). The dense forward and
-    `prefill` send segment B through the K1 kernel wrapper; `extend` runs
-    the plain chunk attention."""
+    `prefill` send segment B through K1 (and its backward through K2);
+    `extend` runs the plain chunk attention."""
 
     def __init__(self, cfg: ModelConfig, dtype, frozen_dtype, trainable_dtype,
                  device=None):
@@ -183,7 +190,7 @@ class FlippedVQAModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
                  frozen_dtype=torch.bfloat16, trainable_dtype=torch.float32,
-                 device=None):
+                 device=None, remat: bool = False):
         super().__init__()
         if cfg.audio_merge is not None:
             raise NotImplementedError(
@@ -191,6 +198,7 @@ class FlippedVQAModel(nn.Module):
                 f"ported yet")
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         self.tok_embeddings = Embedding(cfg.vocab_size, cfg.dim, frozen_dtype,
                                         device)
         first = cfg.n_layers - cfg.adapter_layer
@@ -249,8 +257,13 @@ class FlippedVQAModel(nn.Module):
         (B, S, dim) (JAX: llama.py:622-661)."""
         h = self._embed_and_splice(tokens, video_feature, splice_index)
         rope_cos, rope_sin = self._rope(tokens.shape[1])
+        remat = self.remat and torch.is_grad_enabled()
         for block, adapter in self._active_blocks():
-            h = block(h, rope_cos, rope_sin, adapter, video_start)
+            if remat:
+                h = checkpoint(block, h, rope_cos, rope_sin, adapter,
+                               video_start, use_reentrant=False)
+            else:
+                h = block(h, rope_cos, rope_sin, adapter, video_start)
         return self.norm(h)
 
     def lm_logits(self, h):

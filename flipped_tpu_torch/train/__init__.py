@@ -1,13 +1,19 @@
-from .builder import (build_eval_state, build_model, check_dtype_policy,
-                      init_params, resolve_model_config)
-from .objectives import (ce_ignore_index, option_scores, option_scores_cached,
+from .builder import (build_eval_state, build_model, build_train_state,
+                      check_dtype_policy, init_params, resolve_model_config)
+from .objectives import (Losses, ce_ignore_index, compute_objective_losses,
+                         fused_forward, option_scores, option_scores_cached,
                          token_ce_unreduced)
-from .optim import TRAINABLE_MARKERS, is_trainable
-from .step import bucket_span, make_eval_step, required_eval_span
+from .optim import (TRAINABLE_MARKERS, Optimizer, wd_mask, is_trainable,
+                    lr_schedule, make_optimizer, trainable_parameters)
+from .step import (TrainMetrics, bucket_span, make_eval_step, make_train_step,
+                   required_eval_span)
 
 __all__ = [
-    "build_eval_state", "build_model", "check_dtype_policy", "init_params",
-    "resolve_model_config", "ce_ignore_index", "option_scores",
-    "option_scores_cached", "token_ce_unreduced", "TRAINABLE_MARKERS",
-    "is_trainable", "bucket_span", "make_eval_step", "required_eval_span",
+    "build_eval_state", "build_model", "build_train_state",
+    "check_dtype_policy", "init_params", "resolve_model_config", "Losses",
+    "ce_ignore_index", "compute_objective_losses", "fused_forward",
+    "option_scores", "option_scores_cached", "token_ce_unreduced",
+    "TRAINABLE_MARKERS", "Optimizer", "wd_mask", "is_trainable",
+    "lr_schedule", "make_optimizer", "trainable_parameters", "TrainMetrics",
+    "bucket_span", "make_eval_step", "make_train_step", "required_eval_span",
 ]

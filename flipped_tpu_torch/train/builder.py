@@ -1,12 +1,12 @@
 """Model assembly (JAX: flipped_tpu/train/builder.py).
 
-`build_model` resolves the config and allocates the model on the target
-device; `init_params` fills every parameter the way the Flax initialisers
-do, from a `torch.Generator` on that device; `build_eval_state` adds the
-tokenizer. Loading a Meta or safetensors checkpoint is not ported yet: a
-run without one keeps the frozen backbone at random init, with the same
-warning as the JAX builder, and a run that finds one raises rather than
-ignore it.
+`build_model` resolves the config, allocates the model on the target
+device and marks the trainables requires_grad; `init_params` fills every
+parameter the way the Flax initialisers do, from a `torch.Generator` on
+that device; `build_train_state` and `build_eval_state` add the tokenizer.
+Loading a Meta or safetensors checkpoint is not ported yet: a run without
+one keeps the frozen backbone at random init, with the same warning as the
+JAX builder, and a run that finds one raises rather than ignore it.
 """
 from __future__ import annotations
 
@@ -17,11 +17,11 @@ from pathlib import Path
 
 import torch
 
-from flipped_tpu.text import load_tokenizer
-
-from ..core.config import MODEL_PRESETS, ModelConfig, RunConfig, check_quantize
+from ..core.config import (MODEL_PRESETS, ModelConfig, RunConfig,
+                           check_quantize, check_train_ported)
 from ..model.llama import FlippedVQAModel
-from .optim import is_trainable
+from ..text import load_tokenizer
+from .optim import is_trainable, trainable_parameters
 
 
 def resolve_model_config(run_cfg: RunConfig) -> ModelConfig:
@@ -48,12 +48,14 @@ def resolve_model_config(run_cfg: RunConfig) -> ModelConfig:
 
 
 def build_model(run_cfg: RunConfig, device, dtype=torch.bfloat16):
-    """→ (model with uninitialised parameters on `device`, cfg)."""
+    """→ (model with uninitialised parameters on `device`, trainables
+    marked requires_grad, cfg)."""
     check_quantize(run_cfg.train.quantize)
     cfg = resolve_model_config(run_cfg)
     model = FlippedVQAModel(cfg, dtype=dtype, frozen_dtype=dtype,
                             trainable_dtype=torch.float32,
                             device=torch.device(device))
+    trainable_parameters(model)
     return model, cfg
 
 
@@ -118,4 +120,16 @@ def build_eval_state(run_cfg: RunConfig, device, seed: int = 0,
     check_dtype_policy(model, dtype)
     print("WARNING: no LLaMA checkpoint found — frozen backbone stays "
           "randomly initialized (synthetic mode)")
+    return model, cfg, tokenizer
+
+
+def build_train_state(run_cfg: RunConfig, device, seed: int = 0,
+                      dtype=torch.bfloat16):
+    """→ (model, cfg, tokenizer) for training: parameters initialised,
+    trainables requires_grad, blocks rematerialised unless --no_remat
+    (JAX: builder.py:113-209). Refuses the training options the port does
+    not run yet."""
+    check_train_ported(run_cfg.train)
+    model, cfg, tokenizer = build_eval_state(run_cfg, device, seed, dtype)
+    model.remat = run_cfg.train.remat
     return model, cfg, tokenizer

@@ -1,15 +1,32 @@
-"""Classification-eval objectives (JAX: flipped_tpu/train/objectives.py).
+"""The three flipped objectives as one fused forward, and the
+classification-eval scorers (JAX: flipped_tpu/train/objectives.py).
 
-Scores reproduce the reference: per-token CE with ignore index 0, summed
-per option and divided by the count of NONZERO token losses (not the label
-mask), prediction = argmin. The training losses come with the training
-slice.
+Training: the enabled objectives (VQA always, VAQ, QAV) are stacked on the
+batch axis into one `encode`, with per-sequence `video_start` (-1 on QAV
+rows) in place of a Python gate2 branch. The LM head runs only on the VQA
+and VAQ rows; QAV is a CE over the F frames of h·vfᵀ/tau. VQA/VAQ use
+ignore index 0, QAV ignore index -1 (reference: model.py:233-235).
+
+Eval: per-token CE with ignore index 0, summed per option and divided by the
+count of NONZERO token losses (not the label mask), prediction = argmin.
+The chunked LM-head CE (`lm_ce_rowwise_chunked`, --lm_head_chunk) is not
+ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
+
+
+class Losses(NamedTuple):
+    vqa: torch.Tensor
+    vaq: torch.Tensor
+    qav: torch.Tensor
+
+    @property
+    def total(self):
+        return self.vqa + self.vaq + self.qav
 
 
 def ce_ignore_index(logits: torch.Tensor, labels: torch.Tensor,
@@ -33,6 +50,44 @@ def token_ce_unreduced(logits: torch.Tensor,
     logp = torch.log_softmax(logits, dim=-1)
     tok_ll = torch.gather(logp, -1, labels.long().clamp_min(0)[..., None])[..., 0]
     return torch.where(valid, -tok_ll, torch.zeros_like(tok_ll))
+
+
+def fused_forward(model, batch: Dict[str, torch.Tensor], vaq: bool,
+                  qav: bool):
+    """fuse + one stacked encode → ({objective: h (B, S, D)}, vf (B, F, D))
+    (JAX: objectives.py:109-131). Training batch keys: video (B, F, Dv) and,
+    per objective k, {k}_tokens/{k}_labels (B, S), {k}_video_start (B,),
+    {k}_splice (B, F)."""
+    vf = model.fuse(batch["video"])
+    b = batch["vqa_tokens"].shape[0]
+    keys = ["vqa"] + (["vaq"] if vaq else []) + (["qav"] if qav else [])
+    tokens = torch.cat([batch[f"{k}_tokens"] for k in keys])
+    vstart = torch.cat([batch[f"{k}_video_start"] for k in keys])
+    splice = torch.cat([batch[f"{k}_splice"] for k in keys])
+    h = model.encode(tokens, vf.repeat(len(keys), 1, 1), vstart, splice)
+    return {k: h[i * b:(i + 1) * b] for i, k in enumerate(keys)}, vf
+
+
+def compute_objective_losses(model, batch: Dict[str, torch.Tensor],
+                             vaq: bool, qav: bool) -> Losses:
+    """The three losses of one microbatch, dense LM head over the VQA and
+    VAQ rows only (JAX: objectives.py:134-175)."""
+    parts, vf = fused_forward(model, batch, vaq, qav)
+    zero = torch.zeros((), device=vf.device)
+    lm_keys = ["vqa"] + (["vaq"] if vaq else [])
+    b = batch["vqa_tokens"].shape[0]
+    logits = model.lm_logits(torch.cat([parts[k][:, :-1] for k in lm_keys]))
+
+    def lm_loss(k, idx):
+        return ce_ignore_index(logits[idx * b:(idx + 1) * b],
+                               batch[f"{k}_labels"][:, 1:], ignore_index=0)
+
+    vqa_loss = lm_loss("vqa", 0)
+    vaq_loss = lm_loss("vaq", 1) if vaq else zero
+    qav_loss = (ce_ignore_index(model.qav_logits(parts["qav"], vf),
+                                batch["qav_labels"][:, 1:], ignore_index=-1)
+                if qav else zero)
+    return Losses(vqa=vqa_loss, vaq=vaq_loss, qav=qav_loss)
 
 
 def option_scores(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -1,20 +1,65 @@
-"""Classification eval step (JAX: flipped_tpu/train/step.py:115-210).
+"""Train step with gradient accumulation, and the classification eval step
+(JAX: flipped_tpu/train/step.py).
 
 PyTorch runs eagerly, so the JAX jit wrappers and their compile-shape
 bucketing become plain calls; `bucket_span` is kept so both packages score
 the same answer window. Single-process only: the multi-process span
-agreement comes with the parallelism port.
+agreement and the dp all-reduce come with the parallelism port.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from flipped_tpu.data.batching import eval_span
+from ..data.batching import eval_span
+from .objectives import (compute_objective_losses, option_scores,
+                         option_scores_cached)
+from .optim import Optimizer
 
-from .objectives import option_scores, option_scores_cached
+
+class TrainMetrics(NamedTuple):
+    loss: torch.Tensor
+    vqa_loss: torch.Tensor
+    vaq_loss: torch.Tensor
+    qav_loss: torch.Tensor
+    grad_norm: torch.Tensor
+    lr: float
+
+
+def make_train_step(model, optimizer: Optimizer, vaq: bool, qav: bool):
+    """Returns train_step(batch) → TrainMetrics, one optimizer update per
+    call (JAX: step.py:35-87).
+
+    `batch` leaves have a leading accumulation axis (accum, B, ...): the
+    microbatches' gradients are summed and divided by accum, as the JAX
+    scan does (the reference's loss/accum_iter, engine.py:37-41).
+    grad_norm is the global norm of the averaged gradients, before
+    clipping."""
+
+    def train_step(batch: Dict[str, torch.Tensor]) -> TrainMetrics:
+        accum = batch["vqa_tokens"].shape[0]
+        optimizer.zero_grad()
+        per_micro = []
+        for i in range(accum):
+            losses = compute_objective_losses(
+                model, {k: v[i] for k, v in batch.items()}, vaq, qav)
+            losses.total.backward()
+            per_micro.append(torch.stack([losses.total.detach(),
+                                          *(x.detach() for x in losses)]))
+        grads = [p.grad for p in optimizer.params]
+        if accum > 1:
+            for g in grads:
+                g.div_(accum)
+        grad_norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        lr = optimizer.step(grad_norm)
+        loss, vqa_loss, vaq_loss, qav_loss = torch.stack(per_micro).mean(0)
+        return TrainMetrics(loss=loss, vqa_loss=vqa_loss, vaq_loss=vaq_loss,
+                            qav_loss=qav_loss, grad_norm=grad_norm, lr=lr)
+
+    return train_step
 
 
 def _host(x) -> np.ndarray:
