@@ -16,28 +16,43 @@ Phases; any failure prints its traceback and exits 1 without a result line:
   5. grads    the autograd.Function (K1 forward, K2 backward) against
               autograd through the plain formulation, all seven grads, at
               the training shape
-  6. timing   K1 and K2, kernel and plain version: device time by CUDA-graph
+  6. quant    K3 int8_fwd and K7 int8_grouped_fwd bitwise against their
+              plain versions, K4 quant_dx within the bound stated at K4_REL,
+              at odd-M unit shapes and every 7B main-path shape; then
+              through the autograd Functions int8_matmul and
+              int8_matmul_grouped at the w1/w3 shape
+  7. timing   K1 and K2, kernel and plain version: device time by CUDA-graph
               replay between CUDA events, host time per eager call; the
               library yardstick `scaled_dot_product_attention` with the
               gate2 + causal bias as a float mask (forward for K1, forward
               and backward for K2); and each kernel's bound from its bytes
-              and operations
-  7. train    `flipped_tpu_torch.cli.train.main` at LLaMA-7B width (dim
-              4096, 32 layers, random bf16 frozen weights from a seed),
-              --vaq --qav, batch 8, S 128, one epoch over 64 synthetic
-              NExT-QA items (8 updates) with remat, then its val eval: every
-              loss finite, 64 K1 and 32 K2 launches per update over the
-              epoch, frozen weights bitwise unchanged, no trainable moved by
-              update 1 (lr 0) and every trainable moved by update 2; then
-              the step without remat (the bench default) timed
-  8. eval     the classification eval at 7B width through
-              `flipped_tpu_torch.cli.evaluate.main`: 32 K1 launches per
-              scored batch, every score finite; one batch through the cached
-              and the dense eval steps, which must agree
-Each main path (7, 8) runs with the launch counts set to 0 just before it
+              and operations. K3, K7 and K4 the same way at the three
+              3072-row shapes, and K3 at the eval's prefill and extend
+              shapes, with the yardsticks `time_quant` names
+  8. train    `flipped_tpu_torch.cli.train.main` at LLaMA-7B width (dim
+              4096, 32 layers, random frozen weights from a seed), --vaq
+              --qav, batch 8, S 128, one epoch over 64 synthetic NExT-QA
+              items (8 updates) with remat, then its val eval, at --quantize
+              none, w8a8 and w8a8g, and one update at w8a8o: every loss
+              finite, the launches per update that `per_update` derives
+              from the code (bf16: 64 K1, 32 K2; w8a8: 576 K3 more; w8a8g
+              and w8a8o: 576 K7 and 288 K4 more), frozen weights bitwise
+              unchanged, no trainable moved by update 1 (lr 0) and every
+              trainable moved by update 2; the step without remat (the
+              bench default) timed at none and w8a8
+  9. eval     the classification eval at 7B width through
+              `flipped_tpu_torch.cli.evaluate.main` at --quantize none and
+              w8a8: 32 K1 (and under w8a8 576 K3) launches per scored batch,
+              every score finite; one batch through the cached and the dense
+              eval steps, which must agree
+ 10. paths    K3, K7 and K4 against their plain versions (as in 6) at every
+              (M, K, N) that phases 8 and 9 handed them, on the first
+              inputs each path gave at that shape
+Each main path (8, 9) runs with the launch counts set to 0 just before it
 and read just after. The last lines of stdout are the nvidia-smi line, a
 JSON line of the kernels and the contract line {"ok": true, "device": ...}.
 """
+import contextlib
 import json
 import math
 import os
@@ -127,6 +142,44 @@ K2_ABS_FLOOR = 1e-6
 # bound allows four times that.
 GRAD_REL = 2.0 ** -6
 SCORE_RTOL = 2e-2             # cached vs dense eval, both bf16
+
+# The int8 GEMMs of the quantized backbone: K3 (w8a8), K7 and K4 (w8a8g,
+# w8a8o). (M, K, N) for a Linear of K inputs and N outputs on M rows: unit
+# shapes with odd M (K not a multiple of 128 only for K3, which takes any
+# K % 16 == 0), then every 7B main-path shape: the 3072 rows of the stacked
+# training encode through wq/wk/wv/wo (4096 -> 4096), w1/w3 (4096 -> 11008)
+# and w2 (11008 -> 4096), and the 10 adapter rows through wk/wv.
+K3_SOURCE = "flipped_tpu_torch/csrc/int8_fwd.cu"
+K3_REPLACES = "flipped_tpu/model/pallas/quant_matmul.py:603"
+K7_SOURCE = "flipped_tpu_torch/csrc/int8_grouped_fwd.cu"
+K7_REPLACES = "flipped_tpu/model/pallas/quant_matmul.py:55"
+K4_SOURCE = "flipped_tpu_torch/csrc/quant_dx.cu"
+K4_REPLACES = "flipped_tpu/model/pallas/quant_matmul.py:316"
+TRAIN_M = 3 * TRAIN_B * TRAIN_S
+QUANT_UNIT = [(10, 256, 136), (37, 384, 256), (37, 272, 120)]
+QUANT_MAIN = {"wq/wk/wv/wo": (TRAIN_M, 4096, 4096),
+              "w1/w3": (TRAIN_M, 4096, 11008),
+              "w2": (TRAIN_M, 11008, 4096),
+              "adapter wk/wv": (ADAPTER_LEN, 4096, 4096)}
+# K3 timed at the w1/w3 shape of the eval too: the cached scorer's prefill
+# (batch 8 x S 128 rows) and its chunk extend (8 x 5 options x 8 tokens).
+# Every shape any main path hands K3, K7 or K4 is also held against the
+# plain version after the paths have run (`catch_quant_inputs`).
+K3_EVAL = {"eval prefill w1/w3": (TRAIN_B * TRAIN_S, 4096, 11008),
+           "eval extend w1/w3": (320, 4096, 11008)}
+# the shape of each kernel's row in the kernels line: the largest per call
+QUANT_ROW_SHAPE = "w1/w3"
+# K3 and K7 against their plain versions: bitwise. Both compute the same
+# IEEE operations in the same order (explicit __fmul_rn/__fadd_rn/__fdiv_rn
+# in the kernels, one op per tensor pass in the plain versions, exact integer
+# dots on both sides), so the count of unequal output elements must be 0.
+# K4 against its plain version (a cuBLAS bf16 product on the dequantized
+# weight, reduced-precision reductions off): the two f32 sums of N products
+# differ by at most N*2^-24*(|g|.|W|^T), and each rounds to bf16 once:
+#   |kernel - plain| <= 2^-7 |plain| + N 2^-24 (|g|.|W|^T)
+K4_REL = 2.0 ** -7
+# H100 SXM dense int8 tensor-core peak (NVIDIA data sheet, at 700 W)
+INT8_OP_PER_S = 1979e12
 
 
 def phase(name):
@@ -364,9 +417,9 @@ def check_grads(torch, fa):
     return worst
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
     """(least time in ms, what bounds it) at the card's published peaks."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -469,6 +522,241 @@ def time_k2(torch, fa):
     return t
 
 
+def quant_inputs(torch, m, k, n, seed):
+    """x (M, K) bf16 with one all-zero row and one large column (so group
+    scales differ), kq (N, K) int8 codes in [-127, 127], per-channel scale
+    (N,) and grouped scale (K/128, N) f32 (None where 128 does not divide
+    K), and a cotangent g (M, N) bf16, the weight scales as the synthetic
+    model draws them (1/(127 sqrt K)) times U(0.5, 1.5)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, k, device="cuda", generator=gen)
+    x[:, 3] *= 20.0
+    x[m // 2] = 0.0
+    x = x.to(torch.bfloat16)
+    kq = torch.randint(-127, 128, (n, k), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    base = 1.0 / (127.0 * math.sqrt(k))
+    scale = (torch.rand(n, device="cuda", generator=gen) + 0.5) * base
+    sg = ((torch.rand(k // 128, n, device="cuda", generator=gen) + 0.5)
+          * base if k % 128 == 0 else None)
+    g = torch.randn(m, n, device="cuda", generator=gen).to(torch.bfloat16)
+    return x, kq, scale, sg, g
+
+
+def unequal(torch, out, ref):
+    """Elements whose bf16 bit patterns differ (+0 and -0 counted equal)."""
+    bits = lambda t: torch.where(t == 0, torch.zeros_like(t), t).view(
+        torch.int16)
+    return int((bits(out) != bits(ref)).sum())
+
+
+def k4_ratio(torch, qm, dx, ref, g, kq, sg):
+    """max |kernel - plain| / bound (K4_REL), and max |kernel - plain|."""
+    n = kq.shape[0]
+    w = qm.dequant(kq, sg, torch.bfloat16).double()
+    bound = K4_REL * ref.double().abs() \
+        + n * 2.0 ** -24 * (g.double().abs() @ w.abs())
+    err = (dx.double() - ref.double()).abs()
+    ratio = float(torch.where(bound > 0, err / bound,
+                              torch.where(err > 0, math.inf, 0.0)).max())
+    return ratio, float(err.max())
+
+
+def hold_quant(torch, qm, kern, a, kq, scale, worst):
+    """One kernel call against its plain version on the same inputs (a is x,
+    or g for K4): K3 and K7 bitwise, K4 within its bound. Updates
+    worst[kern] with |kernel - plain| and returns a line for the log."""
+    wrapper, plain = {"k3": (qm.int8_fwd, qm.int8_fwd_ref),
+                      "k7": (qm.grouped_matmul, qm.grouped_matmul_ref),
+                      "k4": (qm.quant_dx, qm.quant_dx_ref)}[kern]
+    out = wrapper(a, kq, scale)
+    torch.cuda.synchronize()
+    ref = plain(a, kq, scale)
+    where = f"(M {a.numel() // a.shape[-1]}, K {kq.shape[1]}, N {kq.shape[0]})"
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError(f"{kern} non-finite at {where}")
+    err = float((out.double() - ref.double()).abs().max())
+    worst[kern] = max(worst[kern], err)
+    if kern == "k4":
+        ratio, _ = k4_ratio(torch, qm, out, ref, a, kq, scale)
+        if ratio > 1.0:
+            raise AssertionError(f"K4 off its plain version at {where}: "
+                                 f"{ratio:.3f} of the bound")
+        return f"K4 max|d|={err:.4g} ({ratio:.3f} of bound)"
+    bad = unequal(torch, out, ref)
+    if bad:
+        raise AssertionError(f"{kern.upper()} differs from its plain version "
+                             f"at {where} in {bad} elements (max |d| "
+                             f"{err:.4g})")
+    return f"{kern.upper()} unequal {bad} of {out.numel()}"
+
+
+def check_quant(torch, qm, worst):
+    """K3 and K7 bitwise against their plain versions, K4 within its bound,
+    at the unit and the 7B training shapes, on `quant_inputs`."""
+    cases = [(f"unit {s}", s) for s in QUANT_UNIT] + list(QUANT_MAIN.items())
+    for i, (name, (m, k, n)) in enumerate(cases):
+        x, kq, scale, sg, g = quant_inputs(torch, m, k, n, 300 + i)
+        msg = [hold_quant(torch, qm, "k3", x, kq, scale, worst)]
+        if sg is not None:
+            msg += [hold_quant(torch, qm, "k7", x, kq, sg, worst),
+                    hold_quant(torch, qm, "k4", g, kq, sg, worst)]
+        print(f"quant {name} (M {m}, K {k}, N {n}): " + ", ".join(msg),
+              flush=True)
+
+
+@contextlib.contextmanager
+def catch_quant_inputs(caught):
+    """While a main path runs, keep the first inputs of each distinct
+    (M, K, N) that it hands K3, K7 and K4 (by the names model/int8.py calls
+    them by) in caught[kernel][(M, K, N)] = [inputs, calls], so that each
+    kernel is held against its plain version afterwards at the path's own
+    shapes and values (`check_caught`). The kernels launch as before."""
+    from flipped_tpu_torch.model import int8 as q8
+
+    names = {"k3": "int8_fwd", "k7": "grouped_matmul", "k4": "quant_dx"}
+    orig = {kern: getattr(q8, name) for kern, name in names.items()}
+
+    def catching(kern):
+        def call(a, kq, scale):
+            key = (a.numel() // a.shape[-1], kq.shape[1], kq.shape[0])
+            if key not in caught[kern]:
+                # kept in host memory: the paths' peak device memory and
+                # the weights they free stay as they were
+                caught[kern][key] = [tuple(t.detach().to("cpu", copy=True)
+                                           for t in (a, kq, scale)), 0]
+            caught[kern][key][1] += 1
+            return orig[kern](a, kq, scale)
+        return call
+    for kern, name in names.items():
+        setattr(q8, name, catching(kern))
+    try:
+        yield
+    finally:
+        for kern, name in names.items():
+            setattr(q8, name, orig[kern])
+
+
+def check_caught(torch, qm, caught, worst):
+    """Every (M, K, N) the main paths handed a quant kernel, on the first
+    inputs the path gave it at that shape: K3 and K7 bitwise, K4 within its
+    bound."""
+    for kern, shapes in caught.items():
+        for (m, k, n), (inputs, calls) in sorted(shapes.items()):
+            line = hold_quant(torch, qm, kern,
+                              *(t.to("cuda") for t in inputs), worst)
+            print(f"{kern.upper()} at a main path's (M {m}, K {k}, N {n}), "
+                  f"{calls} calls: {line}", flush=True)
+    if not all(caught.values()):
+        raise AssertionError(f"a main path left a quant kernel uncalled: "
+                             f"{ {k: len(v) for k, v in caught.items()} }")
+
+
+def check_quant_autograd(torch, qm, q8):
+    """At the w1/w3 shape, through the autograd Functions: Int8Matmul (K3
+    forward, the exact bf16 dx) and Int8MatmulGrouped (K7 forward, K4
+    backward), against the plain versions."""
+    m, k, n = QUANT_MAIN["w1/w3"]
+    x, kq, scale, sg, g = quant_inputs(torch, m, k, n, 350)
+    before = (qm.int8_fwd.launches, qm.grouped_matmul.launches,
+              qm.quant_dx.launches)
+    xa, xb = (x.detach().requires_grad_() for _ in range(2))
+    ya = q8.int8_matmul(xa, kq, scale)
+    ya.backward(g)
+    yb = q8.int8_matmul_grouped(xb, kq, sg)
+    yb.backward(g)
+    torch.cuda.synchronize()
+    after = (qm.int8_fwd.launches, qm.grouped_matmul.launches,
+             qm.quant_dx.launches)
+    if tuple(a - b for a, b in zip(after, before)) != (1, 1, 1):
+        raise AssertionError(f"autograd launches {before} -> {after}")
+    w = qm.dequant(kq, scale, torch.bfloat16)
+    bad_a = unequal(torch, ya, qm.int8_fwd_ref(x, kq, scale)) \
+        + unequal(torch, xa.grad, g @ w)
+    bad_b = unequal(torch, yb, qm.grouped_matmul_ref(x, kq, sg))
+    ratio, err = k4_ratio(torch, qm, xb.grad, qm.quant_dx_ref(g, kq, sg), g,
+                          kq, sg)
+    print(f"autograd (M {m}, K {k}, N {n}): int8_matmul out and dx unequal "
+          f"{bad_a}; int8_matmul_grouped out unequal {bad_b}, dx (K4) max|d|"
+          f"={err:.4g} ({ratio:.3f} of bound)", flush=True)
+    if bad_a or bad_b or ratio > 1.0:
+        raise AssertionError("the autograd Functions disagree with the plain "
+                             "versions")
+
+
+def quant_bound(m, k, n, scale_floats, dx=False):
+    """x (M, K) or, for dx, g (M, N) read, kq read once, the scales read,
+    the output written; 2 M K N products at the int8 peak, or for dx at the
+    bf16 peak. The quantize pass's write and read of xq is the kernels' own
+    traffic, not the function's."""
+    act = m * n + m * k
+    peak = BF16_FLOP_PER_S if dx else INT8_OP_PER_S
+    return bound_ms(2 * act + n * k + 4 * scale_floats, 2.0 * m * k * n, peak)
+
+
+def time_k3(torch, qm, m, k, n):
+    """K3 and its plain version (`timed`), its bound, and its yardsticks:
+    `torch._int_mm` on operands quantized beforehand (the int8 GEMM alone:
+    no quantize pass, no scales, int32 out), with B the (N, K) weight as
+    stored, i.e. column-major (K, N), the layout cuBLASLt's int8 path
+    takes without a copy — and, as an aside, on a row-major copy of it —
+    and a bf16 `F.linear` on the dequantized weight (no int8 at all)."""
+    import torch.nn.functional as F
+
+    x, kq, scale, _, _ = quant_inputs(torch, m, k, n, 400)
+    t = timed(torch, lambda: qm.int8_fwd(x, kq, scale),
+              lambda: qm.int8_fwd_ref(x, kq, scale))
+    xq = qm.quantize_act(x)[0].to(torch.int8)
+    kq_t, kq_kn = kq.t(), kq.t().contiguous()
+    t["library_ms"] = device_ms(torch, lambda: torch._int_mm(xq, kq_t))
+    t["int_mm_row_major_ms"] = device_ms(torch,
+                                         lambda: torch._int_mm(xq, kq_kn))
+    w = qm.dequant(kq, scale, torch.bfloat16)
+    t["linear_ms"] = device_ms(torch, lambda: F.linear(x, w))
+    t["bound_ms"], t["bound_by"] = quant_bound(m, k, n, n)
+    return t
+
+
+def time_quant(torch, qm):
+    """K3, K7 and K4 at the three 3072-row shapes, and K3 at the eval's
+    w1/w3 shapes: kernel and plain version (`timed`), the bound, and the
+    library yardsticks: for K3 those of `time_k3`; for K4 a cuBLAS bf16
+    product on the weight dequantized beforehand (no dequantize); for K7
+    none (no PyTorch call computes a grouped-scale int8 product)."""
+    times = {"k3": {}, "k7": {}, "k4": {}}
+    for name in ("wq/wk/wv/wo", "w1/w3", "w2", *K3_EVAL):
+        m, k, n = QUANT_MAIN.get(name) or K3_EVAL[name]
+        rows = [("K3", time_k3(torch, qm, m, k, n))]
+        times["k3"][name] = rows[0][1]
+        if name not in K3_EVAL:
+            x, kq, _, sg, g = quant_inputs(torch, m, k, n, 400)
+            t7 = timed(torch, lambda: qm.grouped_matmul(x, kq, sg),
+                       lambda: qm.grouped_matmul_ref(x, kq, sg))
+            t7["library_ms"] = None
+            t7["bound_ms"], t7["bound_by"] = quant_bound(m, k, n, sg.numel())
+            t4 = timed(torch, lambda: qm.quant_dx(g, kq, sg),
+                       lambda: qm.quant_dx_ref(g, kq, sg))
+            wd = qm.dequant(kq, sg, torch.bfloat16)
+            t4["library_ms"] = device_ms(torch, lambda: torch.matmul(g, wd))
+            t4["bound_ms"], t4["bound_by"] = quant_bound(
+                m, k, n, sg.numel(), dx=True)
+            rows += [("K7", t7), ("K4", t4)]
+            times["k7"][name], times["k4"][name] = t7, t4
+        for kern, t in rows:
+            lib = ("none" if t["library_ms"] is None
+                   else f"{t['library_ms']:.5f} ms")
+            extra = (f" (row-major B {t['int_mm_row_major_ms']:.5f} ms), "
+                     f"bf16 F.linear {t['linear_ms']:.5f} ms"
+                     if kern == "K3" else "")
+            print(f"{kern} timing {name} (M {m}, K {k}, N {n}): device kernel "
+                  f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, library "
+                  f"{lib}{extra}, bound {t['bound_ms']:.5f} ms "
+                  f"({t['bound_by']}); runs {t['runs']}; host per eager "
+                  f"call: kernel {t['host_us']:.1f} us, plain "
+                  f"{t['plain_host_us']:.1f} us", flush=True)
+    return times
+
+
 def write_fixtures(root):
     import numpy as np
 
@@ -487,10 +775,43 @@ def cli_args(data_root, *extra):
          os.path.join(WORK, "no_checkpoint"), *extra])
 
 
-def run_train_slice(torch, fa, data_root):
-    """The train CLI with its build, step and val entry points wrapped to
-    watch them: snapshots of the parameters, every update's metrics, and
-    the launch counts when the val eval starts."""
+def counters(fa, qm):
+    """Every kernel's wrapper, whose `launches` the main paths are read by."""
+    return {"k1": fa.flash_text_attention, "k2": fa.flash_text_attention_bwd,
+            "k3": qm.int8_fwd, "k7": qm.grouped_matmul, "k4": qm.quant_dx}
+
+
+def read_counts(fa, qm):
+    return {k: f.launches for k, f in counters(fa, qm).items()}
+
+
+def zero_counts(fa, qm):
+    for f in counters(fa, qm).values():
+        f.launches = 0
+
+
+def per_update(quantize, blocks):
+    """Launches per training update with remat, from the code: each block's
+    forward runs twice (the update's forward and its recompute in the
+    backward) and its backward once. A block forward launches K1 once and
+    has 9 quantized matmuls: wq, wk, wv, wo, w1, w3, w2 on the stacked rows
+    and wk, wv on the adapter rows (model/llama.py) — each K3 under w8a8,
+    K7 under w8a8g/w8a8o, whose backward launches K4 once each; the LM head
+    is weight-only (no kernel). K2 runs once per block backward."""
+    fwd = 2 * blocks
+    return {"k1": fwd, "k2": blocks,
+            "k3": 9 * fwd if quantize == "w8a8" else 0,
+            "k7": 9 * fwd if quantize in ("w8a8g", "w8a8o") else 0,
+            "k4": 9 * blocks if quantize in ("w8a8g", "w8a8o") else 0}
+
+
+def run_train_slice(torch, fa, qm, data_root, caught, quantize="none",
+                    debug=False):
+    """The train CLI at --quantize `quantize` (--debug: one update and one
+    val batch) with its build, step and val entry points wrapped to watch
+    them: snapshots of the parameters, every update's metrics, and the
+    launch counts when the val eval starts; the quant kernels' inputs go to
+    `caught`."""
     from flipped_tpu_torch.cli import train as train_cli
 
     watch = {"metrics": [], "snaps": []}
@@ -518,62 +839,68 @@ def run_train_slice(torch, fa, data_root):
         return watched
 
     def val(*a, **kw):
-        watch["at_val"] = (fa.flash_text_attention.launches,
-                           fa.flash_text_attention_bwd.launches)
+        watch["at_val"] = read_counts(fa, qm)
         return orig[2](*a, **kw)
 
     args = cli_args(data_root, "--vaq", "--qav", "--epochs", "1",
-                    "--output_dir", "")
+                    "--output_dir", "", "--quantize", quantize,
+                    *(["--debug"] if debug else []))
     train_cli.build_train_state, train_cli.make_train_step, \
         train_cli.val_one_epoch = build, make_step, val
     try:
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_text_attention.launches = 0
-        fa.flash_text_attention_bwd.launches = 0
+        zero_counts(fa, qm)
         t0 = time.perf_counter()
-        model, history = train_cli.main(args)
+        with catch_quant_inputs(caught):
+            model, history = train_cli.main(args)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {"k1": fa.flash_text_attention.launches,
-                    "k2": fa.flash_text_attention_bwd.launches}
+        launches = read_counts(fa, qm)
     finally:
         train_cli.build_train_state, train_cli.make_train_step, \
             train_cli.val_one_epoch = orig
     steps = len(watch["metrics"])
-    k1_train, k2_train = watch["at_val"]
-    print(f"train: main took {seconds:.3f} s (7B init and val eval "
-          f"included), {steps} updates, launches over the epoch K1 "
-          f"{k1_train}, K2 {k2_train}; over the whole run K1 "
-          f"{launches['k1']}, K2 {launches['k2']}; peak allocated "
+    epoch = watch["at_val"]
+    print(f"train --quantize {quantize}: main took {seconds:.3f} s (7B init "
+          f"and val eval included), {steps} updates, launches over the "
+          f"epoch {epoch}, over the whole run {launches}; peak allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
     for i, m in enumerate(watch["metrics"]):
         print(f"  update {i + 1}: loss {m[0]:.6f} (vqa {m[1]:.6f}, vaq "
               f"{m[2]:.6f}, qav {m[3]:.6f}), grad_norm {m[4]:.6g}, lr "
               f"{m[5]:.6g}", flush=True)
     print(f"  history: {json.dumps(history)}", flush=True)
-    if steps != N_TRAIN_ITEMS // TRAIN_B:
-        raise AssertionError(f"expected {N_TRAIN_ITEMS // TRAIN_B} updates, "
-                             f"ran {steps}")
+    want_steps = 1 if debug else N_TRAIN_ITEMS // TRAIN_B
+    if steps != want_steps:
+        raise AssertionError(f"expected {want_steps} updates, ran {steps}")
     if not all(math.isfinite(x) for m in watch["metrics"] for x in m):
         raise AssertionError("a training metric is not finite")
-    blocks = len(model.layers)      # 32 at 7B: K1 runs twice with remat
-    if (k1_train, k2_train) != (2 * blocks * steps, blocks * steps):
-        raise AssertionError(f"launches over the epoch K1 {k1_train}, K2 "
-                             f"{k2_train}: want {2 * blocks} and {blocks} "
-                             f"per update")
-    if launches["k2"] != k2_train or launches["k1"] <= k1_train:
-        raise AssertionError("the val eval should launch K1 and not K2")
+    blocks = len(model.layers)      # 32 at 7B
+    want = {k: v * steps for k, v in per_update(quantize, blocks).items()}
+    print(f"  launches per update {per_update(quantize, blocks)} (from the "
+          f"code), over the epoch want {want}", flush=True)
+    if epoch != want:
+        raise AssertionError(f"launches over the epoch {epoch}, want {want}")
+    fwd_kernel = {"none": "k1", "w8a8": "k3"}.get(quantize, "k7")
+    if (launches["k2"] != epoch["k2"] or launches["k4"] != epoch["k4"]
+            or launches["k1"] <= epoch["k1"]
+            or launches[fwd_kernel] <= epoch[fwd_kernel]):
+        raise AssertionError("the val eval should launch the forward "
+                             "kernels and no backward kernel")
     for n, p in model.named_parameters():
         if not p.requires_grad and not torch.equal(p, watch["frozen0"][n]):
             raise AssertionError(f"frozen weight {n} changed")
-    init, after1, after2 = watch["snaps"]
-    moved1 = [n for n in init if not torch.equal(init[n], after1[n])]
-    still2 = [n for n in init if torch.equal(after1[n], after2[n])]
+    init, *after = watch["snaps"]
+    moved1 = [n for n in init if not torch.equal(init[n], after[0][n])]
+    still2 = ([n for n in init if torch.equal(after[0][n], after[1][n])]
+              if len(after) > 1 else [])
     if moved1 or still2:
         raise AssertionError(f"update 1 (lr 0) moved {moved1}; update 2 "
                              f"left {still2} unchanged")
     print(f"  frozen weights bitwise unchanged; update 1 moved none of the "
-          f"{len(init)} trainables, update 2 moved all of them", flush=True)
+          f"{len(init)} trainables"
+          + (", update 2 moved all of them" if len(after) > 1 else ""),
+          flush=True)
     del watch
     return model, args, launches
 
@@ -618,38 +945,57 @@ def time_train_step(torch, model, args, n=5):
             raise AssertionError("non-finite loss in the timed updates")
     med = sorted(secs)[len(secs) // 2]
     peak = torch.cuda.max_memory_allocated()
-    print(f"train step without remat: {med:.5f} s/step (median of {n}: "
+    print(f"train step --quantize {args.quantize} without remat: "
+          f"{med:.5f} s/step (median of {n}: "
           f"{', '.join(f'{x:.5f}' for x in secs)}), {TRAIN_B / med:.3f} "
           f"examples/s, peak allocated {peak / 2**30:.3f} GiB", flush=True)
     return med, peak
 
 
-def run_eval_slice(torch, fa, data_root):
-    from flipped_tpu_torch.cli import evaluate
+def eval_per_batch(quantize, blocks):
+    """Launches per scored batch of the cached scorer, from the code: its
+    prefill and its chunk extend each run every block once; K1 runs in the
+    prefill only, and under w8a8 each pass has 9 quantized matmuls per block
+    (K3)."""
+    return {"k1": blocks, "k2": 0,
+            "k3": 18 * blocks if quantize == "w8a8" else 0, "k7": 0, "k4": 0}
 
-    args = cli_args(data_root)
+
+def run_eval_slice(torch, fa, qm, data_root, caught, quantize="none"):
+    """The eval CLI at --quantize `quantize`. Both val batches of the
+    fixture take the cached scorer (their answer spans are exact). The quant
+    kernels' inputs go to `caught`."""
+    from flipped_tpu_torch.cli import evaluate
+    from flipped_tpu_torch.core.config import run_config_from_args
+    from flipped_tpu_torch.train.builder import resolve_model_config
+
+    args = cli_args(data_root, "--quantize", quantize)
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_text_attention.launches = 0
-    fa.flash_text_attention_bwd.launches = 0
+    zero_counts(fa, qm)
     t0 = time.perf_counter()
-    stats = evaluate.main(args)
+    with catch_quant_inputs(caught):
+        stats = evaluate.main(args)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = fa.flash_text_attention.launches
+    launches = read_counts(fa, qm)
     peak = torch.cuda.max_memory_allocated()
-    print(f"eval: evaluate.main took {seconds:.3f} s (7B init included), "
-          f"{stats['batches']} batches, K1 launches {launches}, K2 launches "
-          f"{fa.flash_text_attention_bwd.launches}, peak allocated "
-          f"{peak / 2**30:.3f} GiB", flush=True)
+    print(f"eval --quantize {quantize}: evaluate.main took {seconds:.3f} s "
+          f"(7B init included), {stats['batches']} batches, launches "
+          f"{launches}, peak allocated {peak / 2**30:.3f} GiB", flush=True)
     if stats["batches"] != 2:
         raise AssertionError(f"expected 2 val batches, got {stats['batches']}")
-    if launches != 32 * stats["batches"]:
-        raise AssertionError(f"K1 launched {launches} times for "
-                             f"{stats['batches']} batches (want 32 each)")
+    blocks = resolve_model_config(run_config_from_args(args)).adapter_layer
+    want = {k: v * stats["batches"]
+            for k, v in eval_per_batch(quantize, blocks).items()}
+    if launches != want:
+        raise AssertionError(f"eval launches {launches}, want {want}")
     return args
 
 
-def compare_cached_dense(torch, args):
+def compare_cached_dense(torch, args, caught):
+    """One val batch through the cached and the dense eval steps: scores
+    finite and in agreement, s/batch of each; the warm-up calls' quant
+    kernel inputs go to `caught`."""
     from flipped_tpu_torch.cli.evaluate import batch_to_device
     from flipped_tpu_torch.core.config import run_config_from_args
     from flipped_tpu_torch.data.datasets import build_dataset
@@ -670,7 +1016,8 @@ def compare_cached_dense(torch, args):
              "dense": make_eval_step(model, cached=False)}
     outs, secs = {}, {}
     for name, step in steps.items():
-        outs[name] = step(tb, span_info=span)          # warm-up
+        with catch_quant_inputs(caught):
+            outs[name] = step(tb, span_info=span)      # warm-up
         torch.cuda.synchronize()
         runs = []
         for _ in range(3):
@@ -711,8 +1058,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
+    from flipped_tpu_torch.model import int8 as q8
     from flipped_tpu_torch.model.kernels import build as kbuild
     from flipped_tpu_torch.model.kernels import flash_attention as fa
+    from flipped_tpu_torch.model.kernels import quant_matmul as qm
 
     phase("build")
     t0 = time.perf_counter()
@@ -731,33 +1080,67 @@ def main() -> int:
     phase("attention grads")
     check_grads(torch, fa)
 
+    phase("K3 / K7 / K4 vs plain")
+    # K4's plain version is a cuBLAS bf16 product: its sums stay in f32 for
+    # the comparison and the timing (the model's own GEMMs keep the default)
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    quant_err = {"k3": 0.0, "k7": 0.0, "k4": 0.0}
+    check_quant(torch, qm, quant_err)
+    check_quant_autograd(torch, qm, q8)
+
     phase("timing")
     k1_times = time_k1(torch, fa)
     k2_time = time_k2(torch, fa)
+    quant_times = time_quant(torch, qm)
+    matmul.allow_bf16_reduced_precision_reduction = reduced
 
     data_root = os.path.join(WORK, "data")
     write_fixtures(data_root)
 
-    phase("train")
-    model, args, train_launches = run_train_slice(torch, fa, data_root)
-    time_train_step(torch, model, args)
-    del model
-    torch.cuda.empty_cache()
+    launches, caught = {}, {"k3": {}, "k7": {}, "k4": {}}
+    for quantize, debug in (("none", False), ("w8a8", False),
+                            ("w8a8g", False), ("w8a8o", True)):
+        phase(f"train --quantize {quantize}"
+              + (", one update" if debug else ""))
+        model, args, launches[quantize] = run_train_slice(
+            torch, fa, qm, data_root, caught, quantize, debug)
+        if quantize in ("none", "w8a8"):
+            time_train_step(torch, model, args)
+        del model
+        torch.cuda.empty_cache()
 
-    phase("eval")
-    compare_cached_dense(torch, run_eval_slice(torch, fa, data_root))
+    for quantize in ("none", "w8a8"):
+        phase(f"eval --quantize {quantize}")
+        compare_cached_dense(torch, run_eval_slice(torch, fa, qm, data_root,
+                                                   caught, quantize), caught)
+        torch.cuda.empty_cache()
+
+    phase("K3 / K7 / K4 vs plain at the main paths' shapes")
+    matmul.allow_bf16_reduced_precision_reduction = False
+    check_caught(torch, qm, caught, quant_err)
+    matmul.allow_bf16_reduced_precision_reduction = reduced
+    del caught
 
     if any(m in ("jax", "flipped_tpu") or m.startswith(("jax.", "flipped_tpu."))
            for m in sys.modules):
         raise AssertionError("the port pulled in jax or the JAX package")
     rows = []
-    for name, source, replaces, launches, err, t in (
-            ("flash_text_fwd", K1_SOURCE, K1_REPLACES, train_launches["k1"],
-             k1_err, k1_times["train"]),
-            ("flash_text_bwd", K2_SOURCE, K2_REPLACES, train_launches["k2"],
-             k2_err, k2_time)):
+    for name, source, replaces, count, err, t in (
+            ("flash_text_fwd", K1_SOURCE, K1_REPLACES,
+             launches["none"]["k1"], k1_err, k1_times["train"]),
+            ("flash_text_bwd", K2_SOURCE, K2_REPLACES,
+             launches["none"]["k2"], k2_err, k2_time),
+            ("int8_fwd", K3_SOURCE, K3_REPLACES, launches["w8a8"]["k3"],
+             quant_err["k3"], quant_times["k3"][QUANT_ROW_SHAPE]),
+            ("int8_grouped_fwd", K7_SOURCE, K7_REPLACES,
+             launches["w8a8g"]["k7"], quant_err["k7"],
+             quant_times["k7"][QUANT_ROW_SHAPE]),
+            ("quant_dx", K4_SOURCE, K4_REPLACES, launches["w8a8g"]["k4"],
+             quant_err["k4"], quant_times["k4"][QUANT_ROW_SHAPE])):
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches,
+                     "replaces": replaces, "launches": count,
                      "max_abs_err": err, "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],

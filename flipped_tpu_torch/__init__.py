@@ -10,11 +10,13 @@ Layer map (mirrors flipped_tpu):
   core/           config dataclasses and the CLI parser
   text/           tokenizers, prompt encoders, label masking (copies)
   data/           dataset readers, loader, batching (copies), fixture writer
-  model/          adapter-gated LLaMA as nn.Modules, plain attention math
+  model/          adapter-gated LLaMA as nn.Modules, plain attention math,
+                  the w8a8 autograd Functions (int8.py)
   model/kernels/  hand-written CUDA kernels: build, bind, plain twins,
-                  the autograd.Function around K1 and K2
+                  the autograd.Function around K1 and K2, the int8 GEMMs
   csrc/           CUDA C++ sources (sm_90a), built at first use
-  ckpt/           Flax-tree → reference state_dict conversion
+  ckpt/           Flax-tree → reference state_dict conversion, int8
+                  quantization of the frozen backbone
   train/          objectives, train and eval steps, AdamW, builder
   utils/          a minimal metric logger and the qtype buckets
   cli/            the train, evaluate and profile entry points

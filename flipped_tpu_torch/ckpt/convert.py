@@ -15,6 +15,19 @@ every leaf, trainables included:
 
 Flax kernels are (in, out) and torch Linear weights (out, in), so every
 `kernel` leaf transposes. Gates keep their (H,) shape.
+
+The quantized leaves of a frozen Linear (--quantize int8*/w8a8*) keep their
+Flax leaf names, and their dtypes end to end:
+
+    layers_N/attention/wq/kernel_q  (K, N) int8  → layers.N.attention.wq.kernel_q
+                                                   (N, K) int8, transposed
+    .../scale    (N,) or (G, N) f32              → .scale, not transposed
+    .../out_idx  (n_out,) int32                  → .out_idx
+    .../out_w    (n_out, N) bf16                 → .out_w, not transposed
+
+kernel_q is stored (N, K), the reference's `weight` layout: K-contiguous,
+which is how K3 and K7 read their B operand, and K4 transposes its tile in
+shared memory (ckpt/quantize.py).
 """
 from __future__ import annotations
 
@@ -49,17 +62,23 @@ def flax_path_to_torch_name(path: str) -> str:
 
 
 def needs_transpose(path: str) -> bool:
-    """Every Flax `kernel` is (in, out); its torch weight is (out, in)."""
-    return path.rsplit("/", 1)[-1] == "kernel"
+    """Every Flax `kernel` (and int8 `kernel_q`) is (in, out); its torch
+    leaf is (out, in)."""
+    return path.rsplit("/", 1)[-1] in ("kernel", "kernel_q")
 
 
 def params_from_flax(flax_params) -> Dict[str, torch.Tensor]:
-    """Flax param tree (leaves as numpy or jax arrays) → state_dict of f32
-    CPU tensors; `load_state_dict` casts them to each parameter's dtype."""
+    """Flax param tree (leaves as numpy or jax arrays) → state_dict of CPU
+    tensors: integer leaves (kernel_q int8, out_idx int32) keep their
+    dtype, float leaves become f32; `load_state_dict` casts them to each
+    parameter's dtype."""
     sd = {}
     for path, leaf in flatten_flax(flax_params).items():
-        arr = np.asarray(leaf, dtype=np.float32)
+        arr = np.asarray(leaf)
+        if not np.issubdtype(arr.dtype, np.integer):
+            arr = arr.astype(np.float32)
         if needs_transpose(path):
             arr = arr.T
-        sd[flax_path_to_torch_name(path)] = torch.tensor(arr)
+        sd[flax_path_to_torch_name(path)] = torch.tensor(
+            np.ascontiguousarray(arr))
     return sd

@@ -10,9 +10,10 @@ the argmin. Batches come from the port's copies of the JAX package's
 numpy readers and loader (`flipped_tpu_torch.data`), which the tests hold
 equal to the originals.
 
-Not ported yet, and raising rather than ignored: --resume (adapter
-checkpoints), --is_generation_task (generation eval), audio merges, and
-every --quantize mode other than 'none'.
+--quantize runs the int8 frozen-backbone modes (int8, int8g, int8o, w8a8,
+w8a8g, w8a8o). Not ported yet, and raising rather than ignored: --resume
+(adapter checkpoints), --is_generation_task (generation eval), audio
+merges, and the other --quantize modes (`core.config.check_quantize`).
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
     python -m flipped_tpu_torch.cli.profile --mode train --model llama7B \
         --data_root ./data --batch_size 8 --max_seq_len 128 --vaq --qav \
-        --no_remat --output_dir '' --device cuda
+        --no_remat --output_dir '' --quantize w8a8 --device cuda
 
 The card's name and power limit come from nvidia-smi. Builds the model the
 CLIs build (random weights from the seed), takes one batch from the loader,
@@ -12,8 +12,9 @@ doubles the wall time), each step ending in `torch.cuda.synchronize()`.
 Prints one JSON line: wall seconds per step without and with the profiler,
 device busy seconds per step (the union of kernel intervals) and its share
 of the profiled window's wall time, kernel launches per step, device time by
-kernel class (bf16 and f32 GEMMs, the port's flash kernels, other), and the
-top kernels by device time.
+kernel class (bf16 and f32 GEMMs, the port's flash kernels, its int8 GEMMs
+K3/K7 and its quantized dx K4, other), and the top kernels by device time.
+`--quantize` builds the model it names, as the CLIs do.
 """
 from __future__ import annotations
 
@@ -38,6 +39,11 @@ def kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_text" in low or "flash_bwd" in low:
         return "flash (K1/K2)"
+    # before "gemm": K3 and K7 are int8_gemm_kernel plus their quantize pass
+    if "int8_gemm" in low or "quantize_rows" in low:
+        return "int8 GEMM (K3/K7)"
+    if "quant_dx" in low:
+        return "quant dx (K4)"
     if any(m in low for m in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "gemm f32" if "f32f32" in low else "gemm"
     return "other"
@@ -125,7 +131,8 @@ def main(argv=None) -> dict:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    out = {"mode": opts.mode, "remat": model.remat, "card": card,
+    out = {"mode": opts.mode, "remat": model.remat,
+           "quantize": run_cfg.train.quantize, "card": card,
            **summarize(prof, STEPS, wall, wall_plain)}
     print(json.dumps(out))
     return out

@@ -8,7 +8,9 @@ The port of flipped_tpu/cli/train.py (reference train.py + engine.py), in
 one process with no mesh: loaders → model build → optimizer → epoch loop
 {train_one_epoch, the classification `val_one_epoch`}. Each train step runs
 the three objectives stacked in one encode, K1 forward and K2 backward in
-every block, and one AdamW update on the adapter.
+every block, and one AdamW update on the adapter. `--quantize w8a8` (or
+int8, int8g, int8o, w8a8g, w8a8o) runs the frozen backbone in int8: the
+block matmuls through K3, or K7 and K4 in the grouped modes.
 
 Not ported yet, and raising rather than ignored: checkpoint saving and the
 JSON-lines log (a non-empty --output_dir; ROADMAP Queue 1, checkpoints),

@@ -4,7 +4,8 @@ flipped_tpu/core/config.py).
 The dataclasses and flags keep the JAX package's names and defaults, so a
 reference run script translates one to one. What the port does not run yet
 is still parsed, and refused by `check_quantize` / `check_train_ported` with
-the ROADMAP item it waits for. The mesh flags (--dp/--tp/--sp/--pp) are not
+the ROADMAP item it waits for; `quant_flags` decodes a --quantize mode as
+the JAX package does. The mesh flags (--dp/--tp/--sp/--pp) are not
 parsed: the port runs in one process on one card.
 """
 from __future__ import annotations
@@ -65,21 +66,68 @@ MODEL_PRESETS = {
     "llama33B": dict(dim=6656, n_layers=60, n_heads=52),
 }
 
-# The JAX package's --quantize grammar (core/config.py:292-296). Only 'none'
-# runs in the port so far; every other mode raises in check_quantize.
+# The JAX package's --quantize grammar (core/config.py:292-296).
 QUANTIZE_CHOICES = ("none", "int8", "w8a8", "int8g", "w8a8g", "int8o",
                     "w8a8o", "int8r", "w8a8r", "int4", "w4a8", "int4r",
                     "w4a8r", "w8a8d", "w8a8rd")
+# the modes still refused, with the ROADMAP item each waits for; the port
+# runs the others: none, weight-only int8* and w8a8 (K3 per-channel, K7/K4
+# grouped and outlier)
+_QUANTIZE_WAITS = {
+    "int8r": "the rotation folds, ckpt/rotate.py",
+    "w8a8r": "the rotation folds, ckpt/rotate.py",
+    "int4": "int4/w4a8 with K8 and K9",
+    "w4a8": "int4/w4a8 with K8 and K9",
+    "int4r": "int4/w4a8 with K8 and K9",
+    "w4a8r": "int4/w4a8 with K8 and K9",
+    "w8a8d": "w8a8d with K10",
+    "w8a8rd": "w8a8d with K10",
+}
 
 
 def check_quantize(mode: str) -> None:
     if mode not in QUANTIZE_CHOICES:
         raise ValueError(f"unknown --quantize mode {mode!r}")
-    if mode != "none":
+    if mode in _QUANTIZE_WAITS:
         raise NotImplementedError(
-            f"--quantize {mode}: not ported yet (only 'none' runs in "
-            f"flipped_tpu_torch; ROADMAP Queue 1, w8a8 with K3 and the "
-            f"quantize modes)")
+            f"--quantize {mode}: not ported yet (ROADMAP Queue 1, "
+            f"{_QUANTIZE_WAITS[mode]})")
+
+
+def model_quant_kwargs(mode: str) -> dict:
+    """The FlippedVQAModel kwargs of a --quantize mode: the four
+    `quant_flags` keys the quantized Linear takes. The others (weight_bits,
+    rotated, dgrad_quant) select only modes that `check_quantize` refuses,
+    which it does here."""
+    check_quantize(mode)
+    flags = quant_flags(mode)
+    return {k: flags[k] for k in ("quantized", "act_quant", "quant_group",
+                                  "quant_outliers")}
+
+
+def quant_flags(mode: str) -> dict:
+    """--quantize mode → FlippedVQAModel quantization kwargs, the JAX
+    grammar with the same keys (JAX: core/config.py:153-181): int8/w8a8
+    base, 'g' = grouped 128-wide scales, 'o' = grouped plus bf16 outlier
+    rows, 'r' = rotation fold, int4/w4a8 = packed 4-bit, trailing 'd' =
+    int8 dgrad (per-channel w8a8 only)."""
+    dgrad = mode.endswith("d") and mode != "none"
+    if dgrad:
+        if mode not in ("w8a8d", "w8a8rd"):
+            raise ValueError(
+                f"--quantize {mode}: the 'd' (quantized-dgrad) suffix "
+                f"composes only with per-channel w8a8 (w8a8d|w8a8rd)")
+        mode = mode[:-1]
+    bits4 = mode in ("int4", "w4a8", "int4r", "w4a8r")
+    return {
+        "quantized": mode != "none",
+        "act_quant": mode.startswith(("w8a8", "w4a8")),
+        "weight_bits": 4 if bits4 else 8,
+        "quant_group": 128 if (bits4 or mode[-1:] in ("g", "o")) else 0,
+        "quant_outliers": mode.endswith("o"),
+        "rotated": mode.endswith("r"),
+        "dgrad_quant": dgrad,
+    }
 
 
 @dataclass(frozen=True)

@@ -60,6 +60,17 @@ class KernelLibrary:
             + [ctypes.c_int] * 5      # B S H Dh max_feats
             + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
         self.lib.flash_text_bwd.restype = ctypes.c_int
+        for fn in ("int8_fwd", "int8_grouped_fwd"):
+            getattr(self.lib, fn).argtypes = (
+                [ctypes.c_void_p] * 6         # x kq scale xq xs out
+                + [ctypes.c_int] * 3          # M N K
+                + [ctypes.c_void_p])          # stream
+            getattr(self.lib, fn).restype = ctypes.c_int
+        self.lib.quant_dx.argtypes = (
+            [ctypes.c_void_p] * 4             # g kq scale_g dx
+            + [ctypes.c_int] * 3              # M N K
+            + [ctypes.c_void_p])              # stream
+        self.lib.quant_dx.restype = ctypes.c_int
         self.lib.flash_error_string.argtypes = [ctypes.c_int]
         self.lib.flash_error_string.restype = ctypes.c_char_p
 

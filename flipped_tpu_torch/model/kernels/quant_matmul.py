@@ -1,0 +1,240 @@
+"""K3, K7 and K4: the int8 GEMMs of the quantized frozen backbone.
+
+- K3 `int8_fwd` replaces the TPU kernel `int8_fwd_pallas` → `_fwd_kernel`
+  (flipped_tpu/model/pallas/quant_matmul.py:603-698); CUDA source
+  csrc/int8_fwd.cu. Per-row absmax round-to-nearest-even quantize of x
+  (scale amax·float32(1/127), a reciprocal multiply), int8×int8→int32,
+  then (d·xs)·scale rounded to x.dtype: the w8a8 per-channel forward.
+- K7 `grouped_matmul` replaces `grouped_matmul_pallas` → `_kernel`
+  (:55-145); CUDA source csrc/int8_grouped_fwd.cu. Per-(row, 128-group)
+  quantize with scale amax/127 (a division), one int32 dot per group and
+  an f32 sum Σ_g (d_g·xs_g)·s_g taken over the groups in order: the
+  w8a8g/w8a8o forward.
+- K4 `quant_dx` replaces `quant_dx_pallas` → `_dx_kernel` (:316-406); CUDA
+  source csrc/quant_dx.cu. dx = g·dequant(W)ᵀ with W = bf16(kq)·bf16(s_g),
+  f32 accumulation, rounded through bf16: the w8a8g/w8a8o backward.
+
+Operands are in the port's layout (ckpt/quantize.py): kq (N, K) int8,
+scale (N,) or scale_g (G, N) f32, x (..., K), g (..., N).
+
+For each wrapper:
+- a CUDA tensor launches the kernel, or the wrapper raises: there is no
+  fallback to the plain version;
+- a CPU tensor takes the plain version (`int8_fwd_ref`, `grouped_matmul_ref`,
+  `quant_dx_ref`), which is what the CPU tests hold against the JAX package;
+- `<wrapper>.launches` counts kernel launches; only the CUDA branch adds
+  to it.
+
+The plain versions compute each int8 dot exactly, as a float64 product of
+integers (|Σ| ≤ 127²·K < 2^53; an f32 sum is not exact above K ≈ 1040), so
+on the card K3 and K7 are held to them bit for bit. Their divisors are
+tensors: PyTorch divides a CUDA tensor by a Python scalar as a multiply by
+its reciprocal, which is not the division K7 (and JAX's formulation) does.
+"""
+from __future__ import annotations
+
+import torch
+
+EPS = 1e-8                    # scale floor: all-zero rows quantize to 0
+INV127 = float.fromhex("0x1.020408p-7")  # float32(1/127), exact in f32
+GROUP = 128                   # the group width K7 and K4 are built for
+
+
+def _lead(x: torch.Tensor):
+    k = x.shape[-1]
+    return x.shape[:-1], x.reshape(-1, k)
+
+
+def quantize_act(x: torch.Tensor):
+    """(..., K) float → (xq (..., K) f32 integer codes in [-127, 127],
+    xs (..., 1) f32): per-row absmax RTN with the reciprocal multiply
+    (JAX: int8.py:57-69, `_quantize_act`)."""
+    x32 = x.float()
+    amax = x32.abs().amax(-1, keepdim=True)
+    xs = torch.clamp_min(amax * INV127, EPS)
+    return torch.round(x32 / xs), xs
+
+
+def quantize_groups(x: torch.Tensor, groups: int):
+    """(M, K) float → (xq (M, G, K/G) f32 codes, xs (M, G, 1) f32): per
+    (row, group) absmax RTN with the scale amax/127 as a division
+    (JAX: int8.py:255-258)."""
+    m, k = x.shape
+    x32 = x.float().reshape(m, groups, k // groups)
+    amax = x32.abs().amax(-1, keepdim=True)
+    xs = torch.clamp_min(amax / torch.full_like(amax, 127.0), EPS)
+    return torch.round(x32 / xs), xs
+
+
+def _exact_dot(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
+    """Σ_k xq[m, k]·kq[n, k] of integer codes, exact in float64, → f32
+    (the int32 → f32 rounding of the kernels)."""
+    return (xq.double() @ kq.double().t()).float()
+
+
+def int8_fwd_ref(x, kq, scale):
+    """Plain K3: x (..., K) float, kq (N, K) int8, scale (N,) f32 →
+    (..., N) x.dtype (JAX: int8.py:72-77, `_int8_matmul_fwd_impl`)."""
+    lead, x2 = _lead(x)
+    xq, xs = quantize_act(x2)
+    out = (_exact_dot(xq, kq) * xs) * scale
+    return out.reshape(*lead, kq.shape[0]).to(x.dtype)
+
+
+def grouped_matmul_ref(x, kq, scale_g):
+    """Plain K7: x (..., K) float, kq (N, K) int8, scale_g (G, N) f32 →
+    (..., N) x.dtype. The groups are summed in order into one (M, N) f32
+    accumulator, as `_grouped_matmul_scan` does (JAX: int8.py:414-444):
+    never the (G, M, N) intermediate of the batched formulation."""
+    lead, x2 = _lead(x)
+    groups = scale_g.shape[0]
+    xq, xs = quantize_groups(x2, groups)
+    n, k = kq.shape
+    kg = kq.reshape(n, groups, k // groups)
+    acc = torch.zeros(x2.shape[0], n, dtype=torch.float32, device=x.device)
+    for gi in range(groups):
+        acc = acc + (_exact_dot(xq[:, gi], kg[:, gi]) * xs[:, gi]) \
+            * scale_g[gi]
+    return acc.reshape(*lead, n).to(x.dtype)
+
+
+def dequant(kq, scale, dtype):
+    """The (N, K) weight dtype(kq)·dtype(scale), scale (N,) per-channel or
+    (G, N) grouped — in bf16 the rounding of the JAX weight-only and dx
+    formulations (int8.py:122, 389-390; llama.py:149-152, 161)."""
+    if scale.dim() == 1:
+        return kq.to(dtype) * scale.to(dtype)[:, None]
+    n, k = kq.shape
+    groups = scale.shape[0]
+    return (kq.reshape(n, groups, k // groups).to(dtype)
+            * scale.t()[:, :, None].to(dtype)).reshape(n, k)
+
+
+def quant_dx_ref(g, kq, scale_g):
+    """Plain K4: g (..., N) float, kq (N, K) int8, scale_g (G, N) f32 →
+    dx (..., K) g.dtype = bf16(g)·W, W the bf16 dequantized weight
+    (JAX: int8.py:384-391, `_dx_grouped_xla`)."""
+    w = dequant(kq, scale_g, torch.bfloat16)
+    return (g.to(torch.bfloat16) @ w).to(g.dtype)
+
+
+def _check(name, checks):
+    for ok, msg in checks:
+        if not ok:
+            raise ValueError(f"{name}: {msg}")
+
+
+def _check_common(name, a, kq, scale, a_dim, scale_shape):
+    """a is x (its last dim K) or g (its last dim N)."""
+    if a.dtype != torch.bfloat16:
+        raise TypeError(f"{name} takes a bf16 activation, got {a.dtype}")
+    if kq.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"{name} takes int8 kq and f32 scales, got "
+                        f"{kq.dtype} and {scale.dtype}")
+    n, k = kq.shape if kq.dim() == 2 else (-1, -1)
+    _check(name, [
+        (kq.dim() == 2, f"kq must be (N, K), got {tuple(kq.shape)}"),
+        (a.shape[-1] == (k if a_dim == "K" else n),
+         f"activation {tuple(a.shape)} does not match kq (N, K) = "
+         f"{tuple(kq.shape)}"),
+        (tuple(scale.shape) == scale_shape(n, k),
+         f"scale {tuple(scale.shape)} != {scale_shape(n, k)}"),
+        (all(t.device == a.device for t in (kq, scale)),
+         f"operands on {a.device}, {kq.device}, {scale.device}"),
+        (all(t.is_contiguous() for t in (a, kq, scale)),
+         "activation, kq and scale must be contiguous"),
+        (a.numel() > 0, "empty activation"),
+        (a.data_ptr() % 16 == 0 and kq.data_ptr() % 16 == 0,
+         "activation and kq must be 16-byte aligned"),
+        (n % 8 == 0 and k % 16 == 0,
+         f"needs N % 8 == 0 and K % 16 == 0, got N {n}, K {k}")])
+    return n, k
+
+
+def _launch(fn, *args):
+    from .build import build
+
+    lib = build()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib.lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: {lib.error_string(err)} "
+                           f"(cudaError {err})")
+
+
+def _device_ok(name, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got "
+                         f"{t.device}")
+
+
+def int8_fwd(x, kq, scale):
+    """K3, w8a8 per-channel forward: x (..., K), kq (N, K) int8, scale (N,)
+    f32 → (..., N) in x.dtype."""
+    if x.device.type == "cpu":
+        return int8_fwd_ref(x, kq, scale)
+    _device_ok("int8_fwd", x)
+    n, k = _check_common("int8_fwd", x, kq, scale, "K",
+                         lambda n, k: (n,))
+    lead, x2 = _lead(x)
+    m = x2.shape[0]
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        _launch("int8_fwd", x2.data_ptr(), kq.data_ptr(),
+                scale.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+                out.data_ptr(), m, n, k)
+    int8_fwd.launches += 1
+    return out.reshape(*lead, n)
+
+
+int8_fwd.launches = 0
+
+
+def grouped_matmul(x, kq, scale_g):
+    """K7, w8a8 grouped forward: x (..., K), kq (N, K) int8, scale_g
+    (K/128, N) f32 → (..., N) in x.dtype."""
+    if x.device.type == "cpu":
+        return grouped_matmul_ref(x, kq, scale_g)
+    _device_ok("grouped_matmul", x)
+    n, k = _check_common("grouped_matmul", x, kq, scale_g, "K",
+                         lambda n, k: (k // GROUP, n))
+    _check("grouped_matmul", [(k % GROUP == 0,
+                               f"needs K % {GROUP} == 0, got {k}")])
+    lead, x2 = _lead(x)
+    m = x2.shape[0]
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m, k // GROUP), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        _launch("int8_grouped_fwd", x2.data_ptr(), kq.data_ptr(),
+                scale_g.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+                out.data_ptr(), m, n, k)
+    grouped_matmul.launches += 1
+    return out.reshape(*lead, n)
+
+
+grouped_matmul.launches = 0
+
+
+def quant_dx(g, kq, scale_g):
+    """K4, the grouped backward: g (..., N), kq (N, K) int8, scale_g
+    (K/128, N) f32 → dx (..., K) in g.dtype."""
+    if g.device.type == "cpu":
+        return quant_dx_ref(g, kq, scale_g)
+    _device_ok("quant_dx", g)
+    n, k = _check_common("quant_dx", g, kq, scale_g, "N",
+                         lambda n, k: (k // GROUP, n))
+    _check("quant_dx", [(k % GROUP == 0, f"needs K % {GROUP} == 0, got {k}")])
+    lead, g2 = _lead(g)
+    m = g2.shape[0]
+    dx = torch.empty((m, k), dtype=torch.bfloat16, device=g.device)
+    with torch.cuda.device(g.device):
+        _launch("quant_dx", g2.data_ptr(), kq.data_ptr(),
+                scale_g.data_ptr(), dx.data_ptr(), m, n, k)
+    quant_dx.launches += 1
+    return dx.reshape(*lead, k)
+
+
+quant_dx.launches = 0

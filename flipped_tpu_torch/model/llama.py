@@ -11,6 +11,10 @@ frozen weights are stored in `frozen_dtype` and trainables in
 Parameters are allocated uninitialised on `device`; `train.builder.
 init_params` fills them.
 
+The quantization flags are those of `core.config.model_quant_kwargs` (int8
+weight-only, w8a8 through K3, grouped/outlier w8a8 through K7 and K4; see
+`Linear`); `check_quantize` refuses int4, the rotation fold and w8a8d.
+
 Only the last `adapter_layer` blocks exist and run, as in the reference
 (`layers[-adapter_layer:]`, JAX: llama.py:610-619); `layers` is a ModuleDict
 keyed by the absolute layer index, so names stay `layers.N.*`.
@@ -31,7 +35,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.config import ModelConfig
 from .attention import chunk_extend_attention
+from .int8 import int8_matmul, int8_matmul_grouped, outlier_count
 from .kernels.flash_attention import flash_adapter_attention
+from .kernels.quant_matmul import dequant
 from .layers import apply_rope, apply_rope_at, precompute_rope, rms_norm
 
 
@@ -41,17 +47,62 @@ def _empty(shape, dtype, device) -> nn.Parameter:
 
 
 class Linear(nn.Module):
-    """Bias-free linear, weight (out, in), computed in `dtype`. Unquantized
-    only: the --quantize modes are not ported yet."""
+    """Bias-free linear computed in `dtype` (JAX: llama.py:52-165).
+
+    Unquantized: `weight` (out, in). Quantized (int8 frozen weights, leaves
+    in ckpt/quantize.py's layout): `kernel_q` (out, in) int8 and `scale`,
+    grouped (in/quant_group, out) when quant_group > 0 divides `in`, else
+    per-channel (out,) — the grouped modes fall back there (llama.py:138).
+    quant_outliers adds `out_idx` (n_out,) int32 and `out_w` (n_out, out):
+    x[..., out_idx] @ out_w is added exactly, from the unmasked x, and under
+    act_quant those columns of x are zeroed before the quantized product.
+
+    act_quant (w8a8*) runs `int8_matmul` (K3) or `int8_matmul_grouped`
+    (K7 forward, K4 backward); without it (int8*, and the LM head in every
+    mode) x @ dequant(W) in `dtype`, W = dtype(kq)·dtype(scale)."""
 
     def __init__(self, in_features: int, out_features: int, dtype,
-                 param_dtype, device=None):
+                 param_dtype, device=None, quantized: bool = False,
+                 act_quant: bool = False, quant_group: int = 0,
+                 quant_outliers: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.weight = _empty((out_features, in_features), param_dtype, device)
+        self.quantized = quantized
+        self.act_quant = act_quant
+        self.quant_outliers = quant_outliers
+        if not quantized:
+            self.weight = _empty((out_features, in_features), param_dtype,
+                                 device)
+            return
+        self.grouped = quant_group > 0 and in_features % quant_group == 0
+        self.kernel_q = _empty((out_features, in_features), torch.int8,
+                               device)
+        self.scale = _empty((in_features // quant_group, out_features)
+                            if self.grouped else (out_features,),
+                            torch.float32, device)
+        if quant_outliers:
+            n_out = outlier_count(in_features)
+            self.out_idx = _empty((n_out,), torch.int32, device)
+            self.out_w = _empty((n_out, out_features), param_dtype, device)
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(self.dtype))
+        if not self.quantized:
+            return F.linear(x, self.weight.to(self.dtype))
+        passthrough = None
+        if self.quant_outliers:
+            idx = self.out_idx.long()
+            passthrough = (x.index_select(-1, idx).to(self.dtype)
+                           @ self.out_w.to(self.dtype))
+            if self.act_quant:
+                mask = torch.ones(x.shape[-1], dtype=x.dtype,
+                                  device=x.device)
+                x = x * mask.index_fill(0, idx, 0)
+        if self.act_quant:
+            mm = int8_matmul_grouped if self.grouped else int8_matmul
+            out = mm(x, self.kernel_q, self.scale)
+        else:
+            out = F.linear(x, dequant(self.kernel_q, self.scale, self.dtype))
+        return out if passthrough is None else out + passthrough
 
 
 class Embedding(nn.Module):
@@ -81,10 +132,11 @@ class Attention(nn.Module):
     `extend` runs the plain chunk attention."""
 
     def __init__(self, cfg: ModelConfig, dtype, frozen_dtype, trainable_dtype,
-                 device=None):
+                 device=None, quant=None):
         super().__init__()
         self.cfg = cfg
-        mk = lambda: Linear(cfg.dim, cfg.dim, dtype, frozen_dtype, device)
+        mk = lambda: Linear(cfg.dim, cfg.dim, dtype, frozen_dtype, device,
+                            **(quant or {}))
         self.wq, self.wk, self.wv, self.wo = mk(), mk(), mk(), mk()
         self.gate1 = _empty((cfg.n_heads,), trainable_dtype, device)
         self.gate2 = _empty((cfg.n_heads,), trainable_dtype, device)
@@ -142,12 +194,14 @@ class Attention(nn.Module):
 class FeedForward(nn.Module):
     """SwiGLU FFN (JAX: llama.py:330-359)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, frozen_dtype, device=None):
+    def __init__(self, cfg: ModelConfig, dtype, frozen_dtype, device=None,
+                 quant=None):
         super().__init__()
         hid = cfg.ffn_hidden
-        self.w1 = Linear(cfg.dim, hid, dtype, frozen_dtype, device)
-        self.w2 = Linear(hid, cfg.dim, dtype, frozen_dtype, device)
-        self.w3 = Linear(cfg.dim, hid, dtype, frozen_dtype, device)
+        q = quant or {}
+        self.w1 = Linear(cfg.dim, hid, dtype, frozen_dtype, device, **q)
+        self.w2 = Linear(hid, cfg.dim, dtype, frozen_dtype, device, **q)
+        self.w3 = Linear(cfg.dim, hid, dtype, frozen_dtype, device, **q)
 
     def forward(self, x):
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
@@ -157,11 +211,12 @@ class TransformerBlock(nn.Module):
     """Pre-norm residual block (JAX: llama.py:362-423)."""
 
     def __init__(self, cfg: ModelConfig, dtype, frozen_dtype, trainable_dtype,
-                 device=None):
+                 device=None, quant=None):
         super().__init__()
         self.attention = Attention(cfg, dtype, frozen_dtype, trainable_dtype,
-                                   device)
-        self.feed_forward = FeedForward(cfg, dtype, frozen_dtype, device)
+                                   device, quant)
+        self.feed_forward = FeedForward(cfg, dtype, frozen_dtype, device,
+                                        quant)
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, frozen_dtype,
                                       device)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, frozen_dtype, device)
@@ -190,7 +245,9 @@ class FlippedVQAModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
                  frozen_dtype=torch.bfloat16, trainable_dtype=torch.float32,
-                 device=None, remat: bool = False):
+                 device=None, remat: bool = False, quantized: bool = False,
+                 act_quant: bool = False, quant_group: int = 0,
+                 quant_outliers: bool = False):
         super().__init__()
         if cfg.audio_merge is not None:
             raise NotImplementedError(
@@ -199,16 +256,20 @@ class FlippedVQAModel(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         self.remat = remat
+        quant = dict(quantized=quantized, act_quant=act_quant,
+                     quant_group=quant_group, quant_outliers=quant_outliers)
         self.tok_embeddings = Embedding(cfg.vocab_size, cfg.dim, frozen_dtype,
                                         device)
         first = cfg.n_layers - cfg.adapter_layer
         self.layers = nn.ModuleDict({
             str(i): TransformerBlock(cfg, dtype, frozen_dtype,
-                                     trainable_dtype, device)
+                                     trainable_dtype, device, quant)
             for i in range(first, cfg.n_layers)})
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps, frozen_dtype, device)
+        # the LM head is weight-only in every mode: its logits feed the eval
+        # argmin directly (JAX: llama.py:523-528)
         self.output = Linear(cfg.dim, cfg.vocab_size, dtype, frozen_dtype,
-                             device)
+                             device, **{**quant, "act_quant": False})
         self.adapter_query = Embedding(cfg.adapter_len * cfg.adapter_layer,
                                        cfg.dim, trainable_dtype, device)
         self.temporal_emb = Embedding(cfg.max_feats, cfg.dim, trainable_dtype,

@@ -1,9 +1,11 @@
 """Model assembly (JAX: flipped_tpu/train/builder.py).
 
 `build_model` resolves the config, allocates the model on the target
-device and marks the trainables requires_grad; `init_params` fills every
-parameter the way the Flax initialisers do, from a `torch.Generator` on
-that device; `build_train_state` and `build_eval_state` add the tokenizer.
+device (quantized as --quantize says) and marks the trainables
+requires_grad; `init_params` fills every parameter the way the Flax
+initialisers do, and the int8 leaves as the JAX `randomize_quantized` does,
+from a `torch.Generator` on that device; `build_train_state` and
+`build_eval_state` add the tokenizer.
 Loading a Meta or safetensors checkpoint is not ported yet: a run without
 one keeps the frozen backbone at random init, with the same warning as the
 JAX builder, and a run that finds one raises rather than ignore it.
@@ -17,11 +19,18 @@ from pathlib import Path
 
 import torch
 
+from ..ckpt.quantize import randomize_quantized
 from ..core.config import (MODEL_PRESETS, ModelConfig, RunConfig,
-                           check_quantize, check_train_ported)
+                           check_train_ported, model_quant_kwargs)
 from ..model.llama import FlippedVQAModel
 from ..text import load_tokenizer
 from .optim import is_trainable, trainable_parameters
+
+
+# the leaves of a quantized Linear with a dtype of their own (out_w is in
+# the frozen dtype)
+QUANT_LEAVES = {"kernel_q": torch.int8, "out_idx": torch.int32,
+                "scale": torch.float32}
 
 
 def resolve_model_config(run_cfg: RunConfig) -> ModelConfig:
@@ -49,12 +58,12 @@ def resolve_model_config(run_cfg: RunConfig) -> ModelConfig:
 
 def build_model(run_cfg: RunConfig, device, dtype=torch.bfloat16):
     """→ (model with uninitialised parameters on `device`, trainables
-    marked requires_grad, cfg)."""
-    check_quantize(run_cfg.train.quantize)
+    marked requires_grad, cfg) (JAX: builder.py:49-75)."""
+    quant = model_quant_kwargs(run_cfg.train.quantize)
     cfg = resolve_model_config(run_cfg)
     model = FlippedVQAModel(cfg, dtype=dtype, frozen_dtype=dtype,
                             trainable_dtype=torch.float32,
-                            device=torch.device(device))
+                            device=torch.device(device), **quant)
     trainable_parameters(model)
     return model, cfg
 
@@ -64,11 +73,15 @@ def init_params(model: FlippedVQAModel, seed: int = 0) -> None:
     """Fill every parameter in place, as the Flax initialisers do
     (JAX: llama.py:44-47, 507-543): U(±1/√fan_in) for Linear weights,
     N(0, 1) for the embedding tables (tokens, adapter_query, temporal_emb),
-    ones for the norms, zeros for gate1 and -bias for gate2. The generator
-    lives on the parameters' device, so a 7B init never leaves the card."""
+    ones for the norms, zeros for gate1 and -bias for gate2; the int8
+    leaves of a quantized model by `randomize_quantized` (JAX:
+    builder.py:191-196). The generator lives on the parameters' device, so
+    a 7B init never leaves the card."""
     g = torch.Generator(device=model.device).manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
+        if leaf in QUANT_LEAVES or leaf == "out_w":
+            continue            # randomize_quantized below
         if name.endswith("gate1"):
             p.zero_()
         elif name.endswith("gate2"):
@@ -83,12 +96,15 @@ def init_params(model: FlippedVQAModel, seed: int = 0) -> None:
             p.uniform_(-bound, bound, generator=g)
         else:
             raise ValueError(f"no initialiser for parameter {name}")
+    randomize_quantized(model, g)
 
 
 def check_dtype_policy(model: FlippedVQAModel, frozen_dtype) -> None:
-    """Trainables f32, the frozen backbone in `frozen_dtype`."""
+    """Trainables f32, the frozen backbone in `frozen_dtype`, except the
+    int8 leaves: kernel_q int8, out_idx int32, scale f32."""
     for name, p in model.named_parameters():
-        want = torch.float32 if is_trainable(name) else frozen_dtype
+        want = (torch.float32 if is_trainable(name) else
+                QUANT_LEAVES.get(name.rsplit(".", 1)[-1], frozen_dtype))
         if p.dtype != want:
             raise TypeError(f"{name} is {p.dtype}, the policy wants {want}")
 

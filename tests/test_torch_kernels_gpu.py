@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from flipped_tpu_torch.model.kernels import flash_attention as fa
+from flipped_tpu_torch.model.kernels import quant_matmul as qm
 
 pytestmark = pytest.mark.gpu
 
@@ -120,3 +121,93 @@ def test_flash_autograd_function_on_card(cuda):
     assert fa.flash_text_attention_bwd.launches == b0 + 1
     for x in (q, k, v, ak, av, g1, g2):
         assert bool(torch.isfinite(x.grad).all())
+
+
+# --- K3, K7, K4: the int8 GEMMs of the quantized backbone -------------------
+
+def _quant_inputs(cuda, m, k, n, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, device=cuda, generator=g)
+    x[:, 1] *= 30.0                  # one large column: group scales differ
+    x[m // 2] = 0.0                  # an all-zero row
+    kq = torch.randint(-127, 128, (n, k), device=cuda, generator=g,
+                       dtype=torch.int8)
+    base = 1.0 / (127.0 * k ** 0.5)
+    scale = (torch.rand(n, device=cuda, generator=g) + 0.5) * base
+    sg = (torch.rand(k // 128, n, device=cuda, generator=g) + 0.5) * base
+    dy = torch.randn(m, n, device=cuda, generator=g).to(torch.bfloat16)
+    return x.to(torch.bfloat16), kq, scale, sg, dy
+
+
+def _bits(t):
+    return torch.where(t == 0, torch.zeros_like(t), t).view(torch.int16)
+
+
+@pytest.mark.parametrize("m,k,n", [(10, 256, 136), (37, 384, 256),
+                                   (130, 1024, 520)])
+def test_int8_fwd_and_grouped_bitwise_equal_plain(cuda, m, k, n):
+    """K3 and K7 compute the plain versions' IEEE operations in the same
+    order on exact integer dots: bit for bit equal (chip_smoke.py states
+    why)."""
+    x, kq, scale, sg, _ = _quant_inputs(cuda, m, k, n, 3)
+    b3, b7 = qm.int8_fwd.launches, qm.grouped_matmul.launches
+    out3 = qm.int8_fwd(x.view(1, m, k), kq, scale)
+    out7 = qm.grouped_matmul(x, kq, sg)
+    torch.cuda.synchronize()
+    assert (qm.int8_fwd.launches, qm.grouped_matmul.launches) == (b3 + 1,
+                                                                  b7 + 1)
+    assert out3.shape == (1, m, n)
+    assert torch.equal(_bits(out3[0]), _bits(qm.int8_fwd_ref(x, kq, scale)))
+    assert torch.equal(_bits(out7), _bits(qm.grouped_matmul_ref(x, kq, sg)))
+    assert bool((out3[0][m // 2] == 0).all())
+
+
+@pytest.mark.parametrize("m,k,n", [(10, 256, 136), (130, 1024, 520)])
+def test_quant_dx_matches_plain(cuda, monkeypatch, m, k, n):
+    """K4 against a cuBLAS bf16 product on the dequantized weight: the two
+    f32 sums differ by at most N·2^-24·(|g|·|W|ᵀ), and each rounds to bf16
+    once (2^-7 of the value covers both roundings)."""
+    _, kq, _, sg, dy = _quant_inputs(cuda, m, k, n, 4)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    before = qm.quant_dx.launches
+    dx = qm.quant_dx(dy, kq, sg)
+    torch.cuda.synchronize()
+    assert qm.quant_dx.launches == before + 1
+    ref = qm.quant_dx_ref(dy, kq, sg).double()
+    w = qm.dequant(kq, sg, torch.bfloat16).double()
+    bound = 2.0 ** -7 * ref.abs() + n * 2.0 ** -24 * (dy.double().abs()
+                                                       @ w.abs())
+    assert bool(((dx.double() - ref).abs() <= bound).all())
+
+
+def test_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x, kq, scale, sg, dy = _quant_inputs(cuda, 16, 256, 128, 5)
+    with pytest.raises(TypeError):
+        qm.int8_fwd(x.float(), kq, scale)
+    with pytest.raises(ValueError):
+        qm.int8_fwd(x[:, :200], kq[:, :200], scale)       # not contiguous
+    with pytest.raises(ValueError):
+        qm.grouped_matmul(x[:, :144].contiguous(), kq[:, :144].contiguous(),
+                          sg[:1])                         # K % 128 != 0
+    with pytest.raises(ValueError):
+        qm.quant_dx(dy, kq, scale)                        # per-channel scale
+
+
+def test_quant_autograd_functions_on_card(cuda):
+    """Int8Matmul (K3 forward, exact bf16 dx) and Int8MatmulGrouped (K7
+    forward, K4 backward): one launch each, finite grads."""
+    from flipped_tpu_torch.model import int8 as q8
+
+    x, kq, scale, sg, dy = _quant_inputs(cuda, 40, 256, 128, 6)
+    counts = lambda: (qm.int8_fwd.launches, qm.grouped_matmul.launches,
+                      qm.quant_dx.launches)
+    before = counts()
+    xa, xb = (x.detach().requires_grad_() for _ in range(2))
+    q8.int8_matmul(xa, kq, scale).backward(dy)
+    q8.int8_matmul_grouped(xb, kq, sg).backward(dy)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1)
+    w = qm.dequant(kq, scale, torch.bfloat16)
+    assert torch.equal(xa.grad, dy @ w)
+    assert bool(torch.isfinite(xb.grad).all())
