@@ -16,37 +16,43 @@ Phases; any failure prints its traceback and exits 1 without a result line:
   5. grads    the autograd.Function (K1 forward, K2 backward) against
               autograd through the plain formulation, all seven grads, at
               the training shape
-  6. quant    K3 int8_fwd and K7 int8_grouped_fwd bitwise against their
-              plain versions, K4 quant_dx within the bound stated at K4_REL,
-              at odd-M unit shapes and every 7B main-path shape; then
-              through the autograd Functions int8_matmul and
-              int8_matmul_grouped at the w1/w3 shape
+  6. quant    K3 int8_fwd, K7 int8_grouped_fwd, K8 int4_fwd's w4a8 branch
+              and K10 int8_dgrad bitwise against their plain versions, K4
+              quant_dx, K8's weight-only branch and K9 int4_dx within the
+              bounds stated at K4_REL and K8_WO_REL, at odd-M unit shapes
+              and every 7B main-path shape (K10 on 2-D and 3-D cotangents);
+              then through the autograd Functions int8_matmul,
+              int8_matmul_grouped, int4_matmul, int4_matmul_grouped and
+              int8_matmul_dgrad at the w1/w3 shape
   7. timing   K1 and K2, kernel and plain version: device time by CUDA-graph
               replay between CUDA events, host time per eager call; the
               library yardstick `scaled_dot_product_attention` with the
               gate2 + causal bias as a float mask (forward for K1, forward
               and backward for K2); and each kernel's bound from its bytes
-              and operations. K3, K7 and K4 the same way at the three
-              3072-row shapes, and K3 at the eval's prefill and extend
-              shapes, with the yardsticks `time_quant` names
+              and operations. K3, K7, K4, K8 (both branches), K9 and K10 the
+              same way at the three 3072-row shapes, and K3 at the eval's
+              prefill and extend shapes, with the yardsticks `time_quant`
+              names
   8. train    `flipped_tpu_torch.cli.train.main` at LLaMA-7B width (dim
               4096, 32 layers, random frozen weights from a seed), --vaq
               --qav, batch 8, S 128, one epoch over 64 synthetic NExT-QA
               items (8 updates) with remat, then its val eval, at --quantize
-              none, w8a8 and w8a8g, and one update at w8a8o: every loss
-              finite, the launches per update that `per_update` derives
-              from the code (bf16: 64 K1, 32 K2; w8a8: 576 K3 more; w8a8g
-              and w8a8o: 576 K7 and 288 K4 more), frozen weights bitwise
-              unchanged, no trainable moved by update 1 (lr 0) and every
-              trainable moved by update 2; the step without remat (the
-              bench default) timed at none and w8a8
+              none, w8a8, w4a8 and w8a8d, and one update at w8a8g, w8a8o,
+              int4 and w4a8r (TRAIN_RUNS): every loss finite, the launches
+              per update that `per_update` derives from the code (bf16: 64
+              K1, 32 K2; w8a8: 576 K3 more; w8a8g and w8a8o: 576 K7 and 288
+              K4 more; the int4 modes: 576 K8 and 288 K9 more; w8a8d: 576
+              K3 and 288 K10 more), frozen weights bitwise unchanged, no
+              trainable moved by update 1 (lr 0) and every trainable moved
+              by update 2; the step without remat (the bench default) timed
+              at none, w8a8, w4a8, w8a8d and int4
   9. eval     the classification eval at 7B width through
-              `flipped_tpu_torch.cli.evaluate.main` at --quantize none and
-              w8a8: 32 K1 (and under w8a8 576 K3) launches per scored batch,
-              every score finite; one batch through the cached and the dense
-              eval steps, which must agree
- 10. paths    K3, K7 and K4 against their plain versions (as in 6) at every
-              (M, K, N) that phases 8 and 9 handed them, on the first
+              `flipped_tpu_torch.cli.evaluate.main` at --quantize none, w8a8
+              and w4a8: 32 K1 (and 576 K3 under w8a8, 576 K8 under w4a8)
+              launches per scored batch, every score finite; one batch
+              through the cached and the dense eval steps, which must agree
+ 10. paths    every quant kernel against its plain version (as in 6) at
+              every (M, K, N) that phases 8 and 9 handed it, on the first
               inputs each path gave at that shape
 Each main path (8, 9) runs with the launch counts set to 0 just before it
 and read just after. The last lines of stdout are the nvidia-smi line, a
@@ -156,7 +162,8 @@ K7_REPLACES = "flipped_tpu/model/pallas/quant_matmul.py:55"
 K4_SOURCE = "flipped_tpu_torch/csrc/quant_dx.cu"
 K4_REPLACES = "flipped_tpu/model/pallas/quant_matmul.py:316"
 TRAIN_M = 3 * TRAIN_B * TRAIN_S
-QUANT_UNIT = [(10, 256, 136), (37, 384, 256), (37, 272, 120)]
+QUANT_UNIT = [(10, 256, 136), (37, 384, 256), (37, 272, 120),
+              (130, 1024, 1040)]
 QUANT_MAIN = {"wq/wk/wv/wo": (TRAIN_M, 4096, 4096),
               "w1/w3": (TRAIN_M, 4096, 11008),
               "w2": (TRAIN_M, 11008, 4096),
@@ -180,6 +187,42 @@ QUANT_ROW_SHAPE = "w1/w3"
 K4_REL = 2.0 ** -7
 # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet, at 700 W)
 INT8_OP_PER_S = 1979e12
+
+# The packed-int4 GEMMs and the w8a8d dgrad: K8 (int4_fwd: w4a8 and the
+# weight-only int4), K9 (int4_dx) and K10 (int8_dgrad). K8 and K9 take the
+# shapes the model's guard lets through (N/2 and the group multiples of 128;
+# their unit shapes here only need N % 16 == 0 and K % 128 == 0), K10 any
+# N % 16 == 0 and K % 16 == 0.
+K8_SOURCE = "flipped_tpu_torch/csrc/int4_fwd.cu"
+K8_REPLACES = "flipped_tpu/model/pallas/quant_matmul.py:160"
+K9_SOURCE = "flipped_tpu_torch/csrc/int4_dx.cu"
+K9_REPLACES = "flipped_tpu/model/pallas/quant_matmul.py:701"
+K10_SOURCE = "flipped_tpu_torch/csrc/int8_dgrad.cu"
+K10_REPLACES = "flipped_tpu/model/pallas/quant_matmul.py:449"
+# K8's w4a8 branch and K10 against their plain versions: bitwise, as K3 and
+# K7 (the same IEEE operations in the same order on exact integer dots; K10
+# also the same uint32 hash and f32 comparisons). K8's weight-only branch
+# and K9 sum bf16 products (exact in f32) in f32 in the tensor cores' order,
+# the plain versions exactly (K8: each group's sum in float64, rounded once
+# to f32) or in cuBLAS's order (K9). Over a contraction of C terms the two
+# f32 results differ by at most C·2^-24·(|a|·|W|ᵀ), and K8's G group folds
+# (a multiply and an add, each rounded) add 2G·2^-24·(|a|·|W|ᵀ). Rounding
+# both to bf16 adds at most half an ulp on each side, ≤ 2^-8 of each value:
+#   |kernel - plain| ≤ (2^-7·|plain| + (C + 2G)·2^-24·(|a|·|W|ᵀ))·(1 + 2^-8)
+# with W the weight as each side multiplies it (K8: codes·s_g; K9: the bf16
+# dequantized weight), C = K for K8 and N for K9 (G = 0).
+K8_WO_REL = 2.0 ** -7
+
+
+# the quant kernels' keys: K8's two branches are held and timed apart
+QUANT_KERNELS = ("k3", "k7", "k4", "k8a", "k8w", "k9", "k10")
+# (--quantize, one update only): 8 updates where the mode's kernels carry
+# the epoch's counts, one where an earlier run covers its kernels already
+TRAIN_RUNS = (("none", False), ("w8a8", False), ("w8a8g", True),
+              ("w8a8o", True), ("w4a8", False), ("w8a8d", False),
+              ("int4", True), ("w4a8r", True))
+TIMED_STEPS = ("none", "w8a8", "w4a8", "w8a8d", "int4")
+EVAL_RUNS = ("none", "w8a8", "w4a8")
 
 
 def phase(name):
@@ -543,11 +586,33 @@ def quant_inputs(torch, m, k, n, seed):
     return x, kq, scale, sg, g
 
 
+def int4_inputs(torch, m, k, n, seed):
+    """x, g as `quant_inputs`; int4 codes (N, K) in [-8, 7] packed to
+    kq4 (N/2, K), and the int4 scales 1/(7 sqrt K) times U(0.5, 1.5)."""
+    from flipped_tpu_torch.model.int4 import pack_int4
+
+    x, _, _, _, g = quant_inputs(torch, m, k, n, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    codes = torch.randint(-8, 8, (n, k), device="cuda", generator=gen,
+                          dtype=torch.int8)
+    sg = ((torch.rand(k // 128, n, device="cuda", generator=gen) + 0.5)
+          / (7.0 * math.sqrt(k)))
+    return x, pack_int4(codes), sg, g
+
+
 def unequal(torch, out, ref):
     """Elements whose bf16 bit patterns differ (+0 and -0 counted equal)."""
     bits = lambda t: torch.where(t == 0, torch.zeros_like(t), t).view(
         torch.int16)
     return int((bits(out) != bits(ref)).sum())
+
+
+def bound_ratio(torch, out, ref, bound):
+    """max |kernel - plain| / bound (0/0 counting 0), max |kernel - plain|."""
+    err = (out.double() - ref.double()).abs()
+    ratio = float(torch.where(bound > 0, err / bound,
+                              torch.where(err > 0, math.inf, 0.0)).max())
+    return ratio, float(err.max())
 
 
 def k4_ratio(torch, qm, dx, ref, g, kq, sg):
@@ -556,44 +621,91 @@ def k4_ratio(torch, qm, dx, ref, g, kq, sg):
     w = qm.dequant(kq, sg, torch.bfloat16).double()
     bound = K4_REL * ref.double().abs() \
         + n * 2.0 ** -24 * (g.double().abs() @ w.abs())
-    err = (dx.double() - ref.double()).abs()
-    ratio = float(torch.where(bound > 0, err / bound,
-                              torch.where(err > 0, math.inf, 0.0)).max())
-    return ratio, float(err.max())
+    return bound_ratio(torch, dx, ref, bound)
 
 
-def hold_quant(torch, qm, kern, a, kq, scale, worst):
+def mma_ratio(torch, qm, kern, out, ref, a, kq4, sg):
+    """K8 weight-only ("k8w") or K9 against its plain version: max
+    |kernel - plain| / the bound stated at K8_WO_REL, and max |d|."""
+    codes = qm.unpack_int4(kq4)
+    n, k = codes.shape
+    if kern == "k8w":
+        groups = sg.shape[0]
+        w = (codes.double().view(n, groups, k // groups)
+             * sg.t().double()[:, :, None]).view(n, k)
+        mag = a.reshape(-1, k).double().abs() @ w.abs().t()
+        terms = k + 2 * groups
+    else:
+        w = qm.dequant(codes, sg, torch.bfloat16).double()
+        mag = a.reshape(-1, n).double().abs() @ w.abs()
+        terms = n
+    bound = (K8_WO_REL * ref.double().abs().reshape(mag.shape)
+             + terms * 2.0 ** -24 * mag) * (1 + 2.0 ** -8)
+    return bound_ratio(torch, out.reshape(mag.shape), ref.reshape(mag.shape),
+                       bound)
+
+
+def quant_call(qm, kern, plain):
+    """The wrapper (or its plain version) of a quant kernel as a function of
+    (activation, weight, scale, extra): extra is K10's s_mod."""
+    return {
+        "k3": lambda a, w, s, e: (qm.int8_fwd_ref if plain else qm.int8_fwd)(
+            a, w, s),
+        "k7": lambda a, w, s, e: (qm.grouped_matmul_ref if plain
+                                  else qm.grouped_matmul)(a, w, s),
+        "k4": lambda a, w, s, e: (qm.quant_dx_ref if plain
+                                  else qm.quant_dx)(a, w, s),
+        "k8a": lambda a, w, s, e: (qm.int4_matmul_ref if plain
+                                   else qm.int4_matmul)(a, w, s, True),
+        "k8w": lambda a, w, s, e: (qm.int4_matmul_ref if plain
+                                   else qm.int4_matmul)(a, w, s, False),
+        "k9": lambda a, w, s, e: (qm.int4_dx_ref if plain
+                                  else qm.int4_dx)(a, w, s),
+        "k10": lambda a, w, s, e: (qm.int8_dgrad_ref if plain
+                                   else qm.int8_dgrad)(a, w, s, e),
+    }[kern]
+
+
+def hold_quant(torch, qm, kern, a, kq, scale, worst, extra=None):
     """One kernel call against its plain version on the same inputs (a is x,
-    or g for K4): K3 and K7 bitwise, K4 within its bound. Updates
+    or g for K4, K9 and K10; kq is kq4 for K8 and K9): K3, K7, K8 w4a8 and
+    K10 bitwise, K4, K8 weight-only and K9 within their bounds. Updates
     worst[kern] with |kernel - plain| and returns a line for the log."""
-    wrapper, plain = {"k3": (qm.int8_fwd, qm.int8_fwd_ref),
-                      "k7": (qm.grouped_matmul, qm.grouped_matmul_ref),
-                      "k4": (qm.quant_dx, qm.quant_dx_ref)}[kern]
-    out = wrapper(a, kq, scale)
+    out = quant_call(qm, kern, False)(a, kq, scale, extra)
     torch.cuda.synchronize()
-    ref = plain(a, kq, scale)
-    where = f"(M {a.numel() // a.shape[-1]}, K {kq.shape[1]}, N {kq.shape[0]})"
+    ref = quant_call(qm, kern, True)(a, kq, scale, extra)
+    n, k = kq.shape               # kq (N, K), or kq4 (N/2, K)
+    if kern in ("k8a", "k8w", "k9"):
+        n *= 2
+    where = (f"(M {a.numel() // a.shape[-1]}, K {k}, N {n}"
+             + (f", s_mod {extra})" if extra is not None else ")"))
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"{kern} non-finite at {where}")
     err = float((out.double() - ref.double()).abs().max())
     worst[kern] = max(worst[kern], err)
-    if kern == "k4":
-        ratio, _ = k4_ratio(torch, qm, out, ref, a, kq, scale)
+    label = kern.upper()
+    if kern in ("k4", "k8w", "k9"):
+        ratio, _ = (k4_ratio(torch, qm, out, ref, a, kq, scale)
+                    if kern == "k4" else
+                    mma_ratio(torch, qm, kern, out, ref, a, kq, scale))
         if ratio > 1.0:
-            raise AssertionError(f"K4 off its plain version at {where}: "
+            raise AssertionError(f"{label} off its plain version at {where}: "
                                  f"{ratio:.3f} of the bound")
-        return f"K4 max|d|={err:.4g} ({ratio:.3f} of bound)"
+        return f"{label} max|d|={err:.4g} ({ratio:.3f} of bound)"
     bad = unequal(torch, out, ref)
     if bad:
-        raise AssertionError(f"{kern.upper()} differs from its plain version "
+        raise AssertionError(f"{label} differs from its plain version "
                              f"at {where} in {bad} elements (max |d| "
                              f"{err:.4g})")
-    return f"{kern.upper()} unequal {bad} of {out.numel()}"
+    return f"{label} unequal {bad} of {out.numel()}"
 
 
 def check_quant(torch, qm, worst):
-    """K3 and K7 bitwise against their plain versions, K4 within its bound,
-    at the unit and the 7B training shapes, on `quant_inputs`."""
+    """K3, K7, K8 w4a8 and K10 bitwise against their plain versions, K4, K8
+    weight-only and K9 within their bounds, at the unit and the 7B training
+    shapes, on `quant_inputs` / `int4_inputs`; K10 on a 2-D cotangent and on
+    the same rows as (2, M/2, N) where M is even (the dither's row period
+    M/2)."""
     cases = [(f"unit {s}", s) for s in QUANT_UNIT] + list(QUANT_MAIN.items())
     for i, (name, (m, k, n)) in enumerate(cases):
         x, kq, scale, sg, g = quant_inputs(torch, m, k, n, 300 + i)
@@ -601,6 +713,16 @@ def check_quant(torch, qm, worst):
         if sg is not None:
             msg += [hold_quant(torch, qm, "k7", x, kq, sg, worst),
                     hold_quant(torch, qm, "k4", g, kq, sg, worst)]
+        if k % 128 == 0 and n % 16 == 0:
+            x4, kq4, sg4, g4 = int4_inputs(torch, m, k, n, 320 + i)
+            msg += [hold_quant(torch, qm, kern, a, kq4, sg4, worst)
+                    for kern, a in (("k8a", x4), ("k8w", x4), ("k9", g4))]
+        if n % 16 == 0 and k % 16 == 0:
+            msg.append(hold_quant(torch, qm, "k10", g, kq, scale, worst, m))
+            if m % 2 == 0:
+                msg.append(hold_quant(torch, qm, "k10",
+                                      g.view(2, m // 2, n), kq, scale,
+                                      worst, m // 2))
         print(f"quant {name} (M {m}, K {k}, N {n}): " + ", ".join(msg),
               flush=True)
 
@@ -608,46 +730,60 @@ def check_quant(torch, qm, worst):
 @contextlib.contextmanager
 def catch_quant_inputs(caught):
     """While a main path runs, keep the first inputs of each distinct
-    (M, K, N) that it hands K3, K7 and K4 (by the names model/int8.py calls
-    them by) in caught[kernel][(M, K, N)] = [inputs, calls], so that each
-    kernel is held against its plain version afterwards at the path's own
-    shapes and values (`check_caught`). The kernels launch as before."""
+    (M, K, N) that it hands each quant kernel (by the names model/int8.py
+    and model/int4.py call the wrappers by) in caught[kernel][(M, K, N)] =
+    [inputs, calls], so that each kernel is held against its plain version
+    afterwards at the path's own shapes and values (`check_caught`). The
+    kernels launch as before."""
+    from flipped_tpu_torch.model import int4 as q4
     from flipped_tpu_torch.model import int8 as q8
 
-    names = {"k3": "int8_fwd", "k7": "grouped_matmul", "k4": "quant_dx"}
-    orig = {kern: getattr(q8, name) for kern, name in names.items()}
+    patched = {(q8, "int8_fwd"): lambda a, w, s: ("k3", None),
+               (q8, "grouped_matmul"): lambda a, w, s: ("k7", None),
+               (q8, "quant_dx"): lambda a, w, s: ("k4", None),
+               (q8, "int8_dgrad"): lambda a, w, s, e: ("k10", e),
+               (q4, "int4_kernel"): lambda a, w, s, e: ("k8a" if e else "k8w",
+                                                       None),
+               (q4, "int4_dx"): lambda a, w, s: ("k9", None)}
+    orig = {key: getattr(*key) for key in patched}
 
-    def catching(kern):
-        def call(a, kq, scale):
-            key = (a.numel() // a.shape[-1], kq.shape[1], kq.shape[0])
-            if key not in caught[kern]:
+    def catching(key):
+        def call(a, w, s, *extra):
+            kern, e = patched[key](a, w, s, *extra)
+            n, k = w.shape
+            if kern in ("k8a", "k8w", "k9"):
+                n *= 2
+            shape = (a.numel() // a.shape[-1], k, n)
+            if shape not in caught[kern]:
                 # kept in host memory: the paths' peak device memory and
                 # the weights they free stay as they were
-                caught[kern][key] = [tuple(t.detach().to("cpu", copy=True)
-                                           for t in (a, kq, scale)), 0]
-            caught[kern][key][1] += 1
-            return orig[kern](a, kq, scale)
+                caught[kern][shape] = [tuple(t.detach().to("cpu", copy=True)
+                                             for t in (a, w, s)) + (e,), 0]
+            caught[kern][shape][1] += 1
+            return orig[key](a, w, s, *extra)
         return call
-    for kern, name in names.items():
-        setattr(q8, name, catching(kern))
+    for key in patched:
+        setattr(*key, catching(key))
     try:
         yield
     finally:
-        for kern, name in names.items():
-            setattr(q8, name, orig[kern])
+        for key in patched:
+            setattr(*key, orig[key])
 
 
-def check_caught(torch, qm, caught, worst):
+def check_caught(torch, qm, caught, worst, kernels):
     """Every (M, K, N) the main paths handed a quant kernel, on the first
-    inputs the path gave it at that shape: K3 and K7 bitwise, K4 within its
-    bound."""
+    inputs the path gave it at that shape: K3, K7, K8 w4a8 and K10 bitwise,
+    K4, K8 weight-only and K9 within their bounds. Each of `kernels` must
+    have been handed something."""
     for kern, shapes in caught.items():
         for (m, k, n), (inputs, calls) in sorted(shapes.items()):
+            *tensors, extra = inputs
             line = hold_quant(torch, qm, kern,
-                              *(t.to("cuda") for t in inputs), worst)
+                              *(t.to("cuda") for t in tensors), worst, extra)
             print(f"{kern.upper()} at a main path's (M {m}, K {k}, N {n}), "
                   f"{calls} calls: {line}", flush=True)
-    if not all(caught.values()):
+    if not all(caught[k] for k in kernels):
         raise AssertionError(f"a main path left a quant kernel uncalled: "
                              f"{ {k: len(v) for k, v in caught.items()} }")
 
@@ -684,14 +820,65 @@ def check_quant_autograd(torch, qm, q8):
                              "versions")
 
 
-def quant_bound(m, k, n, scale_floats, dx=False):
-    """x (M, K) or, for dx, g (M, N) read, kq read once, the scales read,
-    the output written; 2 M K N products at the int8 peak, or for dx at the
-    bf16 peak. The quantize pass's write and read of xq is the kernels' own
-    traffic, not the function's."""
+def check_int4_dgrad_autograd(torch, qm, q4, q8):
+    """At the w1/w3 shape, through the autograd Functions: Int4Matmul (K8
+    weight-only forward, K9 backward), Int4MatmulGrouped (K8 w4a8, K9) and
+    Int8MatmulDgrad (K3, K10) on a (3B, S, K) input, as the stacked encode
+    hands them, against the plain versions: K8 w4a8, K3 and K10 bitwise,
+    K8 weight-only and K9 within their bounds."""
+    m, k, n = QUANT_MAIN["w1/w3"]
+    x, kq4, sg, g = int4_inputs(torch, m, k, n, 360)
+    _, kq, scale, _, _ = quant_inputs(torch, m, k, n, 361)
+    shape = (3 * TRAIN_B, TRAIN_S)
+    before = read_counts_quant(qm)
+    xa, xb, xc = (x.view(*shape, k).detach().requires_grad_()
+                  for _ in range(3))
+    ya = q4.int4_matmul(xa, kq4, sg)
+    ya.backward(g.view(*shape, n))
+    yb = q4.int4_matmul_grouped(xb, kq4, sg)
+    yb.backward(g.view(*shape, n))
+    yc = q8.int8_matmul_dgrad(xc, kq, scale)
+    yc.backward(g.view(*shape, n))
+    torch.cuda.synchronize()
+    moved = {kern: c - before[kern]
+             for kern, c in read_counts_quant(qm).items()}
+    if moved != {"k3": 1, "k8": 2, "k9": 2, "k10": 1}:
+        raise AssertionError(f"autograd launches {moved}")
+    bad = (unequal(torch, yb.view(m, n), qm.int4_matmul_ref(x, kq4, sg, True))
+           + unequal(torch, yc.view(m, n), qm.int8_fwd_ref(x, kq, scale))
+           + unequal(torch, xc.grad, qm.int8_dgrad_ref(
+               g.view(*shape, n), kq, scale, TRAIN_S)))
+    ra, _ = mma_ratio(torch, qm, "k8w", ya, qm.int4_matmul_ref(
+        x, kq4, sg, False), x, kq4, sg)
+    dx9 = qm.int4_dx_ref(g, kq4, sg)
+    r9 = max(mma_ratio(torch, qm, "k9", d, dx9, g, kq4, sg)[0]
+             for d in (xa.grad, xb.grad))
+    print(f"autograd (M {m}, K {k}, N {n}) as {shape}: int4_matmul_grouped "
+          f"out, int8_matmul_dgrad out and dx (K10) unequal {bad}; "
+          f"int4_matmul out {ra:.3f} of bound, both dx (K9) {r9:.3f} of "
+          f"bound", flush=True)
+    if bad or ra > 1.0 or r9 > 1.0:
+        raise AssertionError("the int4 / dgrad autograd Functions disagree "
+                             "with the plain versions")
+
+
+def read_counts_quant(qm):
+    return {"k3": qm.int8_fwd.launches, "k8": qm.int4_matmul.launches,
+            "k9": qm.int4_dx.launches, "k10": qm.int8_dgrad.launches}
+
+
+def quant_bound(m, k, n, scale_floats, dx=False, weight_bytes=None,
+                bf16=None):
+    """x (M, K) or, for dx, g (M, N) read, the weight read once (kq, N K
+    bytes, or kq4, N K / 2), the scales read, the output written; 2 M K N
+    products at the int8 peak, or for dx (and K8's weight-only branch,
+    bf16=True) at the bf16 peak. The quantize pass's write and read of its
+    codes is the kernels' own traffic, not the function's."""
     act = m * n + m * k
-    peak = BF16_FLOP_PER_S if dx else INT8_OP_PER_S
-    return bound_ms(2 * act + n * k + 4 * scale_floats, 2.0 * m * k * n, peak)
+    peak = BF16_FLOP_PER_S if (dx if bf16 is None else bf16) \
+        else INT8_OP_PER_S
+    wb = n * k if weight_bytes is None else weight_bytes
+    return bound_ms(2 * act + wb + 4 * scale_floats, 2.0 * m * k * n, peak)
 
 
 def time_k3(torch, qm, m, k, n):
@@ -717,13 +904,62 @@ def time_k3(torch, qm, m, k, n):
     return t
 
 
+def time_int4_dgrad(torch, qm, m, k, n):
+    """K8 (both branches), K9 and K10 at one shape: kernel and plain version
+    (`timed`), the bound, and the library yardsticks: for K8 weight-only a
+    bf16 `F.linear` and for K9 a cuBLAS bf16 product on the weight
+    dequantized beforehand; for K10 `torch._int_mm` on codes quantized
+    beforehand (the int8 GEMM alone, int32 out) with B a column-major copy
+    of kq made beforehand (the layout cuBLASLt's int8 path takes), and as an
+    aside with B the (N, K) kq as stored (row-major); for K8 w4a8 none (no
+    PyTorch call computes a grouped-scale int4 product)."""
+    import torch.nn.functional as F
+
+    x, kq4, sg, g = int4_inputs(torch, m, k, n, 410)
+    _, kq, scale, _, _ = quant_inputs(torch, m, k, n, 400)
+    wd = qm.dequant(qm.unpack_int4(kq4), sg, torch.bfloat16)
+    int4_bytes = dict(weight_bytes=n * k // 2)
+    t8a = timed(torch, lambda: qm.int4_matmul(x, kq4, sg, True),
+                lambda: qm.int4_matmul_ref(x, kq4, sg, True))
+    t8a["library_ms"] = None
+    t8a["bound_ms"], t8a["bound_by"] = quant_bound(m, k, n, sg.numel(),
+                                                   **int4_bytes)
+    t8w = timed(torch, lambda: qm.int4_matmul(x, kq4, sg, False),
+                lambda: qm.int4_matmul_ref(x, kq4, sg, False))
+    t8w["library_ms"] = device_ms(torch, lambda: F.linear(x, wd))
+    t8w["bound_ms"], t8w["bound_by"] = quant_bound(
+        m, k, n, sg.numel(), bf16=True, **int4_bytes)
+    t9 = timed(torch, lambda: qm.int4_dx(g, kq4, sg),
+               lambda: qm.int4_dx_ref(g, kq4, sg))
+    t9["library_ms"] = device_ms(torch, lambda: torch.matmul(g, wd))
+    t9["bound_ms"], t9["bound_by"] = quant_bound(m, k, n, sg.numel(),
+                                                 dx=True, **int4_bytes)
+    t10 = timed(torch, lambda: qm.int8_dgrad(g, kq, scale, TRAIN_S),
+                lambda: qm.int8_dgrad_ref(g, kq, scale, TRAIN_S))
+    gs = g.float() * scale
+    gsc = torch.clamp_min(gs.abs().amax(-1, keepdim=True) * qm.INV127,
+                          qm.EPS)
+    gq = qm.sr_codes(gs / gsc, TRAIN_S).to(torch.int8)
+    kq_cm = kq.t().contiguous().t()
+    t10["library_ms"] = device_ms(torch, lambda: torch._int_mm(gq, kq_cm))
+    t10["int_mm_row_major_ms"] = device_ms(torch,
+                                           lambda: torch._int_mm(gq, kq))
+    # the quantize pass's operations are a few per element of g, 1/N of
+    # the GEMM's: the GEMM's products bound it
+    t10["bound_ms"], t10["bound_by"] = quant_bound(m, k, n, n)
+    return {"k8a": t8a, "k8w": t8w, "k9": t9, "k10": t10}
+
+
 def time_quant(torch, qm):
-    """K3, K7 and K4 at the three 3072-row shapes, and K3 at the eval's
-    w1/w3 shapes: kernel and plain version (`timed`), the bound, and the
-    library yardsticks: for K3 those of `time_k3`; for K4 a cuBLAS bf16
-    product on the weight dequantized beforehand (no dequantize); for K7
-    none (no PyTorch call computes a grouped-scale int8 product)."""
-    times = {"k3": {}, "k7": {}, "k4": {}}
+    """K3, K7, K4, K8 (both branches), K9 and K10 at the three 3072-row
+    shapes, and K3 at the eval's w1/w3 shapes: kernel and plain version
+    (`timed`), the bound, and the library yardsticks: for K3 those of
+    `time_k3`; for K4 a cuBLAS bf16 product on the weight dequantized
+    beforehand (no dequantize); for K7 none (no PyTorch call computes a
+    grouped-scale int8 product); for K8, K9 and K10 those of
+    `time_int4_dgrad`."""
+    times = {kern: {} for kern in ("k3", "k7", "k4", "k8a", "k8w", "k9",
+                                   "k10")}
     for name in ("wq/wk/wv/wo", "w1/w3", "w2", *K3_EVAL):
         m, k, n = QUANT_MAIN.get(name) or K3_EVAL[name]
         rows = [("K3", time_k3(torch, qm, m, k, n))]
@@ -742,12 +978,16 @@ def time_quant(torch, qm):
                 m, k, n, sg.numel(), dx=True)
             rows += [("K7", t7), ("K4", t4)]
             times["k7"][name], times["k4"][name] = t7, t4
+            for kern, t in time_int4_dgrad(torch, qm, m, k, n).items():
+                rows.append((kern.upper(), t))
+                times[kern][name] = t
         for kern, t in rows:
             lib = ("none" if t["library_ms"] is None
                    else f"{t['library_ms']:.5f} ms")
-            extra = (f" (row-major B {t['int_mm_row_major_ms']:.5f} ms), "
-                     f"bf16 F.linear {t['linear_ms']:.5f} ms"
-                     if kern == "K3" else "")
+            extra = (f" (row-major B {t['int_mm_row_major_ms']:.5f} ms)"
+                     if "int_mm_row_major_ms" in t else "")
+            extra += (f", bf16 F.linear {t['linear_ms']:.5f} ms"
+                      if kern == "K3" else "")
             print(f"{kern} timing {name} (M {m}, K {k}, N {n}): device kernel "
                   f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, library "
                   f"{lib}{extra}, bound {t['bound_ms']:.5f} ms "
@@ -778,7 +1018,8 @@ def cli_args(data_root, *extra):
 def counters(fa, qm):
     """Every kernel's wrapper, whose `launches` the main paths are read by."""
     return {"k1": fa.flash_text_attention, "k2": fa.flash_text_attention_bwd,
-            "k3": qm.int8_fwd, "k7": qm.grouped_matmul, "k4": qm.quant_dx}
+            "k3": qm.int8_fwd, "k7": qm.grouped_matmul, "k4": qm.quant_dx,
+            "k8": qm.int4_matmul, "k9": qm.int4_dx, "k10": qm.int8_dgrad}
 
 
 def read_counts(fa, qm):
@@ -790,19 +1031,39 @@ def zero_counts(fa, qm):
         f.launches = 0
 
 
+INT4_MODES = ("int4", "w4a8", "int4r", "w4a8r")
+PER_CHANNEL_W8A8 = ("w8a8", "w8a8r", "w8a8d", "w8a8rd")
+
+
 def per_update(quantize, blocks):
     """Launches per training update with remat, from the code: each block's
     forward runs twice (the update's forward and its recompute in the
     backward) and its backward once. A block forward launches K1 once and
     has 9 quantized matmuls: wq, wk, wv, wo, w1, w3, w2 on the stacked rows
-    and wk, wv on the adapter rows (model/llama.py) — each K3 under w8a8,
-    K7 under w8a8g/w8a8o, whose backward launches K4 once each; the LM head
-    is weight-only (no kernel). K2 runs once per block backward."""
+    and wk, wv on the adapter rows (model/llama.py) — each K3 under the
+    per-channel w8a8 modes, whose backward launches K10 once each under
+    w8a8d/w8a8rd; K7 under w8a8g/w8a8o, and K8 under the int4 modes, whose
+    backward launches K4 or K9 once each. At 7B width every block matmul
+    passes K8's shape guard (model/int4.py). The LM head is weight-only (no
+    kernel). K2 runs once per block backward."""
     fwd = 2 * blocks
+    grouped = quantize in ("w8a8g", "w8a8o")
     return {"k1": fwd, "k2": blocks,
-            "k3": 9 * fwd if quantize == "w8a8" else 0,
-            "k7": 9 * fwd if quantize in ("w8a8g", "w8a8o") else 0,
-            "k4": 9 * blocks if quantize in ("w8a8g", "w8a8o") else 0}
+            "k3": 9 * fwd if quantize in PER_CHANNEL_W8A8 else 0,
+            "k7": 9 * fwd if grouped else 0,
+            "k4": 9 * blocks if grouped else 0,
+            "k8": 9 * fwd if quantize in INT4_MODES else 0,
+            "k9": 9 * blocks if quantize in INT4_MODES else 0,
+            "k10": 9 * blocks if quantize in ("w8a8d", "w8a8rd") else 0}
+
+
+def forward_kernel(quantize):
+    """The kernel that carries a mode's block matmuls forward."""
+    if quantize == "none":
+        return "k1"
+    if quantize in PER_CHANNEL_W8A8:
+        return "k3"
+    return "k8" if quantize in INT4_MODES else "k7"
 
 
 def run_train_slice(torch, fa, qm, data_root, caught, quantize="none",
@@ -881,8 +1142,8 @@ def run_train_slice(torch, fa, qm, data_root, caught, quantize="none",
           f"code), over the epoch want {want}", flush=True)
     if epoch != want:
         raise AssertionError(f"launches over the epoch {epoch}, want {want}")
-    fwd_kernel = {"none": "k1", "w8a8": "k3"}.get(quantize, "k7")
-    if (launches["k2"] != epoch["k2"] or launches["k4"] != epoch["k4"]
+    fwd_kernel = forward_kernel(quantize)
+    if (any(launches[k] != epoch[k] for k in ("k2", "k4", "k9", "k10"))
             or launches["k1"] <= epoch["k1"]
             or launches[fwd_kernel] <= epoch[fwd_kernel]):
         raise AssertionError("the val eval should launch the forward "
@@ -955,10 +1216,12 @@ def time_train_step(torch, model, args, n=5):
 def eval_per_batch(quantize, blocks):
     """Launches per scored batch of the cached scorer, from the code: its
     prefill and its chunk extend each run every block once; K1 runs in the
-    prefill only, and under w8a8 each pass has 9 quantized matmuls per block
-    (K3)."""
-    return {"k1": blocks, "k2": 0,
-            "k3": 18 * blocks if quantize == "w8a8" else 0, "k7": 0, "k4": 0}
+    prefill only, and each pass has 9 quantized matmuls per block (K3 under
+    w8a8, K8 under w4a8)."""
+    counts = {k: 0 for k in ("k2", "k3", "k7", "k4", "k8", "k9", "k10")}
+    if quantize != "none":
+        counts[forward_kernel(quantize)] = 18 * blocks
+    return {"k1": blocks, **counts}
 
 
 def run_eval_slice(torch, fa, qm, data_root, caught, quantize="none"):
@@ -1058,6 +1321,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
+    from flipped_tpu_torch.model import int4 as q4
     from flipped_tpu_torch.model import int8 as q8
     from flipped_tpu_torch.model.kernels import build as kbuild
     from flipped_tpu_torch.model.kernels import flash_attention as fa
@@ -1080,15 +1344,17 @@ def main() -> int:
     phase("attention grads")
     check_grads(torch, fa)
 
-    phase("K3 / K7 / K4 vs plain")
-    # K4's plain version is a cuBLAS bf16 product: its sums stay in f32 for
-    # the comparison and the timing (the model's own GEMMs keep the default)
+    phase("K3 / K7 / K4 / K8 / K9 / K10 vs plain")
+    # K4's and K9's plain versions are cuBLAS bf16 products: their sums stay
+    # in f32 for the comparison and the timing (the model's own GEMMs keep
+    # the default)
     matmul = torch.backends.cuda.matmul
     reduced = matmul.allow_bf16_reduced_precision_reduction
     matmul.allow_bf16_reduced_precision_reduction = False
-    quant_err = {"k3": 0.0, "k7": 0.0, "k4": 0.0}
+    quant_err = {k: 0.0 for k in QUANT_KERNELS}
     check_quant(torch, qm, quant_err)
     check_quant_autograd(torch, qm, q8)
+    check_int4_dgrad_autograd(torch, qm, q4, q8)
 
     phase("timing")
     k1_times = time_k1(torch, fa)
@@ -1099,27 +1365,26 @@ def main() -> int:
     data_root = os.path.join(WORK, "data")
     write_fixtures(data_root)
 
-    launches, caught = {}, {"k3": {}, "k7": {}, "k4": {}}
-    for quantize, debug in (("none", False), ("w8a8", False),
-                            ("w8a8g", False), ("w8a8o", True)):
+    launches, caught = {}, {k: {} for k in QUANT_KERNELS}
+    for quantize, debug in TRAIN_RUNS:
         phase(f"train --quantize {quantize}"
               + (", one update" if debug else ""))
         model, args, launches[quantize] = run_train_slice(
             torch, fa, qm, data_root, caught, quantize, debug)
-        if quantize in ("none", "w8a8"):
+        if quantize in TIMED_STEPS:
             time_train_step(torch, model, args)
         del model
         torch.cuda.empty_cache()
 
-    for quantize in ("none", "w8a8"):
+    for quantize in EVAL_RUNS:
         phase(f"eval --quantize {quantize}")
         compare_cached_dense(torch, run_eval_slice(torch, fa, qm, data_root,
                                                    caught, quantize), caught)
         torch.cuda.empty_cache()
 
-    phase("K3 / K7 / K4 vs plain at the main paths' shapes")
+    phase("quant kernels vs plain at the main paths' shapes")
     matmul.allow_bf16_reduced_precision_reduction = False
-    check_caught(torch, qm, caught, quant_err)
+    check_caught(torch, qm, caught, quant_err, QUANT_KERNELS)
     matmul.allow_bf16_reduced_precision_reduction = reduced
     del caught
 
@@ -1138,7 +1403,18 @@ def main() -> int:
              launches["w8a8g"]["k7"], quant_err["k7"],
              quant_times["k7"][QUANT_ROW_SHAPE]),
             ("quant_dx", K4_SOURCE, K4_REPLACES, launches["w8a8g"]["k4"],
-             quant_err["k4"], quant_times["k4"][QUANT_ROW_SHAPE])):
+             quant_err["k4"], quant_times["k4"][QUANT_ROW_SHAPE]),
+            ("int4_fwd (w4a8)", K8_SOURCE, K8_REPLACES,
+             launches["w4a8"]["k8"], quant_err["k8a"],
+             quant_times["k8a"][QUANT_ROW_SHAPE]),
+            ("int4_fwd (int4 weight-only)", K8_SOURCE, K8_REPLACES,
+             launches["int4"]["k8"], quant_err["k8w"],
+             quant_times["k8w"][QUANT_ROW_SHAPE]),
+            ("int4_dx", K9_SOURCE, K9_REPLACES, launches["w4a8"]["k9"],
+             quant_err["k9"], quant_times["k9"][QUANT_ROW_SHAPE]),
+            ("int8_dgrad", K10_SOURCE, K10_REPLACES,
+             launches["w8a8d"]["k10"], quant_err["k10"],
+             quant_times["k10"][QUANT_ROW_SHAPE])):
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": count,
                      "max_abs_err": err, "ms": t["ms"],

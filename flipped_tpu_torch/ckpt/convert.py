@@ -25,9 +25,13 @@ Flax leaf names, and their dtypes end to end:
     .../out_idx  (n_out,) int32                  → .out_idx
     .../out_w    (n_out, N) bf16                 → .out_w, not transposed
 
+    .../kernel_q4 (K, N/2) int8 packed int4      → .kernel_q4 (N/2, K),
+                                                   transposed
+    qav_rot (dim, dim) f32 (rotated modes)       → qav_rot
+
 kernel_q is stored (N, K), the reference's `weight` layout: K-contiguous,
 which is how K3 and K7 read their B operand, and K4 transposes its tile in
-shared memory (ckpt/quantize.py).
+shared memory (ckpt/quantize.py); kernel_q4 likewise, for K8 and K9.
 """
 from __future__ import annotations
 
@@ -56,22 +60,22 @@ def flax_path_to_torch_name(path: str) -> str:
         parts = ["layers", parts[0][len("layers_"):]] + parts[1:]
     if parts[-1] in ("kernel", "embedding"):
         parts[-1] = "weight"
-    elif len(parts) == 1:          # bare top-level tables: adapter_query, ...
-        parts.append("weight")
+    elif len(parts) == 1 and parts[0] != "qav_rot":
+        parts.append("weight")     # bare top-level tables: adapter_query, ...
     return ".".join(parts)
 
 
 def needs_transpose(path: str) -> bool:
-    """Every Flax `kernel` (and int8 `kernel_q`) is (in, out); its torch
-    leaf is (out, in)."""
-    return path.rsplit("/", 1)[-1] in ("kernel", "kernel_q")
+    """Every Flax `kernel` (and quantized `kernel_q`, `kernel_q4`) is
+    (in, out); its torch leaf is (out, in)."""
+    return path.rsplit("/", 1)[-1] in ("kernel", "kernel_q", "kernel_q4")
 
 
 def params_from_flax(flax_params) -> Dict[str, torch.Tensor]:
     """Flax param tree (leaves as numpy or jax arrays) → state_dict of CPU
-    tensors: integer leaves (kernel_q int8, out_idx int32) keep their
-    dtype, float leaves become f32; `load_state_dict` casts them to each
-    parameter's dtype."""
+    tensors: integer leaves (kernel_q, kernel_q4 int8, out_idx int32) keep
+    their dtype, float leaves become f32; `load_state_dict` casts them to
+    each parameter's dtype."""
     sd = {}
     for path, leaf in flatten_flax(flax_params).items():
         arr = np.asarray(leaf)

@@ -13,7 +13,9 @@ Prints one JSON line: wall seconds per step without and with the profiler,
 device busy seconds per step (the union of kernel intervals) and its share
 of the profiled window's wall time, kernel launches per step, device time by
 kernel class (bf16 and f32 GEMMs, the port's flash kernels, its int8 GEMMs
-K3/K7 and its quantized dx K4, other), and the top kernels by device time.
+K3/K7, its quantized dx K4, K8's two GEMMs, K9, K10's quantize pass and
+GEMM, other), and the top kernels by device time. The activation quantize
+pass that K7 and K8's w4a8 branch share counts in the K3/K7 class.
 `--quantize` builds the model it names, as the CLIs do.
 """
 from __future__ import annotations
@@ -44,6 +46,12 @@ def kernel_class(name: str) -> str:
         return "int8 GEMM (K3/K7)"
     if "quant_dx" in low:
         return "quant dx (K4)"
+    if "int4_w4a8_gemm" in low or "int4_wo" in low:
+        return "int4 GEMM (K8)"
+    if "int4_dx" in low:
+        return "int4 dx (K9)"
+    if "int8_dgrad" in low:
+        return "int8 dgrad (K10)"
     if any(m in low for m in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "gemm f32" if "f32f32" in low else "gemm"
     return "other"

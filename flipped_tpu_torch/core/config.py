@@ -3,8 +3,8 @@ flipped_tpu/core/config.py).
 
 The dataclasses and flags keep the JAX package's names and defaults, so a
 reference run script translates one to one. What the port does not run yet
-is still parsed, and refused by `check_quantize` / `check_train_ported` with
-the ROADMAP item it waits for; `quant_flags` decodes a --quantize mode as
+is still parsed, and refused by `check_train_ported` with the ROADMAP item
+it waits for; `quant_flags` decodes a --quantize mode as
 the JAX package does. The mesh flags (--dp/--tp/--sp/--pp) are not
 parsed: the port runs in one process on one card.
 """
@@ -66,43 +66,23 @@ MODEL_PRESETS = {
     "llama33B": dict(dim=6656, n_layers=60, n_heads=52),
 }
 
-# The JAX package's --quantize grammar (core/config.py:292-296).
+# The JAX package's --quantize grammar (core/config.py:292-296); every mode
+# runs on one card.
 QUANTIZE_CHOICES = ("none", "int8", "w8a8", "int8g", "w8a8g", "int8o",
                     "w8a8o", "int8r", "w8a8r", "int4", "w4a8", "int4r",
                     "w4a8r", "w8a8d", "w8a8rd")
-# the modes still refused, with the ROADMAP item each waits for; the port
-# runs the others: none, weight-only int8* and w8a8 (K3 per-channel, K7/K4
-# grouped and outlier)
-_QUANTIZE_WAITS = {
-    "int8r": "the rotation folds, ckpt/rotate.py",
-    "w8a8r": "the rotation folds, ckpt/rotate.py",
-    "int4": "int4/w4a8 with K8 and K9",
-    "w4a8": "int4/w4a8 with K8 and K9",
-    "int4r": "int4/w4a8 with K8 and K9",
-    "w4a8r": "int4/w4a8 with K8 and K9",
-    "w8a8d": "w8a8d with K10",
-    "w8a8rd": "w8a8d with K10",
-}
 
 
 def check_quantize(mode: str) -> None:
     if mode not in QUANTIZE_CHOICES:
         raise ValueError(f"unknown --quantize mode {mode!r}")
-    if mode in _QUANTIZE_WAITS:
-        raise NotImplementedError(
-            f"--quantize {mode}: not ported yet (ROADMAP Queue 1, "
-            f"{_QUANTIZE_WAITS[mode]})")
 
 
 def model_quant_kwargs(mode: str) -> dict:
-    """The FlippedVQAModel kwargs of a --quantize mode: the four
-    `quant_flags` keys the quantized Linear takes. The others (weight_bits,
-    rotated, dgrad_quant) select only modes that `check_quantize` refuses,
-    which it does here."""
+    """The FlippedVQAModel kwargs of a --quantize mode: the seven
+    `quant_flags` keys."""
     check_quantize(mode)
-    flags = quant_flags(mode)
-    return {k: flags[k] for k in ("quantized", "act_quant", "quant_group",
-                                  "quant_outliers")}
+    return quant_flags(mode)
 
 
 def quant_flags(mode: str) -> dict:

@@ -1,5 +1,6 @@
-// Device code shared by K3 (int8_fwd.cu) and K7 (int8_grouped_fwd.cu): the
-// activation quantize pass and the int8 tensor-core GEMM with its two
+// Device code shared by K3 (int8_fwd.cu), K7 (int8_grouped_fwd.cu), K8's
+// w4a8 branch (int4_fwd.cu) and K10 (int8_dgrad.cu): the activation quantize
+// pass and the int8 tensor-core GEMM tile with its three B layouts and three
 // epilogues.
 //
 // mma.sync m16n8k32 fragment layouts (s8 in, s32 accumulate), with lane =
@@ -33,7 +34,7 @@ constexpr float INV127 = 0x1.020408p-7f;  // float32(1/127)
 
 // ---------------------------------------------------------------------------
 // Quantize pass: one warp per (row, group) of x (M, K) bf16, group | K. The
-// scale is amax / 127 (DIVIDE, K7's grouped formulation) or
+// scale is amax / 127 (DIVIDE, the grouped formulation of K7 and K8) or
 // amax * float32(1/127) (K3's per-row formulation), floored at EPS; each
 // code is rint(x / scale), half to even. Writes xq (M, K) int8 and xs
 // (M, K / group) f32.
@@ -102,22 +103,42 @@ cudaError_t launch_quantize(const void* x, void* xq, void* xs, int M, int K,
 }
 
 // ---------------------------------------------------------------------------
-// GEMM: out (M, N) bf16 from xq (M, K) int8 and kq (N, K) int8 with
-// mma.sync m16n8k32 s8 -> s32. One block of 8 warps per 128 x 128 output
-// tile; each warp owns 64 rows x 32 columns (4 x 4 mma tiles). K streams
-// through shared memory in 128-byte tiles (one K7 scale group per tile);
-// rows past M or N and bytes past K are zero in shared memory.
-//   K3 (GROUPED = false): int32 accumulation over all of K, then
+// GEMM tile: out (M, N) bf16 from a (M, Kc) int8, row-major, and an int8 B
+// operand, with mma.sync m16n8k32 s8 -> s32. One block of 8 warps per
+// 128 x 128 output tile; each warp owns 64 rows x 32 columns (4 x 4 mma
+// tiles). The contraction streams through shared memory in 128-byte tiles;
+// rows past M or N and bytes past Kc are zero in shared memory. B is one of
+//   B_NK      (N, Kc), Kc-contiguous: kq of K3 and K7, each fragment
+//             register one aligned 32-bit load;
+//   B_KN      (Kc, N), N-contiguous: kq (N_model, K_model) of K10, whose
+//             contraction runs over its rows. int8 mma.sync wants B
+//             contiguous in the contraction and sm_90 has no 8-bit
+//             ldmatrix.trans, so the fill transposes 4 x 4 byte blocks in
+//             registers (__byte_perm) on the way to shared memory;
+//   B_PACKED4 (N/2, Kc) packed int4 (K8): byte [j, k] holds column j in its
+//             low nibble and column j + N/2 in its high nibble. A block
+//             covers 64 packed rows, i.e. output columns [j0, j0 + 64) and
+//             [N/2 + j0, N/2 + j0 + 64); one 32-bit load of 4 packed bytes
+//             gives the fragment registers of both columns, the nibbles
+//             sign-extended bytewise.
+// Epilogues:
+//   EPI_CHANNEL (K3): int32 accumulation over all of Kc, then
 //     out = bf16((float(d) * xs[m]) * scale[n]).
-//   K7 (GROUPED = true): after each 128-wide group g, in order,
-//     acc = acc + (float(d_g) * xs[m, g]) * scale[g, n], then d_g = 0;
-//     out = bf16(acc). |d_g| <= 127^2 * 128 < 2^24, so float(d_g) is exact.
+//   EPI_GROUPED (K7, K8 w4a8): after each `group`-wide slice g of Kc (a
+//     multiple of 128), in order, acc = acc + (float(d_g) * xs[m, g]) *
+//     scale[g, n], then d_g = 0; out = bf16(acc). |d_g| <= 127 * 127 * Kc
+//     < 2^24 up to Kc = 1040, and with int4 weights (|w| <= 8) up to
+//     Kc = 16513, so float(d_g) is exact on every shape the model has.
+//   EPI_ROW (K10): out = bf16(float(d) * xs[m]).
 // ---------------------------------------------------------------------------
 constexpr int BM = 128;
 constexpr int BN = 128;
 constexpr int BK = 128;
 constexpr int PITCH = BK + 16;  // 144-byte rows: fragment loads hit 32 banks
 constexpr int GEMM_THREADS = 256;
+
+enum BMode { B_NK = 0, B_KN = 1, B_PACKED4 = 2 };
+enum Epi { EPI_CHANNEL = 0, EPI_GROUPED = 1, EPI_ROW = 2 };
 
 __device__ __forceinline__ void mma_s8_16832(int d[4], const uint32_t a[4],
                                              uint32_t b0, uint32_t b1) {
@@ -128,24 +149,46 @@ __device__ __forceinline__ void mma_s8_16832(int d[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <bool GROUPED>
-__global__ void __launch_bounds__(GEMM_THREADS)
-int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ kq,
-                 const float* __restrict__ xs,
-                 const float* __restrict__ scale, bf16* __restrict__ out,
-                 int M, int N, int K) {
+// The signed low / high nibbles of 4 packed bytes as 4 int8 bytes:
+// (v ^ 8) - 8 per byte maps the nibble v in 0..15 to v - 16 * (v >= 8).
+__device__ __forceinline__ uint32_t nibbles_lo(uint32_t p) {
+  return __vsub4((p & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
+__device__ __forceinline__ uint32_t nibbles_hi(uint32_t p) {
+  return nibbles_lo(p >> 4);
+}
+
+template <int BMODE, int EPI>
+__device__ __forceinline__ void gemm_tile(
+    const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+    const float* __restrict__ xs, const float* __restrict__ scale,
+    bf16* __restrict__ out, int M, int N, int Kc, int group) {
   __shared__ __align__(16) int8_t a_s[BM * PITCH];
   __shared__ __align__(16) int8_t b_s[BN * PITCH];
+  constexpr bool PACKED = BMODE == B_PACKED4;
 
   const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  // PACKED: the block's first packed row j0; else its first column
+  const int n0 = blockIdx.x * (PACKED ? BN / 2 : BN);
+  const int nh = N / 2;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int t = lane & 3;
   const int wm = (warp >> 2) * 64;  // the warp's rows within the tile
-  const int wn = (warp & 3) * 32;   // the warp's columns within the tile
-  const int groups = K / BK;        // K7's scale groups (K % 128 == 0)
+  // the warp's columns within the tile (PACKED: its 16 packed rows)
+  const int wn = (warp & 3) * (PACKED ? 16 : 32);
+  const int groups = Kc / group;    // EPI_GROUPED (Kc % group == 0)
+
+  // column of fragment column 2t of n-tile nt; PACKED n-tiles 0, 1 are the
+  // low nibbles of packed tiles 0, 1 and n-tiles 2, 3 their high nibbles
+  auto col_of = [&](int nt) {
+    if (PACKED) return (nt >= 2 ? nh : 0) + n0 + wn + (nt & 1) * 8 + 2 * t;
+    return n0 + wn + nt * 8 + 2 * t;
+  };
+  auto col_ok = [&](int nt) {
+    return PACKED ? n0 + wn + (nt & 1) * 8 + 2 * t < nh : col_of(nt) < N;
+  };
 
   int acc[4][4][4];
   float facc[4][4][4];
@@ -161,30 +204,70 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ kq,
     }
   }
 
-  const int n_kt = (K + BK - 1) / BK;
+  const int n_kt = (Kc + BK - 1) / BK;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
-    // 128 rows x 8 chunks of 16 bytes for each operand: 4 chunks a thread
+    // A: 128 rows x 8 chunks of 16 bytes, 4 chunks a thread
 #pragma unroll
     for (int j = 0; j < BM * (BK / 16) / GEMM_THREADS; ++j) {
       const int i = threadIdx.x + j * GEMM_THREADS;
       const int row = i / (BK / 16);
       const int ch = (i % (BK / 16)) * 16;
-      const int kk = k0 + ch;
       uint4 av = make_uint4(0u, 0u, 0u, 0u);
-      uint4 bv = make_uint4(0u, 0u, 0u, 0u);
-      if (kk < K) {  // K % 16 == 0: a chunk is all in or all out
-        if (m0 + row < M) {
-          av = *reinterpret_cast<const uint4*>(
-              xq + static_cast<long long>(m0 + row) * K + kk);
-        }
-        if (n0 + row < N) {
-          bv = *reinterpret_cast<const uint4*>(
-              kq + static_cast<long long>(n0 + row) * K + kk);
-        }
+      if (k0 + ch < Kc && m0 + row < M) {  // Kc % 16 == 0: whole chunks
+        av = *reinterpret_cast<const uint4*>(
+            a + static_cast<long long>(m0 + row) * Kc + k0 + ch);
       }
       *reinterpret_cast<uint4*>(a_s + row * PITCH + ch) = av;
-      *reinterpret_cast<uint4*>(b_s + row * PITCH + ch) = bv;
+    }
+    if (BMODE == B_KN) {
+      // 32 x 32 blocks of 4 contraction rows x 4 columns, 4 a thread; a
+      // warp reads 128 contiguous bytes of each of 4 rows
+#pragma unroll
+      for (int j = 0; j < (BK / 4) * (BN / 4) / GEMM_THREADS; ++j) {
+        const int i = threadIdx.x + j * GEMM_THREADS;
+        const int kb = (i / (BN / 4)) * 4;  // contraction offset in the tile
+        const int nb = (i % (BN / 4)) * 4;  // column offset in the tile
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (n0 + nb < N) {                  // N % 4 == 0: whole blocks
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            if (k0 + kb + r < Kc) {
+              w[r] = *reinterpret_cast<const uint32_t*>(
+                  b + static_cast<long long>(k0 + kb + r) * N + n0 + nb);
+            }
+          }
+        }
+        // byte c of w[r] -> byte r of column word c
+        const uint32_t t01 = __byte_perm(w[0], w[1], 0x5140);
+        const uint32_t t23 = __byte_perm(w[2], w[3], 0x5140);
+        const uint32_t u01 = __byte_perm(w[0], w[1], 0x7362);
+        const uint32_t u23 = __byte_perm(w[2], w[3], 0x7362);
+        int8_t* dst = b_s + nb * PITCH + kb;
+        *reinterpret_cast<uint32_t*>(dst) = __byte_perm(t01, t23, 0x5410);
+        *reinterpret_cast<uint32_t*>(dst + PITCH) =
+            __byte_perm(t01, t23, 0x7632);
+        *reinterpret_cast<uint32_t*>(dst + 2 * PITCH) =
+            __byte_perm(u01, u23, 0x5410);
+        *reinterpret_cast<uint32_t*>(dst + 3 * PITCH) =
+            __byte_perm(u01, u23, 0x7632);
+      }
+    } else {
+      // B_NK: 128 rows, B_PACKED4: 64 packed rows, of 8 chunks of 16 bytes
+      constexpr int ROWS = PACKED ? BN / 2 : BN;
+      const int rows_in = PACKED ? nh : N;
+#pragma unroll
+      for (int j = 0; j < ROWS * (BK / 16) / GEMM_THREADS; ++j) {
+        const int i = threadIdx.x + j * GEMM_THREADS;
+        const int row = i / (BK / 16);
+        const int ch = (i % (BK / 16)) * 16;
+        uint4 bv = make_uint4(0u, 0u, 0u, 0u);
+        if (k0 + ch < Kc && n0 + row < rows_in) {
+          bv = *reinterpret_cast<const uint4*>(
+              b + static_cast<long long>(n0 + row) * Kc + k0 + ch);
+        }
+        *reinterpret_cast<uint4*>(b_s + row * PITCH + ch) = bv;
+      }
     }
     __syncthreads();
 
@@ -200,11 +283,24 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ kq,
         af[mt][2] = *reinterpret_cast<const uint32_t*>(p + 16);
         af[mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * PITCH + 16);
       }
+      if (PACKED) {
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int8_t* p = b_s + (wn + nt * 8 + g) * PITCH + ks + 4 * t;
-        bfr[nt][0] = *reinterpret_cast<const uint32_t*>(p);
-        bfr[nt][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+        for (int np = 0; np < 2; ++np) {
+          const int8_t* p = b_s + (wn + np * 8 + g) * PITCH + ks + 4 * t;
+          const uint32_t p0 = *reinterpret_cast<const uint32_t*>(p);
+          const uint32_t p1 = *reinterpret_cast<const uint32_t*>(p + 16);
+          bfr[np][0] = nibbles_lo(p0);
+          bfr[np][1] = nibbles_lo(p1);
+          bfr[np + 2][0] = nibbles_hi(p0);
+          bfr[np + 2][1] = nibbles_hi(p1);
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int8_t* p = b_s + (wn + nt * 8 + g) * PITCH + ks + 4 * t;
+          bfr[nt][0] = *reinterpret_cast<const uint32_t*>(p);
+          bfr[nt][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+        }
       }
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
@@ -216,15 +312,16 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ kq,
     }
     __syncthreads();  // the next tile overwrites a_s / b_s
 
-    if constexpr (GROUPED) {
+    if (EPI == EPI_GROUPED && (k0 + BK) % group == 0) {
+      const int gi = k0 / group;
       float sv[4][2];
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const int col = n0 + wn + nt * 8 + 2 * t + c;
-          sv[nt][c] =
-              col < N ? scale[static_cast<long long>(kt) * N + col] : 0.f;
+          sv[nt][c] = col_ok(nt)
+              ? scale[static_cast<long long>(gi) * N + col_of(nt) + c]
+              : 0.f;
         }
       }
 #pragma unroll
@@ -233,7 +330,7 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ kq,
         for (int h = 0; h < 2; ++h) {
           const int row = m0 + wm + mt * 16 + g + 8 * h;
           const float xv =
-              row < M ? xs[static_cast<long long>(row) * groups + kt] : 0.f;
+              row < M ? xs[static_cast<long long>(row) * groups + gi] : 0.f;
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
@@ -257,28 +354,41 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ kq,
     for (int h = 0; h < 2; ++h) {
       const int row = m0 + wm + mt * 16 + g + 8 * h;
       if (row >= M) continue;
-      const float xv = GROUPED ? 0.f : xs[row];
+      const float xv = EPI == EPI_GROUPED ? 0.f : xs[row];
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + wn + nt * 8 + 2 * t;
-        if (col >= N) continue;  // N % 8 == 0: col + 1 < N as well
-        float v0, v1;
-        if constexpr (GROUPED) {
-          v0 = facc[mt][nt][2 * h];
-          v1 = facc[mt][nt][2 * h + 1];
-        } else {
-          v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * h]), xv),
-                         scale[col]);
-          v1 = __fmul_rn(
-              __fmul_rn(__int2float_rn(acc[mt][nt][2 * h + 1]), xv),
-              scale[col + 1]);
+        if (!col_ok(nt)) continue;  // N (or N/2) % 8 == 0: col + 1 is in
+        const int col = col_of(nt);
+        float v[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int i = 2 * h + c;
+          if (EPI == EPI_GROUPED) {
+            v[c] = facc[mt][nt][i];
+          } else if (EPI == EPI_ROW) {
+            v[c] = __fmul_rn(__int2float_rn(acc[mt][nt][i]), xv);
+          } else {
+            v[c] = __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][i]), xv),
+                             scale[col + c]);
+          }
         }
         *reinterpret_cast<__nv_bfloat162*>(
             out + static_cast<long long>(row) * N + col) =
-            __floats2bfloat162_rn(v0, v1);
+            __floats2bfloat162_rn(v[0], v[1]);
       }
     }
   }
+}
+
+// K3 (GROUPED = false) and K7 (GROUPED = true): B_NK, group 128
+template <bool GROUPED>
+__global__ void __launch_bounds__(GEMM_THREADS)
+int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ kq,
+                 const float* __restrict__ xs,
+                 const float* __restrict__ scale, bf16* __restrict__ out,
+                 int M, int N, int K) {
+  gemm_tile<B_NK, GROUPED ? EPI_GROUPED : EPI_CHANNEL>(xq, kq, xs, scale,
+                                                        out, M, N, K, BK);
 }
 
 template <bool GROUPED>

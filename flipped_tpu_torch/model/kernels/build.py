@@ -71,6 +71,21 @@ class KernelLibrary:
             + [ctypes.c_int] * 3              # M N K
             + [ctypes.c_void_p])              # stream
         self.lib.quant_dx.restype = ctypes.c_int
+        self.lib.int4_fwd.argtypes = (
+            [ctypes.c_void_p] * 6             # x kq4 scale_g xq xs out
+            + [ctypes.c_int] * 5              # M N K group act_quant
+            + [ctypes.c_void_p])              # stream
+        self.lib.int4_fwd.restype = ctypes.c_int
+        self.lib.int4_dx.argtypes = (
+            [ctypes.c_void_p] * 4             # g kq4 scale_g dx
+            + [ctypes.c_int] * 4              # M N K group
+            + [ctypes.c_void_p])              # stream
+        self.lib.int4_dx.restype = ctypes.c_int
+        self.lib.int8_dgrad.argtypes = (
+            [ctypes.c_void_p] * 6             # g kq scale gq gsc dx
+            + [ctypes.c_int] * 4              # M N K s_mod
+            + [ctypes.c_void_p])              # stream
+        self.lib.int8_dgrad.restype = ctypes.c_int
         self.lib.flash_error_string.argtypes = [ctypes.c_int]
         self.lib.flash_error_string.restype = ctypes.c_char_p
 

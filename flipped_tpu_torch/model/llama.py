@@ -12,8 +12,9 @@ Parameters are allocated uninitialised on `device`; `train.builder.
 init_params` fills them.
 
 The quantization flags are those of `core.config.model_quant_kwargs` (int8
-weight-only, w8a8 through K3, grouped/outlier w8a8 through K7 and K4; see
-`Linear`); `check_quantize` refuses int4, the rotation fold and w8a8d.
+weight-only, w8a8 through K3, grouped/outlier w8a8 through K7 and K4,
+packed int4/w4a8 through K8 and K9, w8a8d through K3 and K10, and the
+rotated modes' `qav_rot`; see `Linear` and `FlippedVQAModel`).
 
 Only the last `adapter_layer` blocks exist and run, as in the reference
 (`layers[-adapter_layer:]`, JAX: llama.py:610-619); `layers` is a ModuleDict
@@ -35,7 +36,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.config import ModelConfig
 from .attention import chunk_extend_attention
-from .int8 import int8_matmul, int8_matmul_grouped, outlier_count
+from .int4 import int4_matmul, int4_matmul_grouped
+from .int8 import (int8_matmul, int8_matmul_dgrad, int8_matmul_grouped,
+                   outlier_count)
 from .kernels.flash_attention import flash_adapter_attention
 from .kernels.quant_matmul import dequant
 from .layers import apply_rope, apply_rope_at, precompute_rope, rms_norm
@@ -57,22 +60,43 @@ class Linear(nn.Module):
     x[..., out_idx] @ out_w is added exactly, from the unmasked x, and under
     act_quant those columns of x are zeroed before the quantized product.
 
-    act_quant (w8a8*) runs `int8_matmul` (K3) or `int8_matmul_grouped`
-    (K7 forward, K4 backward); without it (int8*, and the LM head in every
-    mode) x @ dequant(W) in `dtype`, W = dtype(kq)·dtype(scale)."""
+    act_quant (w8a8*) runs `int8_matmul` (K3; with dgrad_quant
+    `int8_matmul_dgrad`, K3 and K10) or `int8_matmul_grouped` (K7 forward,
+    K4 backward); without it (int8*, and the LM head in every mode)
+    x @ dequant(W) in `dtype`, W = dtype(kq)·dtype(scale).
+
+    weight_bits=4 (int4*, w4a8*) holds `kernel_q4` (out/2, in) packed int4
+    (model/int4.py) and grouped `scale` (in/group, out), one group when
+    `group` (quant_group, else 128) does not divide `in` (llama.py:104-110),
+    and runs `int4_matmul` (weight-only) or `int4_matmul_grouped` (w4a8):
+    K8 forward, K9 backward."""
 
     def __init__(self, in_features: int, out_features: int, dtype,
                  param_dtype, device=None, quantized: bool = False,
                  act_quant: bool = False, quant_group: int = 0,
-                 quant_outliers: bool = False):
+                 quant_outliers: bool = False, weight_bits: int = 8,
+                 dgrad_quant: bool = False):
         super().__init__()
         self.dtype = dtype
         self.quantized = quantized
         self.act_quant = act_quant
         self.quant_outliers = quant_outliers
+        self.weight_bits = weight_bits
+        self.dgrad_quant = dgrad_quant
         if not quantized:
             self.weight = _empty((out_features, in_features), param_dtype,
                                  device)
+            return
+        if weight_bits == 4:
+            if quant_outliers:
+                raise ValueError("int4 + outlier passthrough is unsupported "
+                                 "(use --quantize int4r|w4a8r)")
+            group = quant_group or 128
+            self.kernel_q4 = _empty((out_features // 2, in_features),
+                                    torch.int8, device)
+            self.scale = _empty((in_features // group
+                                 if in_features % group == 0 else 1,
+                                 out_features), torch.float32, device)
             return
         self.grouped = quant_group > 0 and in_features % quant_group == 0
         self.kernel_q = _empty((out_features, in_features), torch.int8,
@@ -88,6 +112,9 @@ class Linear(nn.Module):
     def forward(self, x):
         if not self.quantized:
             return F.linear(x, self.weight.to(self.dtype))
+        if self.weight_bits == 4:
+            mm = int4_matmul_grouped if self.act_quant else int4_matmul
+            return mm(x, self.kernel_q4, self.scale)
         passthrough = None
         if self.quant_outliers:
             idx = self.out_idx.long()
@@ -98,7 +125,10 @@ class Linear(nn.Module):
                                   device=x.device)
                 x = x * mask.index_fill(0, idx, 0)
         if self.act_quant:
-            mm = int8_matmul_grouped if self.grouped else int8_matmul
+            if self.grouped:
+                mm = int8_matmul_grouped
+            else:
+                mm = int8_matmul_dgrad if self.dgrad_quant else int8_matmul
             out = mm(x, self.kernel_q, self.scale)
         else:
             out = F.linear(x, dequant(self.kernel_q, self.scale, self.dtype))
@@ -247,7 +277,8 @@ class FlippedVQAModel(nn.Module):
                  frozen_dtype=torch.bfloat16, trainable_dtype=torch.float32,
                  device=None, remat: bool = False, quantized: bool = False,
                  act_quant: bool = False, quant_group: int = 0,
-                 quant_outliers: bool = False):
+                 quant_outliers: bool = False, weight_bits: int = 8,
+                 rotated: bool = False, dgrad_quant: bool = False):
         super().__init__()
         if cfg.audio_merge is not None:
             raise NotImplementedError(
@@ -257,7 +288,8 @@ class FlippedVQAModel(nn.Module):
         self.dtype = dtype
         self.remat = remat
         quant = dict(quantized=quantized, act_quant=act_quant,
-                     quant_group=quant_group, quant_outliers=quant_outliers)
+                     quant_group=quant_group, quant_outliers=quant_outliers,
+                     weight_bits=weight_bits, dgrad_quant=dgrad_quant)
         self.tok_embeddings = Embedding(cfg.vocab_size, cfg.dim, frozen_dtype,
                                         device)
         first = cfg.n_layers - cfg.adapter_layer
@@ -266,10 +298,19 @@ class FlippedVQAModel(nn.Module):
                                      trainable_dtype, device, quant)
             for i in range(first, cfg.n_layers)})
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps, frozen_dtype, device)
-        # the LM head is weight-only in every mode: its logits feed the eval
-        # argmin directly (JAX: llama.py:523-528)
+        # the LM head is int8 weight-only in every mode: its logits feed the
+        # eval argmin directly (JAX: llama.py:523-528); under the int4 modes
+        # grouped 128, as quant_group says
         self.output = Linear(cfg.dim, cfg.vocab_size, dtype, frozen_dtype,
-                             device, **{**quant, "act_quant": False})
+                             device, **{**quant, "act_quant": False,
+                                        "weight_bits": 8,
+                                        "dgrad_quant": False})
+        # the rotated modes: the frozen f32 Rᵀdiag(γ)R that restores the
+        # final norm's γ inside the QAV head, the identity until a rotated
+        # checkpoint is loaded (JAX: llama.py:529-535)
+        self.rotated = rotated
+        if rotated:
+            self.qav_rot = _empty((cfg.dim, cfg.dim), torch.float32, device)
         self.adapter_query = Embedding(cfg.adapter_len * cfg.adapter_layer,
                                        cfg.dim, trainable_dtype, device)
         self.temporal_emb = Embedding(cfg.max_feats, cfg.dim, trainable_dtype,
@@ -331,9 +372,13 @@ class FlippedVQAModel(nn.Module):
         return self.output(h)
 
     def qav_logits(self, h, video_feature):
-        """h · video_featureᵀ / tau over the F frames, f32."""
-        return (torch.einsum("bsd,bfd->bsf", h[:, :-1].float(),
-                             video_feature.float()) / self.cfg.tau)
+        """h · video_featureᵀ / tau over the F frames, f32; the rotated
+        modes take vf @ qav_rot (JAX: llama.py:684-696)."""
+        vf = video_feature.float()
+        if self.rotated:
+            vf = vf @ self.qav_rot.float()
+        return (torch.einsum("bsd,bfd->bsf", h[:, :-1].float(), vf)
+                / self.cfg.tau)
 
     def prefill(self, tokens, video_feature, video_start, splice_index,
                 cache_len: int):

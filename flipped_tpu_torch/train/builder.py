@@ -27,10 +27,11 @@ from ..text import load_tokenizer
 from .optim import is_trainable, trainable_parameters
 
 
-# the leaves of a quantized Linear with a dtype of their own (out_w is in
-# the frozen dtype)
-QUANT_LEAVES = {"kernel_q": torch.int8, "out_idx": torch.int32,
-                "scale": torch.float32}
+# the frozen leaves with a dtype of their own: a quantized Linear's (out_w
+# is in the frozen dtype) and the rotated modes' qav_rot
+QUANT_LEAVES = {"kernel_q": torch.int8, "kernel_q4": torch.int8,
+                "out_idx": torch.int32, "scale": torch.float32,
+                "qav_rot": torch.float32}
 
 
 def resolve_model_config(run_cfg: RunConfig) -> ModelConfig:
@@ -73,16 +74,18 @@ def init_params(model: FlippedVQAModel, seed: int = 0) -> None:
     """Fill every parameter in place, as the Flax initialisers do
     (JAX: llama.py:44-47, 507-543): U(±1/√fan_in) for Linear weights,
     N(0, 1) for the embedding tables (tokens, adapter_query, temporal_emb),
-    ones for the norms, zeros for gate1 and -bias for gate2; the int8
-    leaves of a quantized model by `randomize_quantized` (JAX:
+    ones for the norms, zeros for gate1 and -bias for gate2, the identity
+    for qav_rot; the quantized leaves by `randomize_quantized` (JAX:
     builder.py:191-196). The generator lives on the parameters' device, so
     a 7B init never leaves the card."""
     g = torch.Generator(device=model.device).manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in QUANT_LEAVES or leaf == "out_w":
+        if name == "qav_rot":
+            p.copy_(torch.eye(p.shape[0], dtype=p.dtype, device=p.device))
+        elif leaf in QUANT_LEAVES or leaf == "out_w":
             continue            # randomize_quantized below
-        if name.endswith("gate1"):
+        elif name.endswith("gate1"):
             p.zero_()
         elif name.endswith("gate2"):
             p.fill_(-model.cfg.bias)
@@ -101,7 +104,8 @@ def init_params(model: FlippedVQAModel, seed: int = 0) -> None:
 
 def check_dtype_policy(model: FlippedVQAModel, frozen_dtype) -> None:
     """Trainables f32, the frozen backbone in `frozen_dtype`, except the
-    int8 leaves: kernel_q int8, out_idx int32, scale f32."""
+    leaves of QUANT_LEAVES: kernel_q and kernel_q4 int8, out_idx int32,
+    scale and qav_rot f32."""
     for name, p in model.named_parameters():
         want = (torch.float32 if is_trainable(name) else
                 QUANT_LEAVES.get(name.rsplit(".", 1)[-1], frozen_dtype))

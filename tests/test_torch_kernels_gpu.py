@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels on the card, against their plain versions.
+"""The hand-written CUDA kernels (K1-K4, K7-K10) on the card, against their
+plain versions.
 
 Marked `gpu`: each test skips without a CUDA device (the kernels have no CPU
 mode). This file imports torch and the port only, so it also runs on a
@@ -211,3 +212,134 @@ def test_quant_autograd_functions_on_card(cuda):
     w = qm.dequant(kq, scale, torch.bfloat16)
     assert torch.equal(xa.grad, dy @ w)
     assert bool(torch.isfinite(xb.grad).all())
+
+
+# --- K8, K9, K10: the packed int4 GEMMs and the w8a8d dgrad -------------------
+
+def _int4_inputs(cuda, m, k, n, seed):
+    """x with a large column and a zero row, int4 codes (N, K) in [-8, 7]
+    packed to (N/2, K), group scales (K/128, N), a cotangent (M, N)."""
+    from flipped_tpu_torch.model.int4 import pack_int4
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, device=cuda, generator=g)
+    x[:, 1] *= 30.0
+    x[m // 2] = 0.0
+    codes = torch.randint(-8, 8, (n, k), device=cuda, generator=g,
+                          dtype=torch.int8)
+    sg = (torch.rand(k // 128, n, device=cuda, generator=g) + 0.5) \
+        / (7.0 * k ** 0.5)
+    dy = torch.randn(m, n, device=cuda, generator=g).to(torch.bfloat16)
+    return x.to(torch.bfloat16), codes, pack_int4(codes), sg, dy
+
+
+def _mma_bound(ref, a, w, terms):
+    """chip_smoke.py's bound for bf16 tensor-core products against their
+    plain versions: (2^-7·|plain| + terms·2^-24·(|a|·|w|ᵀ))·(1 + 2^-8)."""
+    return (2.0 ** -7 * ref.double().abs()
+            + terms * 2.0 ** -24 * (a.double().abs() @ w.double().abs().t())
+            ) * (1 + 2.0 ** -8)
+
+
+@pytest.mark.parametrize("m,k,n", [(10, 256, 256), (37, 384, 528),
+                                   (130, 1024, 1040)])
+def test_int4_matmul_matches_plain(cuda, m, k, n):
+    """K8: the w4a8 branch bit for bit equal to its plain version (the same
+    IEEE operations on exact integer dots), the weight-only branch within
+    the bound of its f32 group sums."""
+    x, codes, kq4, sg, _ = _int4_inputs(cuda, m, k, n, 7)
+    before = qm.int4_matmul.launches
+    out8 = qm.int4_matmul(x.view(1, m, k), kq4, sg, True)
+    out4 = qm.int4_matmul(x, kq4, sg, False)
+    torch.cuda.synchronize()
+    assert qm.int4_matmul.launches == before + 2
+    assert out8.shape == (1, m, n)
+    assert torch.equal(_bits(out8[0]), _bits(qm.int4_matmul_ref(x, kq4, sg,
+                                                                True)))
+    ref = qm.int4_matmul_ref(x, kq4, sg, False)
+    groups = k // 128
+    w = (codes.double().view(n, groups, 128) * sg.t().double()[:, :, None]
+         ).view(n, k)
+    bound = _mma_bound(ref, x, w, k + 2 * groups)
+    assert bool(((out4.double() - ref.double()).abs() <= bound).all())
+    assert bool((out4[m // 2] == 0).all())
+
+
+@pytest.mark.parametrize("m,k,n", [(10, 256, 256), (130, 1024, 1040)])
+def test_int4_dx_matches_plain(cuda, monkeypatch, m, k, n):
+    """K9 against its plain version (a cuBLAS bf16 product on the weight
+    dequantized beforehand): within the bound of two f32 sums of N products,
+    as K4."""
+    _, codes, kq4, sg, dy = _int4_inputs(cuda, m, k, n, 8)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    before = qm.int4_dx.launches
+    dx = qm.int4_dx(dy, kq4, sg)
+    torch.cuda.synchronize()
+    assert qm.int4_dx.launches == before + 1
+    ref = qm.int4_dx_ref(dy, kq4, sg)
+    w = qm.dequant(codes, sg, torch.bfloat16)
+    bound = _mma_bound(ref, dy, w.t(), n)
+    assert bool(((dx.double() - ref.double()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("shape,k", [((10, 256), 256), ((2, 37, 528), 384),
+                                     ((130, 1040), 1024)])
+def test_int8_dgrad_bitwise_equal_plain(cuda, shape, k):
+    """K10 computes its plain version's IEEE operations, hash and exact
+    int8 dot: bit for bit equal, on 2-D and 3-D cotangents."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    n = shape[-1]
+    dy = torch.randn(*shape, device=cuda, generator=gen)
+    dy[..., 3] *= 30.0
+    dy = dy.to(torch.bfloat16)
+    kq = torch.randint(-127, 128, (n, k), device=cuda, generator=gen,
+                       dtype=torch.int8)
+    scale = (torch.rand(n, device=cuda, generator=gen) + 0.5) \
+        / (127.0 * k ** 0.5)
+    before = qm.int8_dgrad.launches
+    dx = qm.int8_dgrad(dy, kq, scale, shape[-2])
+    torch.cuda.synchronize()
+    assert qm.int8_dgrad.launches == before + 1
+    assert dx.shape == (*shape[:-1], k)
+    assert torch.equal(_bits(dx), _bits(qm.int8_dgrad_ref(dy, kq, scale,
+                                                          shape[-2])))
+
+
+def test_int4_and_dgrad_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x, codes, kq4, sg, dy = _int4_inputs(cuda, 16, 256, 256, 10)
+    with pytest.raises(TypeError):
+        qm.int4_matmul(x.float(), kq4, sg, True)
+    with pytest.raises(ValueError):
+        qm.int4_matmul(x, kq4, sg[:, :128].contiguous(), True)  # not (G, N)
+    with pytest.raises(ValueError):
+        qm.int4_dx(dy[:, :200], kq4, sg)                      # not contiguous
+    kq = torch.zeros(256, 256, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        qm.int8_dgrad(dy, kq, torch.zeros(256, device=cuda), 0)   # s_mod 0
+
+
+def test_int4_and_dgrad_autograd_functions_on_card(cuda):
+    """Int4Matmul (K8 weight-only, K9), Int4MatmulGrouped (K8 w4a8, K9) and
+    Int8MatmulDgrad (K3, K10): one launch of each kernel a direction, the
+    dx of the first two equal to K9 on the same cotangent, finite grads."""
+    from flipped_tpu_torch.model import int4 as t4
+    from flipped_tpu_torch.model import int8 as q8
+
+    x, codes, kq4, sg, dy = _int4_inputs(cuda, 40, 256, 256, 11)
+    kq = torch.randint(-127, 128, (256, 256), device=cuda, dtype=torch.int8)
+    scale = torch.full((256,), 1e-3, device=cuda)
+    counts = lambda: (qm.int4_matmul.launches, qm.int4_dx.launches,
+                      qm.int8_fwd.launches, qm.int8_dgrad.launches)
+    before = counts()
+    xa, xb, xc = (x.detach().requires_grad_() for _ in range(3))
+    t4.int4_matmul(xa, kq4, sg).backward(dy)
+    t4.int4_matmul_grouped(xb, kq4, sg).backward(dy)
+    q8.int8_matmul_dgrad(xc.view(2, 20, 256), kq, scale).backward(
+        dy.view(2, 20, 256))
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 2, 1, 1)
+    dx9 = qm.int4_dx(dy, kq4, sg)
+    assert torch.equal(xa.grad, dx9) and torch.equal(xb.grad, dx9)
+    assert torch.equal(xc.grad, qm.int8_dgrad_ref(dy.view(2, 20, 256), kq,
+                                                  scale, 20).view(40, 256))

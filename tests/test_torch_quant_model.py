@@ -356,23 +356,14 @@ def test_randomize_quantized_follows_the_jax_laws(mode):
 
 def test_quant_flags_and_refusals_match_jax():
     """quant_flags decodes every mode as the JAX package does; check_quantize
-    lets none and the six int8 modes through and names the ROADMAP item of
-    each other mode; model_quant_kwargs refuses through it and passes the
-    model only the Linear's four keys."""
+    lets every mode through (all run on one card) and refuses only unknown
+    ones; model_quant_kwargs passes the model all seven keys."""
     for mode in QUANTIZE_CHOICES:
         assert quant_flags(mode) == jquant_flags(mode), mode
-    for mode in ("none",) + MODES:
         check_quantize(mode)
-        kwargs = model_quant_kwargs(mode)
-        assert kwargs == {k: quant_flags(mode)[k] for k in kwargs}
-        assert set(kwargs) == {"quantized", "act_quant", "quant_group",
-                               "quant_outliers"}
-    for mode, item in (("int8r", "rotation"), ("w8a8r", "rotation"),
-                       ("int4", "K8"), ("w4a8r", "K8"), ("w8a8d", "K10"),
-                       ("w8a8rd", "K10")):
-        with pytest.raises(NotImplementedError, match=item):
-            check_quantize(mode)
-        with pytest.raises(NotImplementedError, match=item):
+        assert model_quant_kwargs(mode) == quant_flags(mode)
+    for mode in ("int2", "w8a8gd"):
+        with pytest.raises(ValueError):
             model_quant_kwargs(mode)
 
 

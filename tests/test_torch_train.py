@@ -227,7 +227,7 @@ def test_train_cli_runs_in_process(synth_root):
 @pytest.mark.parametrize("extra", [
     ["--output_dir", "out"], ["--remat_policy", "qkv"],
     ["--remat_group", "2"], ["--lm_head_chunk", "16"],
-    ["--resume", "checkpoint_best"], ["--quantize", "int4"],
+    ["--resume", "checkpoint_best"], ["--audio", "--audio_merge", "sum"],
     ["--loader", "grain"], ["--is_generation_task"]])
 def test_train_cli_refuses_unported(synth_root, extra):
     with pytest.raises(NotImplementedError):
