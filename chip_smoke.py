@@ -16,7 +16,17 @@ Phases; any failure prints its traceback and exits 1 without a result line:
   5. grads    the autograd.Function (K1 forward, K2 backward) against
               autograd through the plain formulation, all seven grads, at
               the training shape
-  6. quant    K3 int8_fwd, K7 int8_grouped_fwd, K8 int4_fwd's w4a8 branch
+  6. K5/K6    K5, K6a and K6b against their plain versions in bf16 at S
+              4096 (B 1 and the long train path's B 3) and a ragged 4100
+              (forward and backward) and the S 8192 eval's B 1 and B 5
+              (forward), within the bounds stated at STREAM_CASES; the B 1
+              S 4096 case also as four q shards at q_offset 0, 1024, 2048,
+              3072 against its full K/V: out, lse and dq bit for bit the
+              full run's rows, dk, dv and dgate2 partials summed against
+              the full backward; then the streaming regime of the
+              autograd.Function (K5 forward, K6a + K6b backward) at S 2304,
+              its seven grads against plain autograd
+  7. quant    K3 int8_fwd, K7 int8_grouped_fwd, K8 int4_fwd's w4a8 branch
               and K10 int8_dgrad bitwise against their plain versions, K4
               quant_dx, K8's weight-only branch and K9 int4_dx within the
               bounds stated at K4_REL and K8_WO_REL, at odd-M unit shapes
@@ -24,7 +34,7 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               then through the autograd Functions int8_matmul,
               int8_matmul_grouped, int4_matmul, int4_matmul_grouped and
               int8_matmul_dgrad at the w1/w3 shape
-  7. timing   K1 and K2, kernel and plain version: device time by CUDA-graph
+  8. timing   K1 and K2, kernel and plain version: device time by CUDA-graph
               replay between CUDA events, host time per eager call; the
               library yardstick `scaled_dot_product_attention` with the
               gate2 + causal bias as a float mask (forward for K1, forward
@@ -32,8 +42,9 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               and operations. K3, K7, K4, K8 (both branches), K9 and K10 the
               same way at the three 3072-row shapes, and K3 at the eval's
               prefill and extend shapes, with the yardsticks `time_quant`
-              names
-  8. train    `flipped_tpu_torch.cli.train.main` at LLaMA-7B width (dim
+              names. K5, K6a and K6b at the long training shape (B 3, S
+              4096), with SDPA without the mask as an aside
+  9. train    `flipped_tpu_torch.cli.train.main` at LLaMA-7B width (dim
               4096, 32 layers, random frozen weights from a seed), --vaq
               --qav, batch 8, S 128, one epoch over 64 synthetic NExT-QA
               items (8 updates) with remat, then its val eval, at --quantize
@@ -46,16 +57,25 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               trainable moved by update 1 (lr 0) and every trainable moved
               by update 2; the step without remat (the bench default) timed
               at none, w8a8, w4a8, w8a8d and int4
-  9. eval     the classification eval at 7B width through
+ 10. eval     the classification eval at 7B width through
               `flipped_tpu_torch.cli.evaluate.main` at --quantize none, w8a8
               and w4a8: 32 K1 (and 576 K3 under w8a8, 576 K8 under w4a8)
               launches per scored batch, every score finite; one batch
               through the cached and the dense eval steps, which must agree
- 10. paths    every quant kernel against its plain version (as in 6) at
-              every (M, K, N) that phases 8 and 9 handed it, on the first
+ 11. long     the long-context paths at 7B width: `cli.train.main` at
+              --batch_size 1 --max_seq_len 4096 --vaq --qav with
+              --lm_head_chunk 512 (LONG_RUNS: 4 updates, then one with
+              --remat_group 2 and one at --quantize w8a8), 64 K5, 32 K6a,
+              32 K6b and no K1 or K2 launches per update (576 K3 more at
+              w8a8), losses finite, frozen weights bitwise unchanged, the
+              update timed with remat; then `cli.evaluate.main` at
+              --max_seq_len 8192 (32 K5 per batch) and one batch through
+              the cached and the dense scorers (32 K5 each), which agree
+ 12. paths    every quant kernel against its plain version (as in 7) at
+              every (M, K, N) that phases 9-11 handed it, on the first
               inputs each path gave at that shape
-Each main path (8, 9) runs with the launch counts set to 0 just before it
-and read just after. The last lines of stdout are the nvidia-smi line, a
+Each main path (9, 10, 11) runs with the launch counts set to 0 just before
+it and read just after. The last lines of stdout are the nvidia-smi line, a
 JSON line of the kernels and the contract line {"ok": true, "device": ...}.
 """
 import contextlib
@@ -94,10 +114,13 @@ MAX_FEATS = 10
 # Tolerance of K1 against its plain version. The kernel rounds the
 # unnormalised P to bf16 and divides by the row sum at the end; the plain
 # version, like the TPU kernel, rounds the normalised P. Each rounding moves
-# a term by at most 2^-9 relative, so the two outputs differ by at most
-# 2^-8 * (P @ |V|) before the final rounding to bf16, which adds at most one
-# bf16 ulp (<= 2^-7 |out|). The bound allows twice the first term:
+# a term by at most half an ulp, 2^-8 relative (bf16 keeps 8 significant
+# bits), so the two outputs differ by at most 2^-7 * (P @ |V|) before their
+# final roundings to bf16, which add at most 2^-8 |out| each:
 #   |kernel - plain| <= 2^-7 * ((P @ |V|) + |plain|) + 2^-14
+# (the f32 sums of the two sides, within S 2^-24 of P @ |V| each, are left
+# to the floor and to the random signs of the roundings at K1's S <= 650;
+# K5's bound at STREAM_CASES, for S up to 8192, writes them out)
 K1_REL = 2.0 ** -7
 K1_ABS_FLOOR = 2.0 ** -14     # for outputs within rounding of zero
 LSE_ATOL = 1e-4               # f32 row sums of up to 650 terms vs float64
@@ -148,6 +171,73 @@ K2_ABS_FLOOR = 1e-6
 # bound allows four times that.
 GRAD_REL = 2.0 ** -6
 SCORE_RTOL = 2e-2             # cached vs dense eval, both bf16
+
+# The streaming kernels of the long-context path: K5 (forward), K6a (dq and
+# dgate2), K6b (dk, dv). The train path runs `cli.train` at --batch_size 1
+# --max_seq_len 4096 --vaq --qav (3 sequences of 4096 per encode), the eval
+# path `cli.evaluate` at --max_seq_len 8192.
+K5_SOURCE = "flipped_tpu_torch/csrc/flash_stream_fwd.cu"
+K5_REPLACES = "flipped_tpu/model/pallas/flash_attention.py:314"
+K6_SOURCE = "flipped_tpu_torch/csrc/flash_stream_bwd.cu"
+K6A_REPLACES = "flipped_tpu/model/pallas/flash_attention.py:484"
+K6B_REPLACES = "flipped_tpu/model/pallas/flash_attention.py:535"
+LONG_B, LONG_S, LONG_EVAL_S = 1, 4096, 8192
+LONG_VS = (7, 3, -1)                # VQA, VAQ, QAV rows of one example
+LONG_SHAPE = (3 * LONG_B, LONG_S, 32, 128)
+LM_CHUNK = "512"
+N_LONG_ITEMS = 4                    # 4 updates at batch 1; 2 val examples
+# (B, S_q, S_k, H, q_offset, video_start, with the backward): the training
+# length at B 1, the long train path's encode (LONG_SHAPE: K5, K6a and K6b),
+# a ragged S, and the S 8192 eval's forward-only shapes, the cached prefill
+# (B 1) and the dense scorer's batch (B 5). The plain versions go one head
+# at a time, so every case runs at the full 32 heads. The first case also
+# runs as SHARDS q shards at q_offset 0, S/4, S/2, 3S/4 against its full K/V
+STREAM_CASES = [(1, 4096, 4096, 32, 0, (7,), True),
+                (3, LONG_S, LONG_S, 32, 0, LONG_VS, True),
+                (1, 4100, 4100, 32, 0, (5,), True),
+                (1, LONG_EVAL_S, LONG_EVAL_S, 32, 0, (40,), False),
+                (5, LONG_EVAL_S, LONG_EVAL_S, 32, 0, (40, 7, -1, 0, 12),
+                 False)]
+SHARDS = 4
+# K5 against its plain version: K1's bound (K1_REL) plus what grows with S:
+# the f32 sums of up to S_k terms and S_k/64 rescales on both sides, and
+# each side's score errors (2^-17 B per score, B = scale |q|.|k|, moving
+# each P by as much relative), with P @ |V| from the plain version on |V|:
+#   |kernel - plain| <= 2^-7 ((P @ |V|) + |plain|) + 2^-14
+#       + (2 (S_k + S_k/64) 2^-24 + 2^-16 max_c B) (P @ |V|)
+# K5's lse against the float64 log-sum-exp of the same bf16 inputs: the
+# kernel's scores carry
+# f32 sums of Dh products (2^-17 B per score, B = scale |q|.|k|) plus the
+# scale and bias roundings (within 2^-16 B together), the row sum l adds up
+# to S_k terms and S_k/64 rescales, each rounding 2^-24, and m + log(l)
+# rounds once more:
+#   |lse - lse64| <= 2^-16 max_c B + (S_k + S_k/64 + 64) 2^-24
+#                    + 2^-23 |lse64|
+# K6a and K6b against their plain versions: K2's analysis (K2_CASES) with
+# the same lse and D on both sides (the wrapper and the plain version take D
+# from one torch expression, so E_D = 0) and the f32 sums written out: with
+# x = s - lse, __expf's error (2 + 1.2|x|) 2^-22 joins eps_P on each side,
+#   eps_P = 2^-16 B + 2^-21 (2 + 1.2 |x|)
+#   dds   = P (2 eps_P |dP - D| + 2^-15 A) + 2^-15 |dS|
+#   w     = 2^-6 |dS| + 2 dds
+#   |dq| <= scale (w + 2 S_k 2^-24 |dS|) |K| + 2^-6 |dq| + floor
+#   |dk| <= scale (w + 2 S_q 2^-24 |dS|)^T |Q| + 2^-6 |dk| + floor
+#   |dv| <= (2^-6 + 2 S_q 2^-24) P^T |dO| + 2^-6 |dv| + floor
+# (the accumulation terms are the worst-case f32 sums of up to S terms on
+# each side), and dgate2 within sum_block dds + 2 n_block 2^-24 sum_block
+# |dS| (both sum the same f32 dS in other orders). The shards' summed
+# dk, dv partials against the unsharded K6b: the terms are the same (the
+# same lse, D and tiles), each partial and the full result round an f32
+# sum to bf16 once (2^-8 relative), and the f32 sums, split at the shard
+# boundaries, each lie within S_q 2^-24 M of the exact sum, M = scale
+# |dS|^T |Q| (for dv, P^T |dO|):
+#   |sum_i dk_i - dk| <= 2^-8 (sum_i |dk_i| + |dk|) + 2 S_q 2^-24 M + floor
+# and dgate2 within 2^-16 sum_block |dS| (the same per-tile partials, each at
+# most the sum of its |dS|, summed in another order: 68 roundings of
+# 2^-24). out, lse and dq of a shard equal the matching rows of the full
+# run bit for bit: the same tiles, the same operations.
+STREAM_FLOOR = 1e-6
+STREAM_GRAD_SHAPE = (1, 2304, 32, 128)     # S > MAX_SEQ_BWD: the K5/K6 VJP
 
 # The int8 GEMMs of the quantized backbone: K3 (w8a8), K7 and K4 (w8a8g,
 # w8a8o). (M, K, N) for a Linear of K inputs and N outputs on M rows: unit
@@ -223,6 +313,14 @@ TRAIN_RUNS = (("none", False), ("w8a8", False), ("w8a8g", True),
               ("int4", True), ("w4a8r", True))
 TIMED_STEPS = ("none", "w8a8", "w4a8", "w8a8d", "int4")
 EVAL_RUNS = ("none", "w8a8", "w4a8")
+# the long-context train path (--quantize, flags, one update only): 4
+# updates with the chunked LM head (their update timed with remat), one
+# with remat groups of 2, one at w8a8 (the mode of the JAX package's
+# S = 4096 row)
+LONG_RUNS = (("none", ("--lm_head_chunk", LM_CHUNK), False),
+             ("none", ("--lm_head_chunk", LM_CHUNK, "--remat_group", "2"),
+              True),
+             ("w8a8", ("--lm_head_chunk", LM_CHUNK), True))
 
 
 def phase(name):
@@ -497,13 +595,375 @@ def sdpa_mask(torch, gate2, video_start, s):
     return bias.masked_fill(~causal, -math.inf).to(torch.bfloat16)
 
 
-def timed(torch, kern, plain):
+def stream_inputs(torch, b, s_q, s_k, h, vs, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda s: torch.randn(b, s, h, 128, device="cuda",
+                               generator=g).to(torch.bfloat16)
+    q, k, v, do = mk(s_q), mk(s_k), mk(s_k), mk(s_q)
+    gate2 = torch.randn(h, device="cuda", generator=g)
+    return q, k, v, do, gate2, torch.tensor(vs, dtype=torch.int32,
+                                            device="cuda")
+
+
+def head_terms(torch, fa, q, k, gate2, video_start, q_offset, j):
+    """float64 scores s (B, S_q, S_k) of head j with the gate2 bias, the
+    causal mask, B = scale |q|.|k|^T, and the video block."""
+    s_q, s_k, dh = q.shape[1], k.shape[1], q.shape[3]
+    scale = 1.0 / math.sqrt(dh)
+    qj, kj = q[:, :, j].double(), k[:, :, j].double()
+    block = fa._video_block(s_q, s_k, video_start, MAX_FEATS, "cuda",
+                            q_offset)[:, 0]
+    s = torch.einsum("bsd,btd->bst", qj, kj) * scale \
+        + torch.where(block, gate2[j].double(), 0.0)
+    causal = (torch.arange(s_k, device="cuda")[None, :]
+              <= torch.arange(s_q, device="cuda")[:, None] + q_offset)
+    bb = torch.einsum("bsd,btd->bst", qj.abs(), kj.abs()) * scale
+    return s, causal, bb, block
+
+
+def hold_k5(torch, fa, q, k, v, gate2, video_start, q_offset, out, lse):
+    """K5's out against its plain version and its lse against the float64
+    log-sum-exp (the bounds at STREAM_CASES). Returns (max |out - plain|,
+    out ratio to its bound, lse ratio to its bound)."""
+    b, s_q, h, _ = q.shape
+    s_k = k.shape[1]
+    max_b = torch.empty((b, s_q, h, 1), dtype=torch.float64, device="cuda")
+    lse_ratio = 0.0
+    for j in range(h):
+        s, causal, bb, _ = head_terms(torch, fa, q, k, gate2, video_start,
+                                      q_offset, j)
+        lse64 = torch.logsumexp(s.masked_fill(~causal, -math.inf), dim=-1)
+        max_b[:, :, j, 0] = bb.masked_fill(~causal, 0).amax(-1)
+        bound = (2.0 ** -16 * max_b[:, :, j, 0]
+                 + (s_k + s_k / 64 + 64) * 2.0 ** -24
+                 + 2.0 ** -23 * lse64.abs())
+        lse_ratio = max(lse_ratio, float(((lse[:, j].double() - lse64).abs()
+                                          / bound).max()))
+        del s, causal, bb, lse64
+    ref, _ = fa.flash_streaming_fwd_ref(q, k, v, gate2, video_start,
+                                        MAX_FEATS, q_offset)
+    mag, _ = fa.flash_streaming_fwd_ref(q, k, v.abs(), gate2, video_start,
+                                        MAX_FEATS, q_offset)
+    mag = mag.double()
+    bound = (K1_REL * (mag + ref.double().abs()) + K1_ABS_FLOOR
+             + (2 * (s_k + s_k / 64) * 2.0 ** -24 + 2.0 ** -16 * max_b) * mag)
+    err = (out.double() - ref.double()).abs()
+    ratio = float((err / bound).max())
+    if not torch.isfinite(out).all():
+        raise AssertionError("K5 produced non-finite values")
+    return float(err.max()), ratio, lse_ratio
+
+
+def k6_bounds(torch, fa, q, k, v, gate2, video_start, q_offset, do, lse,
+              delta, refs):
+    """float64 bounds of |kernel - plain| for K6a's dq, dgate2 and K6b's
+    dk, dv given the plain results `refs` (dq, dgate2, dk, dv), head by head
+    (the bound at STREAM_CASES); and the magnitudes {"dk": scale |dS|^T |Q|,
+    "dv": P^T |dO|, "dgate2": sum_block |dS| per head}."""
+    b, s_q, h, dh = q.shape
+    s_k = k.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    dq_ref, dg2_ref, dk_ref, dv_ref = refs
+    bq, bk, bv, mk, mv = (
+        torch.zeros(x.shape, dtype=torch.float64, device="cuda")
+        for x in (q, k, v, k, v))
+    bg = torch.zeros(h, dtype=torch.float64, device="cuda")
+    ds_mag = torch.zeros(h, dtype=torch.float64, device="cuda")
+    for j in range(h):
+        s, causal, bb, block = head_terms(torch, fa, q, k, gate2,
+                                          video_start, q_offset, j)
+        x = torch.where(causal, s - lse[:, j, :, None].double(), 0.0)
+        p = torch.where(causal, torch.exp(x), 0.0)
+        vj, doj = v[:, :, j].double(), do[:, :, j].double()
+        dp = torch.einsum("bsd,btd->bst", doj, vj)
+        dpd = dp - delta[:, j, :, None].double()
+        ds = p * dpd
+        a = torch.einsum("bsd,btd->bst", doj.abs(), vj.abs())
+        eps_p = 2.0 ** -16 * bb + 2.0 ** -21 * (2 + 1.2 * x.abs())
+        dds = p * (2 * eps_p * dpd.abs() + 2.0 ** -15 * a) \
+            + 2.0 ** -15 * ds.abs()
+        w = 2.0 ** -6 * ds.abs() + 2 * dds
+        qa, ka = q[:, :, j].double().abs(), k[:, :, j].double().abs()
+        bq[:, :, j] = scale * torch.einsum(
+            "bst,btd->bsd", w + 2 * s_k * 2.0 ** -24 * ds.abs(), ka)
+        mk[:, :, j] = scale * torch.einsum("bst,bsd->btd", ds.abs(), qa)
+        mv[:, :, j] = torch.einsum("bst,bsd->btd", p, doj.abs())
+        bk[:, :, j] = scale * torch.einsum("bst,bsd->btd", w, qa) \
+            + 2 * s_q * 2.0 ** -24 * mk[:, :, j]
+        bv[:, :, j] = (2.0 ** -6 + 2 * s_q * 2.0 ** -24) * mv[:, :, j]
+        in_block = block & causal
+        ds_mag[j] = torch.where(in_block, ds.abs(), 0.0).sum()
+        bg[j] = (torch.where(in_block, dds, 0.0).sum()
+                 + 2 * float(in_block.sum()) * 2.0 ** -24 * ds_mag[j])
+    bq += 2.0 ** -6 * dq_ref.double().abs() + STREAM_FLOOR
+    bk += 2.0 ** -6 * dk_ref.double().abs() + STREAM_FLOOR
+    bv += 2.0 ** -6 * dv_ref.double().abs() + STREAM_FLOOR
+    return (bq, bg + STREAM_FLOOR, bk, bv), {"dk": mk, "dv": mv,
+                                             "dgate2": ds_mag}
+
+
+def hold_k6(torch, fa, q, k, v, gate2, video_start, q_offset, do, lse,
+            delta, got, worst, where):
+    """K6a's (dq, dgate2) and K6b's (dk, dv) `got` against their plain
+    versions on the same lse and D, within `k6_bounds`; updates worst["k6a"]
+    (dq) and worst["k6b"] (dk, dv). Returns `k6_bounds`' magnitudes."""
+    args = (q, k, v, gate2, video_start, MAX_FEATS, do, lse, delta, q_offset)
+    refs = fa.flash_streaming_dq_ref(*args) + fa.flash_streaming_dkv_ref(*args)
+    bounds, mags = k6_bounds(torch, fa, q, k, v, gate2, video_start,
+                             q_offset, do, lse, delta, refs)
+    msg = []
+    for name, x, r, bound in zip(("dq", "dgate2", "dk", "dv"), got, refs,
+                                 bounds):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"K6 {name} non-finite at {where}")
+        err = (x.double() - r.double()).abs()
+        ratio = float((err / bound).max())
+        if name != "dgate2":
+            key = "k6a" if name == "dq" else "k6b"
+            worst[key] = max(worst[key], float(err.max()))
+        msg.append(f"{name} max|d|={float(err.max()):.4g} ({ratio:.3f} of "
+                   f"bound)")
+        if ratio > 1.0:
+            raise AssertionError(f"K6 {name} disagrees with its plain version "
+                                 f"at {where}: {ratio:.3f} of the bound")
+    print(f"  K6 vs plain at {where}: " + ", ".join(msg), flush=True)
+    return mags
+
+
+def run_stream(fa, q, k, v, gate2, video_start, q_offset, do, lse, delta):
+    dq, dg2 = fa.flash_streaming_dq(q, k, v, gate2, video_start, MAX_FEATS,
+                                    do, lse, delta, q_offset)
+    dk, dv = fa.flash_streaming_dkv(q, k, v, gate2, video_start, MAX_FEATS,
+                                    do, lse, delta, q_offset)
+    return dq, dg2, dk, dv
+
+
+def check_stream(torch, fa):
+    """K5, K6a and K6b against their plain versions at STREAM_CASES, and
+    the first case as SHARDS q shards (see the bounds at STREAM_CASES).
+    Returns the worst |kernel - plain| of each."""
+    worst = {"k5": 0.0, "k6a": 0.0, "k6b": 0.0}
+    for i, (b, s_q, s_k, h, q_offset, vs, bwd) in enumerate(STREAM_CASES):
+        q, k, v, do, gate2, video_start = stream_inputs(torch, b, s_q, s_k,
+                                                        h, vs, 500 + i)
+        out, lse = fa.flash_streaming_fwd(q, k, v, gate2, video_start,
+                                          MAX_FEATS, q_offset)
+        torch.cuda.synchronize()
+        where = f"{(b, s_q, h, 128)} S_k {s_k} q_offset {q_offset}"
+        err, ratio, lse_ratio = hold_k5(torch, fa, q, k, v, gate2,
+                                        video_start, q_offset, out, lse)
+        worst["k5"] = max(worst["k5"], err)
+        print(f"K5 {where} vs={vs}: max|out-plain|={err:.6g} ({ratio:.3f} "
+              f"of the bound), lse {lse_ratio:.3f} of its bound", flush=True)
+        if ratio > 1.0 or lse_ratio > 1.0:
+            raise AssertionError(f"K5 disagrees with its plain version or "
+                                 f"float64 at {where}")
+        if not bwd:
+            continue
+        delta = fa.stream_delta(do, out)
+        got = run_stream(fa, q, k, v, gate2, video_start, q_offset, do, lse,
+                         delta)
+        torch.cuda.synchronize()
+        mags = hold_k6(torch, fa, q, k, v, gate2, video_start, q_offset, do,
+                       lse, delta, got, worst, where)
+        if i == 0:
+            check_shards(torch, fa, (q, k, v, do, gate2, video_start), out,
+                         lse, delta, got, mags, worst)
+        del mags
+    return worst
+
+
+def check_shards(torch, fa, inputs, out, lse, delta, full, full_mags,
+                 worst):
+    """SHARDS q shards of the full run against full K/V, each with its rows
+    of D: every shard's K5 and K6 against their plain versions; out, lse,
+    dq bit for bit the full run's rows; the dk, dv, dgate2 partials summed
+    against the full K6 (the bounds at STREAM_CASES)."""
+    q, k, v, do, gate2, video_start = inputs
+    s = q.shape[1]
+    n = s // SHARDS
+    sums = {"dk": 0.0, "dv": 0.0, "dgate2": 0.0}
+    mags = {"dk": 0.0, "dv": 0.0}
+    for i in range(SHARDS):
+        sl = slice(i * n, (i + 1) * n)
+        q_i, do_i, off = q[:, sl], do[:, sl], i * n
+        o_i, lse_i = fa.flash_streaming_fwd(q_i, k, v, gate2, video_start,
+                                            MAX_FEATS, off)
+        d_i = delta[:, :, sl].contiguous()
+        got = run_stream(fa, q_i, k, v, gate2, video_start, off, do_i, lse_i,
+                         d_i)
+        torch.cuda.synchronize()
+        same = (torch.equal(o_i, out[:, sl])
+                and torch.equal(lse_i, lse[:, :, sl])
+                and torch.equal(got[0], full[0][:, sl]))
+        where = f"shard {i} (q rows {off}..{off + n - 1} of {s})"
+        err, ratio, lse_ratio = hold_k5(torch, fa, q_i, k, v, gate2,
+                                        video_start, off, o_i, lse_i)
+        worst["k5"] = max(worst["k5"], err)
+        print(f"K5 {where}: max|out-plain|={err:.6g} ({ratio:.3f} of the "
+              f"bound), lse {lse_ratio:.3f}; out, lse, dq equal the full "
+              f"run's rows: {same}", flush=True)
+        if ratio > 1.0 or lse_ratio > 1.0 or not same:
+            raise AssertionError(f"K5/K6a off at {where}")
+        hold_k6(torch, fa, q_i, k, v, gate2, video_start, off, do_i, lse_i,
+                d_i, got, worst, where)
+        for name, x in zip(("dgate2", "dk", "dv"), got[1:]):
+            sums[name] = sums[name] + x.double()
+            if name in mags:
+                mags[name] = mags[name] + x.double().abs()
+    msg = []
+    for name, r in (("dk", full[2]), ("dv", full[3])):
+        bound = (2.0 ** -8 * (mags[name] + r.double().abs())
+                 + 2 * s * 2.0 ** -24 * full_mags[name] + STREAM_FLOOR)
+        ratio = float(((sums[name] - r.double()).abs() / bound).max())
+        msg.append(f"{name} {ratio:.3f}")
+        if ratio > 1.0:
+            raise AssertionError(f"the shards' {name} partials do not sum to "
+                                 f"the full K6b: {ratio:.3f} of the bound")
+    g_ratio = float(((sums["dgate2"] - full[1].double()).abs()
+                     / (2.0 ** -16 * full_mags["dgate2"]
+                        + STREAM_FLOOR)).max())
+    print(f"{SHARDS} shards summed against the full backward, of the "
+          f"bounds: " + ", ".join(msg) + f", dgate2 {g_ratio:.3f}",
+          flush=True)
+    if g_ratio > 1.0:
+        raise AssertionError("the shards' dgate2 partials do not sum to the "
+                             f"full K6a: {g_ratio:.3f} of the bound")
+
+
+def check_stream_grads(torch, fa):
+    """The streaming regime of the autograd.Function (K5 forward, K6a + K6b
+    backward from the saved text and lse) at STREAM_GRAD_SHAPE: all seven
+    grads against autograd through the plain formulation (GRAD_REL), one
+    launch of each streaming kernel and none of K1 or K2."""
+    from flipped_tpu_torch.model.attention import adapter_gated_attention
+
+    b, s, h, dh = STREAM_GRAD_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(9)
+    mk = lambda *shape: torch.randn(*shape, device="cuda", generator=g)
+    leaves = [mk(b, s, h, dh).to(torch.bfloat16) for _ in range(3)] \
+        + [mk(ADAPTER_LEN, h, dh).to(torch.bfloat16) for _ in range(2)] \
+        + [mk(h) * 0.5, mk(h) - 3.0]
+    w = mk(b, s, h * dh).to(torch.bfloat16)
+    vs = torch.tensor((11,), dtype=torch.int32, device="cuda")
+    names = ("k1", "k2", "k5", "k6a", "k6b")
+    before = {n: f.launches for n, f in attention_counters(fa).items()}
+    grads = {}
+    for name, fn in (("kernels", fa.flash_adapter_attention),
+                     ("plain", adapter_gated_attention)):
+        xs = [x.detach().requires_grad_() for x in leaves]
+        out = fn(*xs, vs, MAX_FEATS)
+        grads[name] = torch.autograd.grad(out, xs, w)
+        del out, xs
+    torch.cuda.synchronize()
+    moved = {n: f.launches - before[n]
+             for n, f in attention_counters(fa).items()}
+    if moved != {"k1": 0, "k2": 0, "k5": 1, "k6a": 1, "k6b": 1}:
+        raise AssertionError(f"streaming regime launches {moved}")
+    msg = []
+    for name, a, r in zip(("dq", "dk", "dv", "dak", "dav", "dgate1",
+                           "dgate2"), grads["kernels"], grads["plain"]):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{name} through the kernels is not finite")
+        rel = float((a.double() - r.double()).norm() / r.double().norm())
+        msg.append(f"{name} {rel:.3g}")
+        if rel > GRAD_REL:
+            raise AssertionError(f"{name}: relative error {rel} > {GRAD_REL}")
+    print(f"attention grads, streaming regime {STREAM_GRAD_SHAPE} (launches "
+          f"{ {n: moved[n] for n in names} }), relative Frobenius error of "
+          f"kernels vs plain autograd: " + ", ".join(msg), flush=True)
+
+
+def k6a_bound(b, s, h, dh):
+    """q, k, v, dO read, lse and D read (f32), dq written; QK^T, dO V^T and
+    dS K over the causal pairs."""
+    nbytes = 5 * b * s * h * dh * 2 + 2 * b * h * s * 4
+    return bound_ms(nbytes, 3 * 2 * dh * causal_pairs(s) * b * h)
+
+
+def k6b_bound(b, s, h, dh):
+    """q, k, v, dO read, lse and D read (f32), dk and dv written; QK^T,
+    dO V^T, P^T dO and dS^T Q over the causal pairs."""
+    nbytes = 6 * b * s * h * dh * 2 + 2 * b * h * s * 4
+    return bound_ms(nbytes, 4 * 2 * dh * causal_pairs(s) * b * h)
+
+
+def time_stream(torch, fa):
+    """K5, K6a and K6b at the long training shape (LONG_SHAPE): kernel and
+    plain version (`timed`, the plain versions with few calls: each takes
+    tens of ms), the bound, and the library yardstick
+    `scaled_dot_product_attention` with the gate2 + causal bias as a bf16
+    (B, H, S, S) mask (`sdpa_mask`): forward for K5, forward and backward
+    for K6a and K6b (one call computes both passes' grads). As an aside,
+    SDPA with is_causal=True and no mask (no gate2 bias: not the same
+    function) shows what the mask costs it."""
+    import torch.nn.functional as F
+
+    b, s, h, dh = LONG_SHAPE
+    q, k, v, do, gate2, vs = stream_inputs(torch, b, s, s, h, LONG_VS, 600)
+    out, lse = fa.flash_streaming_fwd(q, k, v, gate2, vs, MAX_FEATS)
+    delta = fa.stream_delta(do, out)
+    args = (q, k, v, gate2, vs, MAX_FEATS)
+    few = dict(n=2, reps=2, host_n=2)
+    times = {
+        "k5": timed(torch, lambda: fa.flash_streaming_fwd(*args),
+                    lambda: fa.flash_streaming_fwd_ref(*args), **few),
+        "k6a": timed(torch, lambda: fa.flash_streaming_dq(
+                         *args, do, lse, delta),
+                     lambda: fa.flash_streaming_dq_ref(*args, do, lse, delta),
+                     **few),
+        "k6b": timed(torch, lambda: fa.flash_streaming_dkv(
+                         *args, do, lse, delta),
+                     lambda: fa.flash_streaming_dkv_ref(*args, do, lse, delta),
+                     **few)}
+    mask = sdpa_mask(torch, gate2, vs, s)
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    dot = do.transpose(1, 2)
+
+    def sdpa(**kw):
+        return F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in xs), **kw)
+
+    fwd = device_ms(torch, lambda: sdpa(attn_mask=mask))
+    fwd_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        sdpa(attn_mask=mask), xs, dot))
+    causal_fwd = device_ms(torch, lambda: sdpa(is_causal=True))
+    causal_fwd_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        sdpa(is_causal=True), xs, dot))
+    del mask
+    # K5 moves K1's bytes and does K1's products
+    for key, bound, lib in (("k5", k1_bound, fwd),
+                            ("k6a", k6a_bound, fwd_bwd),
+                            ("k6b", k6b_bound, fwd_bwd)):
+        t = times[key]
+        t["library_ms"] = lib
+        t["bound_ms"], t["bound_by"] = bound(b, s, h, dh)
+        print(f"{key.upper()} timing {LONG_SHAPE}: device kernel "
+              f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, sdpa "
+              f"{'forward' if key == 'k5' else 'forward+backward'} with the "
+              f"bias mask {lib:.5f} ms, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}); runs {t['runs']}; host per eager call: "
+              f"kernel {t['host_us']:.1f} us, plain {t['plain_host_us']:.1f} "
+              f"us", flush=True)
+    print(f"sdpa at {LONG_SHAPE} without the mask (is_causal=True, no gate2 "
+          f"bias): forward {causal_fwd:.5f} ms, forward+backward "
+          f"{causal_fwd_bwd:.5f} ms; the mask costs it "
+          f"{fwd - causal_fwd:.5f} and {fwd_bwd - causal_fwd_bwd:.5f} ms",
+          flush=True)
+    return times
+
+
+def timed(torch, kern, plain, n=20, reps=5, host_n=30):
     """Host us per eager call of kernel and plain version, then their device
     ms in turns (plain, kernel, kernel, plain). The host times come first:
-    after the CUDA graphs of `device_ms` the allocator's pools differ."""
+    after the CUDA graphs of `device_ms` the allocator's pools differ. `n`,
+    `reps` and `host_n` apply to the plain version (`device_ms`, `host_us`);
+    the kernel always takes the defaults."""
     host = {"host_us": host_us(torch, kern),
-            "plain_host_us": host_us(torch, plain)}
-    p1, k1, k2, p2 = (device_ms(torch, f) for f in (plain, kern, kern, plain))
+            "plain_host_us": host_us(torch, plain, n=host_n)}
+    p1, k1, k2, p2 = (device_ms(torch, f, **kw) for f, kw in (
+        (plain, dict(n=n, reps=reps)), (kern, {}), (kern, {}),
+        (plain, dict(n=n, reps=reps))))
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "runs": (k1, k2, p1, p2), **host}
 
@@ -997,27 +1457,33 @@ def time_quant(torch, qm):
     return times
 
 
-def write_fixtures(root):
+def write_fixtures(root, n):
     import numpy as np
 
     from flipped_tpu_torch.data.synthetic import make_nextqa
 
-    make_nextqa(root, N_TRAIN_ITEMS, np.random.RandomState(0))
+    make_nextqa(root, n, np.random.RandomState(0))
 
 
-def cli_args(data_root, *extra):
+def cli_args(data_root, *extra, seq=TRAIN_S, batch=TRAIN_B):
     from flipped_tpu_torch.core.config import get_args_parser
 
     return get_args_parser().parse_args(
         ["--model", "llama7B", "--dataset", "nextqa", "--data_root",
-         data_root, "--max_seq_len", str(TRAIN_S), "--batch_size",
-         str(TRAIN_B), "--device", "cuda", "--llama_model_path",
+         data_root, "--max_seq_len", str(seq), "--batch_size",
+         str(batch), "--device", "cuda", "--llama_model_path",
          os.path.join(WORK, "no_checkpoint"), *extra])
+
+
+def attention_counters(fa):
+    return {"k1": fa.flash_text_attention, "k2": fa.flash_text_attention_bwd,
+            "k5": fa.flash_streaming_fwd, "k6a": fa.flash_streaming_dq,
+            "k6b": fa.flash_streaming_dkv}
 
 
 def counters(fa, qm):
     """Every kernel's wrapper, whose `launches` the main paths are read by."""
-    return {"k1": fa.flash_text_attention, "k2": fa.flash_text_attention_bwd,
+    return {**attention_counters(fa),
             "k3": qm.int8_fwd, "k7": qm.grouped_matmul, "k4": qm.quant_dx,
             "k8": qm.int4_matmul, "k9": qm.int4_dx, "k10": qm.int8_dgrad}
 
@@ -1035,20 +1501,26 @@ INT4_MODES = ("int4", "w4a8", "int4r", "w4a8r")
 PER_CHANNEL_W8A8 = ("w8a8", "w8a8r", "w8a8d", "w8a8rd")
 
 
-def per_update(quantize, blocks):
+def per_update(quantize, blocks, streaming=False):
     """Launches per training update with remat, from the code: each block's
     forward runs twice (the update's forward and its recompute in the
-    backward) and its backward once. A block forward launches K1 once and
-    has 9 quantized matmuls: wq, wk, wv, wo, w1, w3, w2 on the stacked rows
-    and wk, wv on the adapter rows (model/llama.py) — each K3 under the
+    backward, per block or per --remat_group) and its backward once. A
+    block forward launches one attention forward — K1, or K5 in the
+    streaming regime (a differentiated call with S > MAX_SEQ_BWD = 2048) —
+    and has 9 quantized matmuls: wq, wk, wv, wo, w1, w3, w2 on the stacked
+    rows and wk, wv on the adapter rows (model/llama.py) — each K3 under the
     per-channel w8a8 modes, whose backward launches K10 once each under
     w8a8d/w8a8rd; K7 under w8a8g/w8a8o, and K8 under the int4 modes, whose
     backward launches K4 or K9 once each. At 7B width every block matmul
     passes K8's shape guard (model/int4.py). The LM head is weight-only (no
-    kernel). K2 runs once per block backward."""
+    kernel), chunked or not. A block backward runs K2 once, or K6a and K6b
+    once each in the streaming regime."""
     fwd = 2 * blocks
     grouped = quantize in ("w8a8g", "w8a8o")
-    return {"k1": fwd, "k2": blocks,
+    return {"k1": 0 if streaming else fwd, "k2": 0 if streaming else blocks,
+            "k5": fwd if streaming else 0,
+            "k6a": blocks if streaming else 0,
+            "k6b": blocks if streaming else 0,
             "k3": 9 * fwd if quantize in PER_CHANNEL_W8A8 else 0,
             "k7": 9 * fwd if grouped else 0,
             "k4": 9 * blocks if grouped else 0,
@@ -1067,15 +1539,16 @@ def forward_kernel(quantize):
 
 
 def run_train_slice(torch, fa, qm, data_root, caught, quantize="none",
-                    debug=False):
+                    debug=False, extra=(), long=False):
     """The train CLI at --quantize `quantize` (--debug: one update and one
-    val batch) with its build, step and val entry points wrapped to watch
-    them: snapshots of the parameters, every update's metrics, and the
-    launch counts when the val eval starts; the quant kernels' inputs go to
-    `caught`."""
+    val batch; `extra` more flags; `long`: the long-context path, batch
+    LONG_B at S LONG_S, in the streaming regime) with its build, step and
+    val entry points wrapped to watch them: snapshots of the parameters,
+    every update's metrics and seconds, and the launch counts when the val
+    eval starts; the quant kernels' inputs go to `caught`."""
     from flipped_tpu_torch.cli import train as train_cli
 
-    watch = {"metrics": [], "snaps": []}
+    watch = {"metrics": [], "snaps": [], "secs": []}
     orig = (train_cli.build_train_state, train_cli.make_train_step,
             train_cli.val_one_epoch)
 
@@ -1092,8 +1565,10 @@ def run_train_slice(torch, fa, qm, data_root, caught, quantize="none",
         step = orig[1](*a, **kw)
 
         def watched(batch):
+            t0 = time.perf_counter()
             m = step(batch)
-            watch["metrics"].append([float(x) for x in m])
+            watch["metrics"].append([float(x) for x in m])   # synchronises
+            watch["secs"].append(time.perf_counter() - t0)
             if len(watch["snaps"]) < 3:
                 watch["snaps"].append(trainables(watch["model"]))
             return m
@@ -1103,9 +1578,10 @@ def run_train_slice(torch, fa, qm, data_root, caught, quantize="none",
         watch["at_val"] = read_counts(fa, qm)
         return orig[2](*a, **kw)
 
+    shape = dict(seq=LONG_S, batch=LONG_B) if long else {}
     args = cli_args(data_root, "--vaq", "--qav", "--epochs", "1",
-                    "--output_dir", "", "--quantize", quantize,
-                    *(["--debug"] if debug else []))
+                    "--output_dir", "", "--quantize", quantize, *extra,
+                    *(["--debug"] if debug else []), **shape)
     train_cli.build_train_state, train_cli.make_train_step, \
         train_cli.val_one_epoch = build, make_step, val
     try:
@@ -1122,28 +1598,34 @@ def run_train_slice(torch, fa, qm, data_root, caught, quantize="none",
             train_cli.val_one_epoch = orig
     steps = len(watch["metrics"])
     epoch = watch["at_val"]
-    print(f"train --quantize {quantize}: main took {seconds:.3f} s (7B init "
-          f"and val eval included), {steps} updates, launches over the "
-          f"epoch {epoch}, over the whole run {launches}; peak allocated "
+    print(f"train --quantize {quantize} {' '.join(extra)} (batch "
+          f"{args.batch_size}, S {args.max_seq_len}): main took "
+          f"{seconds:.3f} s (7B init and val eval included), {steps} "
+          f"updates, launches over the epoch {epoch}, over the whole run "
+          f"{launches}; peak allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
-    for i, m in enumerate(watch["metrics"]):
-        print(f"  update {i + 1}: loss {m[0]:.6f} (vqa {m[1]:.6f}, vaq "
-              f"{m[2]:.6f}, qav {m[3]:.6f}), grad_norm {m[4]:.6g}, lr "
-              f"{m[5]:.6g}", flush=True)
+    for i, (m, sec) in enumerate(zip(watch["metrics"], watch["secs"])):
+        print(f"  update {i + 1}: {sec:.4f} s, loss {m[0]:.6f} (vqa "
+              f"{m[1]:.6f}, vaq {m[2]:.6f}, qav {m[3]:.6f}), grad_norm "
+              f"{m[4]:.6g}, lr {m[5]:.6g}", flush=True)
     print(f"  history: {json.dumps(history)}", flush=True)
-    want_steps = 1 if debug else N_TRAIN_ITEMS // TRAIN_B
+    want_steps = (1 if debug else N_LONG_ITEMS // LONG_B if long
+                  else N_TRAIN_ITEMS // TRAIN_B)
     if steps != want_steps:
         raise AssertionError(f"expected {want_steps} updates, ran {steps}")
     if not all(math.isfinite(x) for m in watch["metrics"] for x in m):
         raise AssertionError("a training metric is not finite")
     blocks = len(model.layers)      # 32 at 7B
-    want = {k: v * steps for k, v in per_update(quantize, blocks).items()}
-    print(f"  launches per update {per_update(quantize, blocks)} (from the "
-          f"code), over the epoch want {want}", flush=True)
+    per = per_update(quantize, blocks, streaming=long)
+    want = {k: v * steps for k, v in per.items()}
+    print(f"  launches per update {per} (from the code), over the epoch "
+          f"want {want}", flush=True)
     if epoch != want:
         raise AssertionError(f"launches over the epoch {epoch}, want {want}")
     fwd_kernel = forward_kernel(quantize)
-    if (any(launches[k] != epoch[k] for k in ("k2", "k4", "k9", "k10"))
+    # the val eval's prefill at S <= MAX_SEQ_FWD takes K1 in both regimes
+    if (any(launches[k] != epoch[k]
+            for k in ("k2", "k4", "k9", "k10", "k5", "k6a", "k6b"))
             or launches["k1"] <= epoch["k1"]
             or launches[fwd_kernel] <= epoch[fwd_kernel]):
         raise AssertionError("the val eval should launch the forward "
@@ -1171,10 +1653,11 @@ def trainables(model):
             if p.requires_grad}
 
 
-def time_train_step(torch, model, args, n=5):
-    """One update without remat (the bench default) on one training batch:
-    s per step (median of n after two warm-up updates), examples per
-    second, peak allocated memory."""
+def time_train_step(torch, model, args, n=5, remat=False):
+    """One update on one training batch, without remat (the bench default)
+    or with it, the --lm_head_chunk of `args`: s per step (median of n
+    after two warm-up updates), examples per second, peak allocated
+    memory."""
     from flipped_tpu_torch.cli.evaluate import batch_to_device
     from flipped_tpu_torch.core.config import run_config_from_args
     from flipped_tpu_torch.data.pipeline import load_data
@@ -1189,10 +1672,12 @@ def time_train_step(torch, model, args, n=5):
     it = iter(loader)
     batch = batch_to_device(next(it), "cuda")
     it.close()
-    model.remat = False
+    model.remat = remat
+    batch_size = run_cfg.data.batch_size
     step = make_train_step(model, make_optimizer(model, run_cfg.train, 8,
-                                                 TRAIN_B),
-                           vaq=True, qav=True)
+                                                 batch_size),
+                           vaq=True, qav=True,
+                           lm_chunk=run_cfg.train.lm_head_chunk)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     secs = []
@@ -1206,33 +1691,40 @@ def time_train_step(torch, model, args, n=5):
             raise AssertionError("non-finite loss in the timed updates")
     med = sorted(secs)[len(secs) // 2]
     peak = torch.cuda.max_memory_allocated()
-    print(f"train step --quantize {args.quantize} without remat: "
+    print(f"train step --quantize {args.quantize} "
+          f"{'with' if remat else 'without'} remat, batch {batch_size}, S "
+          f"{args.max_seq_len}, --lm_head_chunk {args.lm_head_chunk}: "
           f"{med:.5f} s/step (median of {n}: "
-          f"{', '.join(f'{x:.5f}' for x in secs)}), {TRAIN_B / med:.3f} "
+          f"{', '.join(f'{x:.5f}' for x in secs)}), {batch_size / med:.3f} "
           f"examples/s, peak allocated {peak / 2**30:.3f} GiB", flush=True)
     return med, peak
 
 
-def eval_per_batch(quantize, blocks):
+def eval_per_batch(quantize, blocks, long=False):
     """Launches per scored batch of the cached scorer, from the code: its
     prefill and its chunk extend each run every block once; K1 runs in the
-    prefill only, and each pass has 9 quantized matmuls per block (K3 under
-    w8a8, K8 under w4a8)."""
-    counts = {k: 0 for k in ("k2", "k3", "k7", "k4", "k8", "k9", "k10")}
+    prefill only (K5 at S > MAX_SEQ_FWD = 4096: `long`), and each pass has
+    9 quantized matmuls per block (K3 under w8a8, K8 under w4a8)."""
+    counts = {k: 0 for k in ("k2", "k6a", "k6b", "k3", "k7", "k4", "k8",
+                             "k9", "k10")}
     if quantize != "none":
         counts[forward_kernel(quantize)] = 18 * blocks
-    return {"k1": blocks, **counts}
+    return {"k1": 0 if long else blocks, "k5": blocks if long else 0,
+            **counts}
 
 
-def run_eval_slice(torch, fa, qm, data_root, caught, quantize="none"):
-    """The eval CLI at --quantize `quantize`. Both val batches of the
-    fixture take the cached scorer (their answer spans are exact). The quant
-    kernels' inputs go to `caught`."""
+def run_eval_slice(torch, fa, qm, data_root, caught, quantize="none",
+                   long=False):
+    """The eval CLI at --quantize `quantize` (`long`: batch LONG_B at S
+    LONG_EVAL_S). Both val batches of the fixture take the cached scorer
+    (their answer spans are exact). The quant kernels' inputs go to
+    `caught`."""
     from flipped_tpu_torch.cli import evaluate
     from flipped_tpu_torch.core.config import run_config_from_args
     from flipped_tpu_torch.train.builder import resolve_model_config
 
-    args = cli_args(data_root, "--quantize", quantize)
+    args = cli_args(data_root, "--quantize", quantize,
+                    **(dict(seq=LONG_EVAL_S, batch=LONG_B) if long else {}))
     torch.cuda.reset_peak_memory_stats()
     zero_counts(fa, qm)
     t0 = time.perf_counter()
@@ -1242,23 +1734,25 @@ def run_eval_slice(torch, fa, qm, data_root, caught, quantize="none"):
     seconds = time.perf_counter() - t0
     launches = read_counts(fa, qm)
     peak = torch.cuda.max_memory_allocated()
-    print(f"eval --quantize {quantize}: evaluate.main took {seconds:.3f} s "
+    print(f"eval --quantize {quantize} (batch {args.batch_size}, S "
+          f"{args.max_seq_len}): evaluate.main took {seconds:.3f} s "
           f"(7B init included), {stats['batches']} batches, launches "
           f"{launches}, peak allocated {peak / 2**30:.3f} GiB", flush=True)
     if stats["batches"] != 2:
         raise AssertionError(f"expected 2 val batches, got {stats['batches']}")
     blocks = resolve_model_config(run_config_from_args(args)).adapter_layer
     want = {k: v * stats["batches"]
-            for k, v in eval_per_batch(quantize, blocks).items()}
+            for k, v in eval_per_batch(quantize, blocks, long).items()}
     if launches != want:
         raise AssertionError(f"eval launches {launches}, want {want}")
     return args
 
 
-def compare_cached_dense(torch, args, caught):
+def compare_cached_dense(torch, fa, args, caught):
     """One val batch through the cached and the dense eval steps: scores
-    finite and in agreement, s/batch of each; the warm-up calls' quant
-    kernel inputs go to `caught`."""
+    finite and in agreement, s/batch of each, and each warm-up call's
+    attention launches (one forward per block: K1, or K5 above
+    MAX_SEQ_FWD); the warm-up calls' quant kernel inputs go to `caught`."""
     from flipped_tpu_torch.cli.evaluate import batch_to_device
     from flipped_tpu_torch.core.config import run_config_from_args
     from flipped_tpu_torch.data.datasets import build_dataset
@@ -1268,8 +1762,9 @@ def compare_cached_dense(torch, args, caught):
 
     run_cfg = run_config_from_args(args)
     model, _, tokenizer = build_eval_state(run_cfg, torch.device("cuda"))
-    loader = Loader(build_dataset(run_cfg.data, tokenizer, "val"), 8,
-                    shuffle=False, split="val", prefetch=0)
+    loader = Loader(build_dataset(run_cfg.data, tokenizer, "val"),
+                    run_cfg.data.batch_size, shuffle=False, split="val",
+                    prefetch=0)
     it = iter(loader)
     batch = next(it)
     it.close()
@@ -1278,10 +1773,19 @@ def compare_cached_dense(torch, args, caught):
     steps = {"cached": make_eval_step(model, cached=True),
              "dense": make_eval_step(model, cached=False)}
     outs, secs = {}, {}
+    fwd_key = "k5" if args.max_seq_len > fa.MAX_SEQ_FWD else "k1"
+    want = {k: len(model.layers) if k == fwd_key else 0
+            for k in attention_counters(fa)}
     for name, step in steps.items():
+        before = {k: f.launches for k, f in attention_counters(fa).items()}
         with catch_quant_inputs(caught):
             outs[name] = step(tb, span_info=span)      # warm-up
         torch.cuda.synchronize()
+        moved = {k: f.launches - before[k]
+                 for k, f in attention_counters(fa).items()}
+        if moved != want:
+            raise AssertionError(f"eval {name} attention launches {moved}, "
+                                 f"want {want}")
         runs = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -1296,7 +1800,8 @@ def compare_cached_dense(torch, args, caught):
     agree = float((outs["cached"]["prediction"]
                    == outs["dense"]["prediction"]).float().mean())
     n = tb["vqa_tokens"].shape[0]
-    print(f"cached vs dense on one batch: max|dscore|={float(delta.max()):.5g} "
+    print(f"cached vs dense on one batch (S {args.max_seq_len}, attention "
+          f"launches per call {want}): max|dscore|={float(delta.max()):.5g} "
           f"(|score| up to {float(d.abs().max()):.4g}), argmin agreement "
           f"{agree:.3f}", flush=True)
     for name in steps:
@@ -1308,6 +1813,7 @@ def compare_cached_dense(torch, args, caught):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     phase("device")
@@ -1344,6 +1850,14 @@ def main() -> int:
     phase("attention grads")
     check_grads(torch, fa)
 
+    phase("K5 / K6a / K6b vs plain")
+    stream_err = check_stream(torch, fa)
+    torch.cuda.empty_cache()
+
+    phase("attention grads, streaming regime")
+    check_stream_grads(torch, fa)
+    torch.cuda.empty_cache()
+
     phase("K3 / K7 / K4 / K8 / K9 / K10 vs plain")
     # K4's and K9's plain versions are cuBLAS bf16 products: their sums stay
     # in f32 for the comparison and the timing (the model's own GEMMs keep
@@ -1359,11 +1873,15 @@ def main() -> int:
     phase("timing")
     k1_times = time_k1(torch, fa)
     k2_time = time_k2(torch, fa)
+    stream_times = time_stream(torch, fa)
+    torch.cuda.empty_cache()
     quant_times = time_quant(torch, qm)
     matmul.allow_bf16_reduced_precision_reduction = reduced
 
     data_root = os.path.join(WORK, "data")
-    write_fixtures(data_root)
+    write_fixtures(data_root, N_TRAIN_ITEMS)
+    long_root = os.path.join(WORK, "data_long")
+    write_fixtures(long_root, N_LONG_ITEMS)
 
     launches, caught = {}, {k: {} for k in QUANT_KERNELS}
     for quantize, debug in TRAIN_RUNS:
@@ -1378,9 +1896,25 @@ def main() -> int:
 
     for quantize in EVAL_RUNS:
         phase(f"eval --quantize {quantize}")
-        compare_cached_dense(torch, run_eval_slice(torch, fa, qm, data_root,
-                                                   caught, quantize), caught)
+        compare_cached_dense(torch, fa, run_eval_slice(
+            torch, fa, qm, data_root, caught, quantize), caught)
         torch.cuda.empty_cache()
+
+    for quantize, extra, debug in LONG_RUNS:
+        phase(f"train, long context: --quantize {quantize} {' '.join(extra)}"
+              + (", one update" if debug else ""))
+        model, args, launches[(quantize, extra)] = run_train_slice(
+            torch, fa, qm, long_root, caught, quantize, debug, extra,
+            long=True)
+        if not debug:
+            time_train_step(torch, model, args, n=3, remat=True)
+        del model
+        torch.cuda.empty_cache()
+
+    phase(f"eval, long context: S {LONG_EVAL_S}")
+    compare_cached_dense(torch, fa, run_eval_slice(
+        torch, fa, qm, long_root, caught, long=True), caught)
+    torch.cuda.empty_cache()
 
     phase("quant kernels vs plain at the main paths' shapes")
     matmul.allow_bf16_reduced_precision_reduction = False
@@ -1397,6 +1931,15 @@ def main() -> int:
              launches["none"]["k1"], k1_err, k1_times["train"]),
             ("flash_text_bwd", K2_SOURCE, K2_REPLACES,
              launches["none"]["k2"], k2_err, k2_time),
+            ("flash_stream_fwd", K5_SOURCE, K5_REPLACES,
+             launches[LONG_RUNS[0][:2]]["k5"], stream_err["k5"],
+             stream_times["k5"]),
+            ("flash_stream_dq", K6_SOURCE, K6A_REPLACES,
+             launches[LONG_RUNS[0][:2]]["k6a"], stream_err["k6a"],
+             stream_times["k6a"]),
+            ("flash_stream_dkv", K6_SOURCE, K6B_REPLACES,
+             launches[LONG_RUNS[0][:2]]["k6b"], stream_err["k6b"],
+             stream_times["k6b"]),
             ("int8_fwd", K3_SOURCE, K3_REPLACES, launches["w8a8"]["k3"],
              quant_err["k3"], quant_times["k3"][QUANT_ROW_SHAPE]),
             ("int8_grouped_fwd", K7_SOURCE, K7_REPLACES,
@@ -1421,6 +1964,8 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, the "
+          f"kernels' build included", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,10 +10,11 @@ the argmin. Batches come from the port's copies of the JAX package's
 numpy readers and loader (`flipped_tpu_torch.data`), which the tests hold
 equal to the originals.
 
---quantize runs the int8 frozen-backbone modes (int8, int8g, int8o, w8a8,
-w8a8g, w8a8o). Not ported yet, and raising rather than ignored: --resume
-(adapter checkpoints), --is_generation_task (generation eval), audio
-merges, and the other --quantize modes (`core.config.check_quantize`).
+--quantize runs every frozen-backbone mode. Long context runs as it is
+asked for: at --max_seq_len above 4096 the prefill (and the dense scorer)
+take K5 instead of K1, e.g. `--max_seq_len 8192 --batch_size 1`. Not ported
+yet, and raising rather than ignored: --resume (adapter checkpoints),
+--is_generation_task (generation eval) and audio merges.
 """
 from __future__ import annotations
 

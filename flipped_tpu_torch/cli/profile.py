@@ -4,17 +4,23 @@
         --data_root ./data --batch_size 8 --max_seq_len 128 --vaq --qav \
         --no_remat --output_dir '' --quantize w8a8 --device cuda
 
+The long-context step takes the same flags as the train CLI, e.g.
+`--batch_size 1 --max_seq_len 4096 --lm_head_chunk 512` (with remat, and
+`--remat_group N`).
+
 The card's name and power limit come from nvidia-smi. Builds the model the
 CLIs build (random weights from the seed), takes one batch from the loader,
 runs two warm-up steps, STEPS steps timed on the host clock, then STEPS more
 under `torch.profiler` (CUDA activity only: recording every CPU op as well
 doubles the wall time), each step ending in `torch.cuda.synchronize()`.
 Prints one JSON line: wall seconds per step without and with the profiler,
-device busy seconds per step (the union of kernel intervals) and its share
-of the profiled window's wall time, kernel launches per step, device time by
-kernel class (bf16 and f32 GEMMs, the port's flash kernels, its int8 GEMMs
-K3/K7, its quantized dx K4, K8's two GEMMs, K9, K10's quantize pass and
-GEMM, other), and the top kernels by device time. The activation quantize
+the peak allocated device memory over the steps without it (the model and
+its weights included), device busy seconds per step (the union of kernel
+intervals) and its share of the profiled window's wall time, kernel
+launches per step, device time by kernel class (bf16 and f32 GEMMs, the
+port's flash kernels K1/K2 and the streaming K5/K6, its int8 GEMMs K3/K7,
+its quantized dx K4, K8's two GEMMs, K9, K10's quantize pass and GEMM,
+other), and the top kernels by device time. The activation quantize
 pass that K7 and K8's w4a8 branch share counts in the K3/K7 class.
 `--quantize` builds the model it names, as the CLIs do.
 """
@@ -39,6 +45,8 @@ STEPS = 3
 
 def kernel_class(name: str) -> str:
     low = name.lower()
+    if "flash_stream" in low:
+        return "flash stream (K5/K6)"
     if "flash_text" in low or "flash_bwd" in low:
         return "flash (K1/K2)"
     # before "gemm": K3 and K7 are int8_gemm_kernel plus their quantize pass
@@ -115,7 +123,8 @@ def main(argv=None) -> dict:
         step = make_train_step(
             model, make_optimizer(model, run_cfg.train, len(loader),
                                   run_cfg.data.batch_size),
-            vaq=run_cfg.train.vaq, qav=run_cfg.train.qav)
+            vaq=run_cfg.train.vaq, qav=run_cfg.train.qav,
+            lm_chunk=run_cfg.train.lm_head_chunk)
         run = lambda: step(batch)
     else:
         step = make_eval_step(model, cached=True)
@@ -124,11 +133,13 @@ def main(argv=None) -> dict:
     for _ in range(2):
         run()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     for _ in range(STEPS):
         run()
         torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -140,7 +151,12 @@ def main(argv=None) -> dict:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     out = {"mode": opts.mode, "remat": model.remat,
+           "remat_group": model.remat_group,
+           "lm_head_chunk": run_cfg.train.lm_head_chunk,
+           "max_seq_len": run_cfg.data.max_seq_len,
+           "batch_size": run_cfg.data.batch_size,
            "quantize": run_cfg.train.quantize, "card": card,
+           "peak_allocated_gib": peak / 2 ** 30,
            **summarize(prof, STEPS, wall, wall_plain)}
     print(json.dumps(out))
     return out

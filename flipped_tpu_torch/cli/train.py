@@ -8,9 +8,14 @@ The port of flipped_tpu/cli/train.py (reference train.py + engine.py), in
 one process with no mesh: loaders → model build → optimizer → epoch loop
 {train_one_epoch, the classification `val_one_epoch`}. Each train step runs
 the three objectives stacked in one encode, K1 forward and K2 backward in
-every block, and one AdamW update on the adapter. `--quantize w8a8` (or
-int8, int8g, int8o, w8a8g, w8a8o) runs the frozen backbone in int8: the
-block matmuls through K3, or K7 and K4 in the grouped modes.
+every block (above S = 2048 K5 forward and K6a + K6b backward), and one
+AdamW update on the adapter. `--quantize` runs the frozen backbone in int8
+or int4 (K3, K7, K4, K8, K9, K10 by mode). The long-context options run:
+`--lm_head_chunk N` sweeps the LM head in N-token chunks, `--remat_group N`
+checkpoints N blocks as one unit, e.g.
+
+    python -m flipped_tpu_torch.cli.train --model llama7B --max_seq_len 4096 \
+        --batch_size 1 --vaq --qav --lm_head_chunk 512 --output_dir '' ...
 
 Not ported yet, and raising rather than ignored: checkpoint saving and the
 JSON-lines log (a non-empty --output_dir; ROADMAP Queue 1, checkpoints),
@@ -94,7 +99,8 @@ def main(args):
     optimizer = make_optimizer(model, run_cfg.train, steps_per_epoch,
                                world_batch)
     train_step = make_train_step(model, optimizer, vaq=run_cfg.train.vaq,
-                                 qav=run_cfg.train.qav)
+                                 qav=run_cfg.train.qav,
+                                 lm_chunk=run_cfg.train.lm_head_chunk)
     # one process: no eval span is pinned (data.pipeline.pinned_eval_span),
     # each batch carries its pack-time span
     eval_step = make_eval_step(model, cached=True)

@@ -168,14 +168,6 @@ def check_train_ported(train: "TrainConfig") -> None:
         raise NotImplementedError(
             f"--remat_policy {train.remat_policy}: not ported yet (ROADMAP "
             f"Queue 1, rest of training: the qkv remat policy)")
-    if train.remat_group != 1:
-        raise NotImplementedError(
-            f"--remat_group {train.remat_group}: not ported yet (ROADMAP "
-            f"Queue 1, rest of training: remat_group)")
-    if train.lm_head_chunk:
-        raise NotImplementedError(
-            f"--lm_head_chunk {train.lm_head_chunk}: not ported yet (ROADMAP "
-            f"Queue 1, rest of training: lm_ce_rowwise_chunked)")
     if train.resume:
         raise NotImplementedError(
             "--resume: adapter checkpoints are not ported yet (ROADMAP "

@@ -60,6 +60,23 @@ class KernelLibrary:
             + [ctypes.c_int] * 5      # B S H Dh max_feats
             + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
         self.lib.flash_text_bwd.restype = ctypes.c_int
+        self.lib.flash_stream_fwd.argtypes = (
+            [ctypes.c_void_p] * 7                      # q k v gate2 vs out lse
+            + [ctypes.c_int] * 7      # B S_q S_k H Dh q_offset max_feats
+            + [ctypes.c_longlong] * 9                  # q, k/v, out strides
+            + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
+        self.lib.flash_stream_fwd.restype = ctypes.c_int
+        self.lib.flash_stream_dq.argtypes = (
+            [ctypes.c_void_p] * 10    # q k v dout lse delta gate2 vs dq
+                                      # dg2_part
+            + [ctypes.c_int] * 7      # B S_q S_k H Dh q_offset max_feats
+            + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
+        self.lib.flash_stream_dq.restype = ctypes.c_int
+        self.lib.flash_stream_dkv.argtypes = (
+            [ctypes.c_void_p] * 10    # q k v dout lse delta gate2 vs dk dv
+            + [ctypes.c_int] * 7      # B S_q S_k H Dh q_offset max_feats
+            + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
+        self.lib.flash_stream_dkv.restype = ctypes.c_int
         for fn in ("int8_fwd", "int8_grouped_fwd"):
             getattr(self.lib, fn).argtypes = (
                 [ctypes.c_void_p] * 6         # x kq scale xq xs out

@@ -25,7 +25,9 @@ Every parameter is created with requires_grad=False; `train.optim.
 trainable_parameters` turns it on for the trainables, so a backward takes
 only dx through the frozen backbone. `remat=True` recomputes each block in
 the backward (`torch.utils.checkpoint`, the JAX "full" remat policy,
-llama.py:637-660).
+llama.py:637-660); with `remat_group` > 1 one checkpoint covers that many
+consecutive blocks, so only the group boundaries' h is saved (llama.py:
+461-468, 641-675).
 """
 from __future__ import annotations
 
@@ -275,7 +277,8 @@ class FlippedVQAModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
                  frozen_dtype=torch.bfloat16, trainable_dtype=torch.float32,
-                 device=None, remat: bool = False, quantized: bool = False,
+                 device=None, remat: bool = False, remat_group: int = 1,
+                 quantized: bool = False,
                  act_quant: bool = False, quant_group: int = 0,
                  quant_outliers: bool = False, weight_bits: int = 8,
                  rotated: bool = False, dgrad_quant: bool = False):
@@ -287,6 +290,7 @@ class FlippedVQAModel(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         self.remat = remat
+        self.remat_group = remat_group
         quant = dict(quantized=quantized, act_quant=act_quant,
                      quant_group=quant_group, quant_outliers=quant_outliers,
                      weight_bits=weight_bits, dgrad_quant=dgrad_quant)
@@ -360,6 +364,16 @@ class FlippedVQAModel(nn.Module):
         h = self._embed_and_splice(tokens, video_feature, splice_index)
         rope_cos, rope_sin = self._rope(tokens.shape[1])
         remat = self.remat and torch.is_grad_enabled()
+        if remat and self.remat_group > 1:
+            # one checkpoint over `remat_group` blocks: only group-boundary
+            # h is saved; each block still recomputes exactly once
+            n = len(self.layers)
+            for start in range(0, n, self.remat_group):
+                h = checkpoint(self._run_block_range, h, rope_cos, rope_sin,
+                               video_start, start,
+                               min(start + self.remat_group, n),
+                               use_reentrant=False)
+            return self.norm(h)
         for block, adapter in self._active_blocks():
             if remat:
                 h = checkpoint(block, h, rope_cos, rope_sin, adapter,
@@ -367,6 +381,14 @@ class FlippedVQAModel(nn.Module):
             else:
                 h = block(h, rope_cos, rope_sin, adapter, video_start)
         return self.norm(h)
+
+    def _run_block_range(self, h, rope_cos, rope_sin, video_start,
+                         start: int, stop: int):
+        """Active blocks [start, stop): the remat_group checkpoint unit
+        (JAX: llama.py:664-672)."""
+        for block, adapter in self._active_blocks()[start:stop]:
+            h = block(h, rope_cos, rope_sin, adapter, video_start)
+        return h
 
     def lm_logits(self, h):
         return self.output(h)

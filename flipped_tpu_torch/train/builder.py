@@ -146,10 +146,11 @@ def build_eval_state(run_cfg: RunConfig, device, seed: int = 0,
 def build_train_state(run_cfg: RunConfig, device, seed: int = 0,
                       dtype=torch.bfloat16):
     """→ (model, cfg, tokenizer) for training: parameters initialised,
-    trainables requires_grad, blocks rematerialised unless --no_remat
-    (JAX: builder.py:113-209). Refuses the training options the port does
-    not run yet."""
+    trainables requires_grad, blocks rematerialised unless --no_remat, in
+    groups of --remat_group (JAX: builder.py:113-209). Refuses the training
+    options the port does not run yet."""
     check_train_ported(run_cfg.train)
     model, cfg, tokenizer = build_eval_state(run_cfg, device, seed, dtype)
     model.remat = run_cfg.train.remat
+    model.remat_group = run_cfg.train.remat_group
     return model, cfg, tokenizer

@@ -9,14 +9,17 @@ ignore index 0, QAV ignore index -1 (reference: model.py:233-235).
 
 Eval: per-token CE with ignore index 0, summed per option and divided by the
 count of NONZERO token losses (not the label mask), prediction = argmin.
-The chunked LM-head CE (`lm_ce_rowwise_chunked`, --lm_head_chunk) is not
-ported yet.
+
+`--lm_head_chunk` (`lm_chunk` > 0) sweeps the LM head over the sequence in
+chunks, each recomputed in the backward, so that one chunk's vocab-width
+logits are live at a time (`lm_ce_rowwise_chunked`).
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 class Losses(NamedTuple):
@@ -52,6 +55,44 @@ def token_ce_unreduced(logits: torch.Tensor,
     return torch.where(valid, -tok_ll, torch.zeros_like(tok_ll))
 
 
+def _chunk_ce(model, h, labels):
+    """(CE sum, valid count) per row of one chunk: ignore index 0, f32
+    log-softmax (JAX: objectives.py:93-100)."""
+    logits = model.lm_logits(h).float()
+    valid = labels != 0
+    logp = torch.log_softmax(logits, dim=-1)
+    tok_ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return (torch.where(valid, -tok_ll, torch.zeros_like(tok_ll)).sum(-1),
+            valid.sum(-1))
+
+
+def lm_ce_rowwise_chunked(model, h: torch.Tensor, labels: torch.Tensor,
+                          chunk_size: int):
+    """Per-row CE sum and valid-token count without the (rows, S-1, vocab)
+    logit tensor (JAX: objectives.py:60-106). The sequence axis is swept in
+    `chunk_size` slices; each slice projects to vocab and reduces to a
+    per-row (sum, count) under `torch.utils.checkpoint`, so the backward
+    recomputes the slice's logits instead of keeping them: one chunk's
+    vocab-width logits are live at a time. The last slice is shorter where
+    chunk_size does not divide S-1 (JAX pads it with ignored labels: the
+    same sums). Only the order of the sum over chunks differs from the
+    dense head.
+
+    h: (rows, S-1, D), already shifted; labels: (rows, S-1), ignore index 0.
+    Returns (sum (rows,) f32, count (rows,) int64).
+    """
+    rows, sm1, _ = h.shape
+    total = torch.zeros(rows, dtype=torch.float32, device=h.device)
+    count = torch.zeros(rows, dtype=torch.int64, device=h.device)
+    for start in range(0, sm1, chunk_size):
+        stop = min(start + chunk_size, sm1)
+        s, c = checkpoint(_chunk_ce, model, h[:, start:stop],
+                          labels[:, start:stop], use_reentrant=False)
+        total = total + s
+        count = count + c
+    return total, count
+
+
 def fused_forward(model, batch: Dict[str, torch.Tensor], vaq: bool,
                   qav: bool):
     """fuse + one stacked encode → ({objective: h (B, S, D)}, vf (B, F, D))
@@ -69,18 +110,32 @@ def fused_forward(model, batch: Dict[str, torch.Tensor], vaq: bool,
 
 
 def compute_objective_losses(model, batch: Dict[str, torch.Tensor],
-                             vaq: bool, qav: bool) -> Losses:
-    """The three losses of one microbatch, dense LM head over the VQA and
-    VAQ rows only (JAX: objectives.py:134-175)."""
+                             vaq: bool, qav: bool,
+                             lm_chunk: int = 0) -> Losses:
+    """The three losses of one microbatch, the LM head over the VQA and VAQ
+    rows only: dense, or with lm_chunk > 0 swept in sequence chunks of that
+    size (`lm_ce_rowwise_chunked`), the same losses with bounded vocab-width
+    memory (JAX: objectives.py:134-175)."""
     parts, vf = fused_forward(model, batch, vaq, qav)
     zero = torch.zeros((), device=vf.device)
     lm_keys = ["vqa"] + (["vaq"] if vaq else [])
     b = batch["vqa_tokens"].shape[0]
-    logits = model.lm_logits(torch.cat([parts[k][:, :-1] for k in lm_keys]))
+    lm_h = torch.cat([parts[k][:, :-1] for k in lm_keys])
 
-    def lm_loss(k, idx):
-        return ce_ignore_index(logits[idx * b:(idx + 1) * b],
-                               batch[f"{k}_labels"][:, 1:], ignore_index=0)
+    if lm_chunk > 0:
+        lm_labels = torch.cat([batch[f"{k}_labels"][:, 1:] for k in lm_keys])
+        tot, cnt = lm_ce_rowwise_chunked(model, lm_h, lm_labels, lm_chunk)
+
+        def lm_loss(k, idx):
+            rows = slice(idx * b, (idx + 1) * b)
+            return tot[rows].sum() / cnt[rows].sum().clamp_min(1)
+    else:
+        logits = model.lm_logits(lm_h)
+
+        def lm_loss(k, idx):
+            return ce_ignore_index(logits[idx * b:(idx + 1) * b],
+                                   batch[f"{k}_labels"][:, 1:],
+                                   ignore_index=0)
 
     vqa_loss = lm_loss("vqa", 0)
     vaq_loss = lm_loss("vaq", 1) if vaq else zero

@@ -28,9 +28,11 @@ class TrainMetrics(NamedTuple):
     lr: float
 
 
-def make_train_step(model, optimizer: Optimizer, vaq: bool, qav: bool):
+def make_train_step(model, optimizer: Optimizer, vaq: bool, qav: bool,
+                    lm_chunk: int = 0):
     """Returns train_step(batch) → TrainMetrics, one optimizer update per
-    call (JAX: step.py:35-87).
+    call (JAX: step.py:35-87). lm_chunk > 0 computes the LM-head CE in
+    sequence chunks (`objectives.lm_ce_rowwise_chunked`).
 
     `batch` leaves have a leading accumulation axis (accum, B, ...): the
     microbatches' gradients are summed and divided by accum, as the JAX
@@ -44,7 +46,8 @@ def make_train_step(model, optimizer: Optimizer, vaq: bool, qav: bool):
         per_micro = []
         for i in range(accum):
             losses = compute_objective_losses(
-                model, {k: v[i] for k, v in batch.items()}, vaq, qav)
+                model, {k: v[i] for k, v in batch.items()}, vaq, qav,
+                lm_chunk=lm_chunk)
             losses.total.backward()
             per_micro.append(torch.stack([losses.total.detach(),
                                           *(x.detach() for x in losses)]))

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (K1-K4, K7-K10) on the card, against their
-plain versions.
+"""The hand-written CUDA kernels (K1-K10) on the card, against their plain
+versions.
 
 Marked `gpu`: each test skips without a CUDA device (the kernels have no CPU
 mode). This file imports torch and the port only, so it also runs on a
@@ -120,6 +120,149 @@ def test_flash_autograd_function_on_card(cuda):
     torch.cuda.synchronize()
     assert fa.flash_text_attention.launches == f0 + 1
     assert fa.flash_text_attention_bwd.launches == b0 + 1
+    for x in (q, k, v, ak, av, g1, g2):
+        assert bool(torch.isfinite(x.grad).all())
+
+
+# --- K5, K6a, K6b: the streaming kernels ------------------------------------
+
+# (B, S_q, S_k, H, q_offset, video_start): a ragged S, and a q shard at an
+# offset that is no multiple of the tiles against longer K/V
+STREAM_CASES = [(2, 300, 300, 4, 0, (-1, 7)), (2, 100, 300, 4, 150, (0, 5))]
+
+
+def _stream_inputs(cuda, b, s_q, s_k, h, vs, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda s: torch.randn(b, s, h, 128, device=cuda,
+                               generator=g).to(torch.bfloat16)
+    q, k, v, do = mk(s_q), mk(s_k), mk(s_k), mk(s_q)
+    g2 = torch.randn(h, device=cuda, generator=g)
+    return q, k, v, do, g2, torch.tensor(vs, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("b,s_q,s_k,h,q_offset,vs", STREAM_CASES)
+def test_flash_stream_fwd_matches_plain(cuda, b, s_q, s_k, h, q_offset, vs):
+    q, k, v, _, g2, video_start = _stream_inputs(cuda, b, s_q, s_k, h, vs, 5)
+    before = fa.flash_streaming_fwd.launches
+    out, lse = fa.flash_streaming_fwd(q, k, v, g2, video_start, 10, q_offset)
+    torch.cuda.synchronize()
+    assert fa.flash_streaming_fwd.launches == before + 1
+    ref, ref_lse = fa.flash_streaming_fwd_ref(q, k, v, g2, video_start, 10,
+                                              q_offset)
+    mag, _ = fa.flash_streaming_fwd_ref(q, k, v.abs(), g2, video_start, 10,
+                                        q_offset)
+    # K1's bound (the kernel rounds unnormalised P, the plain version
+    # normalised P); chip_smoke.py states it
+    bound = 2.0 ** -7 * (mag.float() + ref.float().abs()) + 2.0 ** -14
+    assert bool(((out.float() - ref.float()).abs() <= bound).all())
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,s_q,s_k,h,q_offset,vs", STREAM_CASES)
+def test_flash_stream_bwd_matches_plain(cuda, b, s_q, s_k, h, q_offset, vs):
+    q, k, v, do, g2, video_start = _stream_inputs(cuda, b, s_q, s_k, h, vs, 6)
+    out, lse = fa.flash_streaming_fwd(q, k, v, g2, video_start, 10, q_offset)
+    delta = fa.stream_delta(do, out)
+    b_dq, b_dkv = fa.flash_streaming_dq.launches, \
+        fa.flash_streaming_dkv.launches
+    dq, dg2 = fa.flash_streaming_dq(q, k, v, g2, video_start, 10, do, lse,
+                                    delta, q_offset)
+    dk, dv = fa.flash_streaming_dkv(q, k, v, g2, video_start, 10, do, lse,
+                                    delta, q_offset)
+    torch.cuda.synchronize()
+    assert (fa.flash_streaming_dq.launches,
+            fa.flash_streaming_dkv.launches) == (b_dq + 1, b_dkv + 1)
+    ref_dq, ref_dg2 = fa.flash_streaming_dq_ref(q, k, v, g2, video_start, 10,
+                                                do, lse, delta, q_offset)
+    refs = (ref_dq,) + fa.flash_streaming_dkv_ref(
+        q, k, v, g2, video_start, 10, do, lse, delta, q_offset)
+    # the same D and lse on both sides: a flip of one bf16 ulp in P or dS
+    # moves a grad by 2^-7 of one term; chip_smoke.py states the full bound,
+    # this is its coarse form
+    for name, x, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert bool(torch.isfinite(x).all()), name
+        tol = 2.0 ** -6 * float(r.float().abs().max())
+        assert float((x.float() - r.float()).abs().max()) <= tol, name
+    # both sum the same f32 dS over the block, in other orders
+    torch.testing.assert_close(dg2, ref_dg2, rtol=1e-3, atol=1e-3)
+
+
+def test_flash_stream_shards_sum_to_the_full_backward(cuda):
+    """Four q shards at offsets 0, 64, 128, 192 against full K/V, each with
+    its rows of D: out, lse and dq equal the full run's row slices (the same
+    tiles and operations: bit for bit), and the dk, dv, dgate2 partials sum
+    to the full result. The terms are the same; each partial and the full
+    result round an f32 sum to bf16 once (2^-8 relative each), and each f32
+    sum lies within S·2^-24·M of the exact one, M the sum of the terms'
+    magnitudes (scale |dS|ᵀ|Q| for dk, Pᵀ|dO| for dv, taken in float64):
+    |Σ_i dk_i − dk| <= 2^-8 (Σ_i |dk_i| + |dk|) + 2 S 2^-24 M (as
+    chip_smoke.py states it)."""
+    q, k, v, do, g2, vs = _stream_inputs(cuda, 1, 256, 256, 4, (9,), 7)
+    out, lse = fa.flash_streaming_fwd(q, k, v, g2, vs, 10)
+    delta = fa.stream_delta(do, out)
+    args = (k, v, g2, vs, 10)
+    dq_full, dg2_full = fa.flash_streaming_dq(q, *args, do, lse, delta)
+    full = fa.flash_streaming_dkv(q, *args, do, lse, delta)
+    sums, mags, dqs = [0.0, 0.0], [0.0, 0.0], []
+    dg2_sum = 0.0
+    for i in range(4):
+        sl = slice(64 * i, 64 * (i + 1))
+        o_i, lse_i = fa.flash_streaming_fwd(q[:, sl], *args, 64 * i)
+        assert torch.equal(o_i, out[:, sl]) and torch.equal(lse_i,
+                                                            lse[:, :, sl])
+        shard = (do[:, sl], lse_i, delta[:, :, sl].contiguous(), 64 * i)
+        dq, dg2 = fa.flash_streaming_dq(q[:, sl], *args, *shard)
+        parts = fa.flash_streaming_dkv(q[:, sl], *args, *shard)
+        dqs.append(dq)
+        dg2_sum = dg2_sum + dg2
+        sums = [a + x.float() for a, x in zip(sums, parts)]
+        mags = [a + x.float().abs() for a, x in zip(mags, parts)]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(dqs, 1), dq_full)
+    for name, a, m, r, terms in zip(("dk", "dv"), sums, mags, full,
+                                    _term_mags(q, k, v, do, g2, vs, lse,
+                                               delta)):
+        bound = 2.0 ** -8 * (m + r.float().abs()) + 2 * 256 * 2.0 ** -24 \
+            * terms.float() + 1e-6
+        assert bool(((a - r.float()).abs() <= bound).all()), name
+    torch.testing.assert_close(dg2_sum, dg2_full, rtol=1e-4, atol=1e-4)
+
+
+def _term_mags(q, k, v, do, g2, vs, lse, delta):
+    """float64 scale |dS|ᵀ|Q| and Pᵀ|dO|: the magnitudes of K6b's sums at
+    q_offset 0, P from the saved lse."""
+    dh = q.shape[3]
+    q64, v64, do64 = (x.double() for x in (q, v, do))
+    sc = fa._masked_scores(q, k, g2, vs, 10).double()
+    p = torch.exp(sc - lse.double()[..., None])    # 0 where masked (-1e30)
+    dp = torch.einsum("bshd,bthd->bhst", do64, v64)
+    ds = p * (dp - delta.double()[..., None])
+    return (dh ** -0.5 * torch.einsum("bhst,bshd->bthd", ds.abs(),
+                                      q64.abs()),
+            torch.einsum("bhst,bshd->bthd", p, do64.abs()))
+
+
+def test_flash_streaming_regime_on_card(cuda, monkeypatch):
+    """A differentiated call above MAX_SEQ_BWD (set low) runs K5 forward and
+    K6a + K6b backward through the autograd.Function, and no K1 or K2."""
+    monkeypatch.setattr(fa, "MAX_SEQ_BWD", 64)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    mk = lambda *s: torch.randn(*s, device=cuda, generator=g)
+    q, k, v = (mk(2, 130, 4, 128).to(torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    ak, av = (mk(10, 4, 128).to(torch.bfloat16).requires_grad_()
+              for _ in range(2))
+    g1, g2 = mk(4).requires_grad_(), mk(4).requires_grad_()
+    vs = torch.tensor([3, -1], device=cuda)
+    names = ("flash_text_attention", "flash_text_attention_bwd",
+             "flash_streaming_fwd", "flash_streaming_dq",
+             "flash_streaming_dkv")
+    before = [getattr(fa, n).launches for n in names]
+    out = fa.flash_adapter_attention(q, k, v, ak, av, g1, g2, vs, 10)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    moved = [getattr(fa, n).launches - b for n, b in zip(names, before)]
+    assert moved == [0, 0, 1, 1, 1]
     for x in (q, k, v, ak, av, g1, g2):
         assert bool(torch.isfinite(x.grad).all())
 
