@@ -29,8 +29,9 @@ Phases; any failure prints its traceback and exits 1 without a result line:
   7. quant    K3 int8_fwd, K7 int8_grouped_fwd, K8 int4_fwd's w4a8 branch
               and K10 int8_dgrad bitwise against their plain versions, K4
               quant_dx, K8's weight-only branch and K9 int4_dx within the
-              bounds stated at K4_REL and K8_WO_REL, at odd-M unit shapes
-              and every 7B main-path shape (K10 on 2-D and 3-D cotangents);
+              bounds stated at K4_REL and K8_WO_REL, at odd-M unit shapes,
+              the wgmma kernels' tile edges (QUANT_EDGE) and every 7B
+              main-path shape (K10 on 2-D and 3-D cotangents);
               then through the autograd Functions int8_matmul,
               int8_matmul_grouped, int4_matmul, int4_matmul_grouped and
               int8_matmul_dgrad at the w1/w3 shape
@@ -254,6 +255,12 @@ K4_REPLACES = "flipped_tpu/model/pallas/quant_matmul.py:316"
 TRAIN_M = 3 * TRAIN_B * TRAIN_S
 QUANT_UNIT = [(10, 256, 136), (37, 384, 256), (37, 272, 120),
               (130, 1024, 1040)]
+# edges of the TMA + wgmma tiles of K8 weight-only (128 x rows by 64 packed
+# rows, 64-deep stages) and K10's GEMM (256 rows by 128 output columns,
+# 128-deep stages): 3 rows (quant_inputs zeroes the middle one), N/2 of 200
+# and 56, a contraction of one group and of 86, a K10 contraction that ends
+# part-way through a stage
+QUANT_EDGE = [(3, 11008, 400), (65, 128, 112), (1000, 512, 144)]
 QUANT_MAIN = {"wq/wk/wv/wo": (TRAIN_M, 4096, 4096),
               "w1/w3": (TRAIN_M, 4096, 11008),
               "w2": (TRAIN_M, 11008, 4096),
@@ -1162,11 +1169,13 @@ def hold_quant(torch, qm, kern, a, kq, scale, worst, extra=None):
 
 def check_quant(torch, qm, worst):
     """K3, K7, K8 w4a8 and K10 bitwise against their plain versions, K4, K8
-    weight-only and K9 within their bounds, at the unit and the 7B training
-    shapes, on `quant_inputs` / `int4_inputs`; K10 on a 2-D cotangent and on
+    weight-only and K9 within their bounds, at the unit, the tile-edge and
+    the 7B training shapes, on `quant_inputs` / `int4_inputs`; K10 on a 2-D cotangent and on
     the same rows as (2, M/2, N) where M is even (the dither's row period
     M/2)."""
-    cases = [(f"unit {s}", s) for s in QUANT_UNIT] + list(QUANT_MAIN.items())
+    cases = ([(f"unit {s}", s) for s in QUANT_UNIT]
+             + [(f"edge {s}", s) for s in QUANT_EDGE]
+             + list(QUANT_MAIN.items()))
     for i, (name, (m, k, n)) in enumerate(cases):
         x, kq, scale, sg, g = quant_inputs(torch, m, k, n, 300 + i)
         msg = [hold_quant(torch, qm, "k3", x, kq, scale, worst)]

@@ -1,15 +1,19 @@
-"""Time K1, K2, K3, K7 and K4 of this checkout and another on one card, in
-turns.
+"""Time K1, K2, K3, K7, K4, K8 (both branches), K9 and K10 of this checkout
+and another on one card, in turns.
 
     python -m flipped_tpu_torch.cli.ab_kernels <other checkout>
 
 The turns are other, this, this, other, each in its own process (both
 checkouts' packages have one name): a turn builds its checkout's kernels and
 times, by CUDA-graph replay, K1 at the shapes of `chip_smoke.K1_SHAPES` and
-K2 at the training shape (B 24, S 128), then K3, K7 and K4 at the three
-3072-row 7B shapes, with that checkout's `chip_smoke.py` (`k1_inputs`,
-`k2_inputs`, `quant_inputs`, `device_ms`). Prints the card's name and power
-limit, then one JSON line per turn: device ms by shape and kernel. Unpack
+K2 at the training shape (B 24, S 128), then K3, K7, K4, K8 (w4a8 "k8a",
+weight-only "k8w"), K9 and K10 at the three 3072-row 7B shapes, with that
+checkout's `chip_smoke.py` (`k1_inputs`, `k2_inputs`, `quant_inputs`,
+`int4_inputs`, `device_ms`); K10's two launches are also timed apart
+("k10 quantize", "k10 gemm": device time by kernel name under
+torch.profiler, the names with "quantize" the first). Prints the card's name
+and power limit, then one JSON line per turn: device ms by shape and
+kernel. Unpack
 the other commit with `git archive` into a directory `.gitignore` lists;
 comparing two commits inside one call keeps the card, its power limit and
 the toolchain the same.
@@ -24,6 +28,28 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SHAPES = ("wq/wk/wv/wo", "w1/w3", "w2")
+
+
+def k10_split(torch, qm, g, kq, scale, s_mod, n=20) -> dict:
+    """Device ms per call of K10's quantize kernel and of its GEMM kernel,
+    from a torch.profiler trace of `n` calls after 3 warm ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        qm.int8_dgrad(g, kq, scale, s_mod)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            qm.int8_dgrad(g, kq, scale, s_mod)
+        torch.cuda.synchronize()
+    parts = {"k10 quantize": 0.0, "k10 gemm": 0.0}
+    for e in prof.profiler.function_events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = "k10 quantize" if "quantize" in e.name else "k10 gemm"
+            parts[key] += e.time_range.elapsed_us()
+    if not all(parts.values()):
+        raise RuntimeError(f"K10's launches were not both traced: {parts}")
+    return {k: v * 1e-3 / n for k, v in parts.items()}
 
 
 def time_checkout(root: str) -> dict:
@@ -55,10 +81,19 @@ def time_checkout(root: str) -> dict:
     for name in SHAPES:
         m, k, n = cs.QUANT_MAIN[name]
         x, kq, scale, sg, g = cs.quant_inputs(torch, m, k, n, 400)
+        x4, kq4, sg4, g4 = cs.int4_inputs(torch, m, k, n, 410)
         out[name] = {
             "k3": cs.device_ms(torch, lambda: qm.int8_fwd(x, kq, scale)),
             "k7": cs.device_ms(torch, lambda: qm.grouped_matmul(x, kq, sg)),
-            "k4": cs.device_ms(torch, lambda: qm.quant_dx(g, kq, sg))}
+            "k4": cs.device_ms(torch, lambda: qm.quant_dx(g, kq, sg)),
+            "k8a": cs.device_ms(torch, lambda: qm.int4_matmul(x4, kq4, sg4,
+                                                              True)),
+            "k8w": cs.device_ms(torch, lambda: qm.int4_matmul(x4, kq4, sg4,
+                                                              False)),
+            "k9": cs.device_ms(torch, lambda: qm.int4_dx(g4, kq4, sg4)),
+            "k10": cs.device_ms(torch, lambda: qm.int8_dgrad(
+                g, kq, scale, cs.TRAIN_S)),
+            **k10_split(torch, qm, g, kq, scale, cs.TRAIN_S)}
     return out
 
 

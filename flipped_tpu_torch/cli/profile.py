@@ -58,7 +58,8 @@ def kernel_class(name: str) -> str:
         return "int4 GEMM (K8)"
     if "int4_dx" in low:
         return "int4 dx (K9)"
-    if "int8_dgrad" in low:
+    # before "gemm": K10's GEMM is wgmma_int8::kn_gemm_row_kernel
+    if "int8_dgrad" in low or "kn_gemm_row" in low:
         return "int8 dgrad (K10)"
     if any(m in low for m in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "gemm f32" if "f32f32" in low else "gemm"

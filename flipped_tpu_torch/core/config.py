@@ -152,6 +152,7 @@ class TrainConfig:
     remat_group: int = 1
     quantize: str = "none"
     lm_head_chunk: int = 0
+    flash_attention: bool = True  # False: --no_flash, the einsum attention
 
     def absolute_lr(self, world_batch: int) -> float:
         # lr = blr * eff_batch / 256 (reference: train.py:104-107)
@@ -186,9 +187,32 @@ class RunConfig:
     device: str = "cuda"
 
 
+MESH_FLAGS = ("dp", "tp", "sp", "pp")
+
+
+def check_jax_only_flags(args: argparse.Namespace) -> None:
+    """Refuse what the JAX parser's mesh and tracing flags ask for beyond
+    one card, naming the ROADMAP item each waits for. A mesh axis of 1 (or
+    dp -1, all devices) is the single card; --pp_microbatches and
+    --num_workers (Grain's worker count; --loader grain raises) are
+    accepted and unused."""
+    for name in MESH_FLAGS:
+        size = getattr(args, name)
+        if size > 1:
+            raise NotImplementedError(
+                f"--{name} {size}: multi-card meshes are not ported yet "
+                f"(ROADMAP [9], parallelism)")
+    if args.trace_dir:
+        raise NotImplementedError(
+            "--trace_dir: the training trace is not ported yet (ROADMAP "
+            "[6], the rest of training and of the CLI); cli/profile.py "
+            "traces a step with torch.profiler")
+
+
 def get_args_parser() -> argparse.ArgumentParser:
-    """The JAX parser (core/config.py:227-325) without the mesh and tracing
-    flags, with the same names and defaults, plus --device."""
+    """The JAX parser (core/config.py:227-325) with the same names and
+    defaults, plus --device. The mesh and tracing flags are accepted and
+    checked by `check_jax_only_flags`."""
     p = argparse.ArgumentParser("flipped_tpu_torch", add_help=False)
     p.add_argument("--batch_size", default=8, type=int)
     p.add_argument("--epochs", default=5, type=int)
@@ -211,6 +235,7 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--resume", default="")
     p.add_argument("--start_epoch", default=0, type=int)
+    p.add_argument("--num_workers", default=2, type=int)
     p.add_argument("--vaq", action="store_true")
     p.add_argument("--qav", action="store_true")
     p.add_argument("--bias", type=float, default=3.0)
@@ -222,12 +247,19 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--audio_only", action="store_true")
     p.add_argument("--audio_merge", type=str, default="none",
                    choices=["sum", "concat", "attention", "none"])
+    p.add_argument("--dp", type=int, default=-1)
+    p.add_argument("--pp", type=int, default=1)
+    p.add_argument("--pp_microbatches", type=int, default=0)
+    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--trace_dir", default="")
     p.add_argument("--loader", default="thread", choices=["thread", "grain"])
     p.add_argument("--remat_policy", default="full", choices=["full", "qkv"])
     p.add_argument("--remat_group", type=int, default=1)
     p.add_argument("--quantize", default="none", choices=QUANTIZE_CHOICES)
     p.add_argument("--lm_head_chunk", type=int, default=0)
     p.add_argument("--no_remat", action="store_true")
+    p.add_argument("--no_flash", action="store_true")
     p.add_argument("--clip_grad", type=float, default=None)
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device to run on: cuda, cuda:N or cpu")
@@ -251,6 +283,7 @@ def validate_audio_flags(audio: bool, audio_only: bool,
 
 
 def run_config_from_args(args: argparse.Namespace) -> RunConfig:
+    check_jax_only_flags(args)
     merge = validate_audio_flags(args.audio, args.audio_only, args.audio_merge)
     name = args.model.replace("_adapter", "")
     if name not in MODEL_PRESETS:
@@ -277,7 +310,8 @@ def run_config_from_args(args: argparse.Namespace) -> RunConfig:
         start_epoch=args.start_epoch, clip_grad=args.clip_grad,
         remat=not args.no_remat, remat_policy=args.remat_policy,
         remat_group=args.remat_group, quantize=args.quantize,
-        lm_head_chunk=args.lm_head_chunk)
+        lm_head_chunk=args.lm_head_chunk,
+        flash_attention=not args.no_flash)
     return RunConfig(model=model, data=data, train=train,
                      llama_model_path=args.llama_model_path,
                      model_name=args.model,

@@ -21,54 +21,93 @@
 //
 // weight-only (int4): bf16 products on the raw codes with the group scale
 // applied to each group's partial product, as _int4_kernel does:
-//   d_g[m, n] = sum over group g of bf16(x[m, k]) * W[n, k]   f32 (mma.sync
-//               m16n8k16: products exact, sums in the tensor core's order)
+//   d_g[m, n] = sum over group g of bf16(x[m, k]) * W[n, k]   f32 (wgmma
+//               m64n128k16: products exact, sums in the tensor core's order)
 //   out[m, n] = bf16(sum_g d_g * scale_g[g, n]), the groups in order, each
 //               step a separate multiply and add (__fmul_rn, __fadd_rn).
 //   The plain version takes each d_g exactly (a float64 sum rounded once to
 //   f32), so the two differ by the f32 rounding of the group sums; the bound
 //   is stated in chip_smoke.py (K8_WO_REL).
-//   One launch: 128 rows x 64 packed rows (128 output columns) per block of 8
-//   warps, each warp 64 rows x 16 packed columns: 4 x 2 packed n-tiles, each
-//   feeding a low and a high 16 x 8 accumulator tile. The contraction runs in
-//   64-wide tiles; each warp converts the nibbles of its B fragments to bf16
-//   in registers (exact: 0x4300 | (v ^ 8) is bf16(128 + (v ^ 8)), minus 136),
-//   so the weight crosses shared memory packed, half a byte an element.
 //
 // What bounds it on an H100: at the 7B training shapes (M 3072, K 4096 or
 // 11008, N 4096 or 11008) a call is 103-277 G multiply-adds on 40-97 MB of
 // operands, far above both ridge points: compute-bound, at the int8 rate
 // for w4a8 (52-140 us at 1979 TOP/s) and the bf16 rate for int4 (104-280 us
-// at 989 TFLOP/s). The packed weight is read once per 128-row block at half
-// a byte an element, and the unpacked (K, N) weight never exists in HBM,
-// which is the TPU kernel's point too.
-// Not yet done (later work): cp.async/TMA pipelining, wgmma, fusing the
-// w4a8 quantize into the A loads.
+// at 989 TFLOP/s). Only wgmma reaches the bf16 rate, so the weight-only
+// branch is a warp-specialised TMA + wgmma kernel:
+//   - operands swapped: each block computes the transposed tile out^T =
+//     W . x^T, so the packed weight is wgmma's A operand, converted from
+//     nibbles to bf16 in registers (a byte permute, a LOP3 and a bf16x2
+//     subtract per pair, exact), and x, whose rows are K-contiguous, is B
+//     straight from shared memory. The weight crosses HBM and shared memory
+//     packed, half a byte an element; the bf16 weight never exists.
+//   - tile: 64 packed rows x 128 x rows, over 64-deep contraction stages.
+//     One consumer warpgroup takes the low nibbles (output columns j), the
+//     other the high ones (columns N/2 + j) of the same packed rows, each
+//     with one m64n128k16 wgmma a 16-deep step against the shared x tile.
+//     A thread keeps two 64-register accumulators (the group partial and
+//     the folded sum) and two stages of fragments (32 registers) under the
+//     232 that setmaxnreg gives a consumer; twice the x rows would not fit.
+//   - one lane of a producer warpgroup (40 registers) keeps a ring of 6
+//     stages full with TMA (cp.async.bulk.tensor, mbarrier completion):
+//     the x box with the 128-byte swizzle wgmma reads, the packed box with
+//     the 64-byte swizzle, which makes the consumers' 2-byte fragment loads
+//     conflict-free. Rows past M and packed rows past N/2 come in as zeros.
+//   - a stage's fragments are converted while the previous stage's wgmmas
+//     run (wait_group 1). At each group's end the warpgroup drains its
+//     wgmmas, folds d into the sum with the group's scales (each
+//     accumulator row is one output column, so a thread needs two scales a
+//     group), and the next group's first wgmma overwrites d (scale-d 0): no
+//     ordinary instruction writes d, or ptxas would serialise the wgmmas.
+//   - epilogue: each thread holds two columns n and 2 x 32 rows m of
+//     out^T; a shuffle with the neighbouring column's thread gives each a
+//     bf16 pair of adjacent columns, stored as one 32-bit word.
+// Not yet done (later work): a persistent grid, TMA multicast of the x tile
+// across a cluster (x is most of the bytes each stage brings from L2),
+// fusing the w4a8 quantize into the A loads and moving the w4a8 branch to
+// wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 #include "quant_common.cuh"
 
 namespace {
 
 using flash::bf16;
-using flash::mma_16816;
 
-constexpr int BM = 128;
-constexpr int BNP = 64;          // packed rows (output column pairs) a block
-constexpr int BK = 64;           // contraction per shared-memory tile
-constexpr int AP = BK + 8;       // a_s pitch: 144-byte rows, conflict-free A
-constexpr int BP = BK + 16;      // b_s pitch in bytes
-constexpr int NTHREADS = 256;
+constexpr int WO_BM = 128;        // x rows a block: the wgmma N
+constexpr int WO_BJ = 64;         // packed rows a block
+constexpr int WO_BK = 64;         // contraction a stage: 128-byte x rows
+constexpr int WO_STAGES = 6;
+constexpr int WO_X_BYTES = WO_BM * WO_BK * 2;          // 16 KB, 128B swizzle
+constexpr int WO_W_BYTES = WO_BJ * WO_BK;              // 4 KB, 64B swizzle
+constexpr int WO_STAGE_BYTES = WO_X_BYTES + WO_W_BYTES;
+constexpr int WO_THREADS = 3 * 128;  // 2 consumer warpgroups, 1 producer
+constexpr int WO_SMEM = WO_STAGES * WO_STAGE_BYTES + 2 * WO_STAGES * 8 + 1024;
 
-// bf16 pair of the signed nibbles in bits 0..3 and 8..11 of v (the codes of
-// contraction positions k and k + 1): low half = position k.
+// 2 bytes at (row p, byte b) of a packed tile of 64-byte rows written by TMA
+// with the 64-byte swizzle (16-byte chunk c of row p sits at c ^ (p / 2 % 4);
+// the tile is 1024-byte aligned); b is even and b % 16 < 15
+__device__ __forceinline__ uint32_t packed_u16(const uint8_t* tile, int p,
+                                               int b) {
+  const int off = p * 64 + ((((b >> 4) ^ (p >> 1)) & 3) << 4) + (b & 15);
+  return *reinterpret_cast<const uint16_t*>(tile + off);
+}
+
+// The bf16 pair of the signed nibbles (the high ones if HI) of the 2 packed
+// bytes in v (contraction positions k and k + 1; low half = k). The
+// nibble x of a code c is c + 8 after ^ 8, so 0x4300 | (x ^ 8) is
+// bf16(128 + c + 8), exact, and subtracting bf16(136) leaves c. One byte
+// permute, one mask-and-xor (a LOP3), and a bf16x2 subtract.
+template <bool HI>
 __device__ __forceinline__ uint32_t nibble_pair_bf16(uint32_t v) {
-  uint32_t u = (v & 0xFu) | ((v & 0xF00u) << 8);
-  u = (u ^ 0x00080008u) | 0x43004300u;         // bf16(128 + (v ^ 8))
+  uint32_t u = __byte_perm(v, 0u, 0x4140);    // bytes [b0, 0, b1, 0]
+  if (HI) u >>= 4;
+  u = (u & 0x000F000Fu) ^ 0x43084308u;
   const __nv_bfloat162 r = __hsub2(
       *reinterpret_cast<const __nv_bfloat162*>(&u),
       __halves2bfloat162(__ushort_as_bfloat16(0x4308),
@@ -76,132 +115,201 @@ __device__ __forceinline__ uint32_t nibble_pair_bf16(uint32_t v) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-int4_wo_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ kq4,
-               const float* __restrict__ scale, bf16* __restrict__ out,
-               int M, int N, int K, int group) {
-  __shared__ __align__(16) bf16 a_s[BM * AP];
-  __shared__ __align__(16) int8_t b_s[BNP * BP];
-
+// The consumer warpgroup HI (0: low nibbles, output columns j0 + p; 1: high
+// nibbles, columns N/2 + j0 + p): the main loop and the epilogue.
+template <bool HI>
+__device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full,
+                                        uint64_t* empty,
+                                        const float* __restrict__ scale,
+                                        bf16* __restrict__ out, int M, int N,
+                                        int K, int group, int m0, int j0) {
   const int nh = N / 2;
-  const int m0 = blockIdx.y * BM;
-  const int j0 = blockIdx.x * BNP;
-  const int warp = threadIdx.x / 32;
+  const int nkb = K / WO_BK;               // even: K % 128 == 0
+  const int kpg = group / WO_BK;           // stages a group, even
+  const int w = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int wm = (warp >> 2) * 64;   // the warp's rows within the tile
-  const int wj = (warp & 3) * 16;    // the warp's packed rows within the tile
+  const int p0 = 16 * w + g;               // the thread's packed rows p0, p0 + 8
+  const bool leader = threadIdx.x % 128 == 0;
 
-  float dacc[4][4][4];  // this group's partial products; n-tiles 2, 3 = high
-  float facc[4][4][4];  // sum over the finished groups
+  // the group's partial (written first by the group's first wgmma) and the
+  // folded sum
+  float d[64], acc[64];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  // the scales of rows p0 and p0 + 8, this group's and the next's
+  const int col = (HI ? nh : 0) + j0 + p0;
+  const bool ok0 = j0 + p0 < nh, ok1 = j0 + p0 + 8 < nh;
+  auto scales = [&](int gi, float (&sv)[2]) {
+    const float* sr = scale + static_cast<long long>(gi) * N + col;
+    sv[0] = ok0 && gi * kpg < nkb ? sr[0] : 0.f;
+    sv[1] = ok1 && gi * kpg < nkb ? sr[8] : 0.f;
+  };
+  float sc[2], sc_next[2];
+  scales(0, sc);
+  scales(1, sc_next);
+  auto fold = [&]() {
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        dacc[mt][nt][i] = 0.f;
-        facc[mt][nt][i] = 0.f;
-      }
+    for (int i = 0; i < 64; ++i) {
+      acc[i] = __fadd_rn(acc[i], __fmul_rn(d[i], sc[(i >> 1) & 1]));
     }
+  };
+  auto drain = [&]() {
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) hopper::fence_operand(d[i]);
+  };
+
+  // One stage: wait for it, convert its A fragments (rows p0 / p0 + 8,
+  // bytes 2t, 2t+1 and 2t+8, 2t+9 of each 16-deep step) into a while the
+  // previous stage's wgmmas run, then issue its 4 wgmmas.
+  auto load = [&](int kb, uint32_t (&a)[4][4]) -> const uint8_t* {
+    const int s = kb % WO_STAGES;
+    hopper::mbar_wait(&full[s], (kb / WO_STAGES) & 1);
+    const uint8_t* st = smem + s * WO_STAGE_BYTES;
+    const uint8_t* wt = st + WO_X_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      a[ks][0] = nibble_pair_bf16<HI>(packed_u16(wt, p0, 16 * ks + 2 * t));
+      a[ks][1] = nibble_pair_bf16<HI>(packed_u16(wt, p0 + 8, 16 * ks + 2 * t));
+      a[ks][2] = nibble_pair_bf16<HI>(packed_u16(wt, p0, 16 * ks + 2 * t + 8));
+      a[ks][3] =
+          nibble_pair_bf16<HI>(packed_u16(wt, p0 + 8, 16 * ks + 2 * t + 8));
+    }
+    return st;
+  };
+  auto issue = [&](const uint8_t* st, uint32_t (&a)[4][4], bool first) {
+    const uint64_t desc = hopper::desc_sw128(st);
+    hopper::wgmma_fence();
+    if (first) {
+      hopper::wgmma_m64n128k16_bf16_rs_zero(d, a[0], desc);
+    } else {
+      hopper::wgmma_m64n128k16_bf16_rs(d, a[0], desc);
+    }
+#pragma unroll
+    for (int ks = 1; ks < 4; ++ks) {
+      hopper::wgmma_m64n128k16_bf16_rs(d, a[ks], desc + 2 * ks);
+    }
+    hopper::wgmma_commit();
+  };
+  auto release = [&](int kb) {           // stage kb's buffer is read
+    if (leader) hopper::mbar_arrive(&empty[kb % WO_STAGES]);
+  };
+  // a stage after a group's first: the previous stage is released once
+  // only this one is in flight
+  auto next = [&](int kb, uint32_t (&a)[4][4]) {
+    const uint8_t* st = load(kb, a);
+    issue(st, a, false);
+    hopper::wgmma_wait<1>();
+    release(kb - 1);
+  };
+
+  // Each group: its first stage's wgmmas overwrite d (scale-d 0), the
+  // other stages, an odd number, alternate the two fragment buffers. From
+  // the second group on, the first stage drains the previous group and
+  // folds it with its scales before its wgmmas. Every accumulator access
+  // outside the wgmmas is on the straight path, and no ordinary
+  // instruction writes d, so ptxas keeps the wgmmas in flight.
+  uint32_t a0[4][4], a1[4][4];
+  auto group_rest = [&](int kb, const uint8_t* st) {
+    issue(st, a0, true);
+    next(kb + 1, a1);
+    for (int kp = 2; kp < kpg; kp += 2) {
+      next(kb + kp, a0);
+      next(kb + kp + 1, a1);
+    }
+  };
+  group_rest(0, load(0, a0));
+  const int ngroups = nkb / kpg;
+  for (int gi = 1; gi < ngroups; ++gi) {
+    const int kb = gi * kpg;
+    const uint8_t* st = load(kb, a0);
+    drain();
+    release(kb - 1);
+    fold();
+    sc[0] = sc_next[0];
+    sc[1] = sc_next[1];
+    scales(gi + 1, sc_next);
+    group_rest(kb, st);
   }
+  drain();
+  fold();
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // x tile: 128 rows x 8 chunks of 8 bf16, 4 chunks a thread
+  // out[m, n]: register 4q + 2h + e is packed row p0 + 8h, x row
+  // 8q + 2t + e. Threads g and g ^ 1 swap one value, so that each holds two
+  // adjacent columns of one row.
+  const bool odd = g & 1;
 #pragma unroll
-    for (int j = 0; j < BM * (BK / 8) / NTHREADS; ++j) {
-      const int i = threadIdx.x + j * NTHREADS;
-      const int row = i / (BK / 8);
-      const int ch = (i % (BK / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + row < M) {  // K % 128 == 0: whole tiles
-        v = *reinterpret_cast<const uint4*>(
-            x + static_cast<long long>(m0 + row) * K + k0 + ch);
-      }
-      *reinterpret_cast<uint4*>(a_s + row * AP + ch) = v;
-    }
-    // packed tile: 64 rows x 4 chunks of 16 bytes, one chunk a thread
-    {
-      const int row = threadIdx.x / (BK / 16);
-      const int ch = (threadIdx.x % (BK / 16)) * 16;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (j0 + row < nh) {
-        v = *reinterpret_cast<const uint4*>(
-            kq4 + static_cast<long long>(j0 + row) * K + k0 + ch);
-      }
-      *reinterpret_cast<uint4*>(b_s + row * BP + ch) = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* p = a_s + (wm + mt * 16 + g) * AP + ks + 2 * t;
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(p);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * AP);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * AP + 8);
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        // B[k][n] = W[j0 + wj + np*8 + g][ks + k]: bytes 2t, 2t+1 and
-        // 2t+8, 2t+9 of the packed row
-        const int8_t* p = b_s + (wj + np * 8 + g) * BP + ks + 2 * t;
-        const uint32_t v0 = *reinterpret_cast<const uint16_t*>(p);
-        const uint32_t v1 = *reinterpret_cast<const uint16_t*>(p + 8);
-        const uint32_t lo0 = nibble_pair_bf16(v0);
-        const uint32_t lo1 = nibble_pair_bf16(v1);
-        const uint32_t hi0 = nibble_pair_bf16(v0 >> 4);
-        const uint32_t hi1 = nibble_pair_bf16(v1 >> 4);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          mma_16816(dacc[mt][np], af[mt], lo0, lo1);
-          mma_16816(dacc[mt][np + 2], af[mt], hi0, hi1);
-        }
-      }
-    }
-    __syncthreads();  // the next tile overwrites a_s / b_s
-
-    if ((k0 + BK) % group == 0) {
-      const long long srow = static_cast<long long>(k0 / group) * N;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int jc = j0 + wj + (nt & 1) * 8 + 2 * t;
-        const int col = (nt >= 2 ? nh : 0) + jc;
-        const float s0 = jc < nh ? scale[srow + col] : 0.f;
-        const float s1 = jc < nh ? scale[srow + col + 1] : 0.f;
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            facc[mt][nt][i] = __fadd_rn(
-                facc[mt][nt][i], __fmul_rn(dacc[mt][nt][i], i & 1 ? s1 : s0));
-            dacc[mt][nt][i] = 0.f;
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+  for (int q = 0; q < 16; ++q) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm + mt * 16 + g + 8 * h;
-      if (row >= M) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int jc = j0 + wj + (nt & 1) * 8 + 2 * t;
-        if (jc >= nh) continue;  // N/2 % 8 == 0: jc + 1 is in as well
-        const int col = (nt >= 2 ? nh : 0) + jc;
+      const int row = m0 + 8 * q + 2 * t + (odd ? 1 : 0);
+      const int j = j0 + p0 - (odd ? 1 : 0) + 8 * h;   // even
+      const float v0 = acc[4 * q + 2 * h], v1 = acc[4 * q + 2 * h + 1];
+      const float recv = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
+      if (row < M && j < nh) {
+        const float lo = odd ? recv : v0, hi = odd ? v1 : recv;
         *reinterpret_cast<uint32_t*>(out + static_cast<long long>(row) * N +
-                                     col) =
-            flash::pack_f32(facc[mt][nt][2 * h], facc[mt][nt][2 * h + 1]);
+                                     (HI ? nh : 0) + j) =
+            flash::pack_f32(lo, hi);
       }
     }
+  }
+}
+
+// Grid: (M / 128 x-row tiles, N/2 / 64 packed tiles); 384 threads: warps
+// 0-3 the low-nibble consumer warpgroup, 4-7 the high-nibble one (232
+// registers each), 8-11 the producer warpgroup (40), of which one lane
+// issues the loads.
+__global__ void __launch_bounds__(WO_THREADS, 1)
+int4_wo_kernel(const __grid_constant__ CUtensorMap x_map,
+               const __grid_constant__ CUtensorMap w_map,
+               const float* __restrict__ scale, bf16* __restrict__ out, int M,
+               int N, int K, int group) {
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte alignment for the swizzled tiles
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) &
+                              1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + WO_STAGES * WO_STAGE_BYTES);
+  uint64_t* empty = full + WO_STAGES;
+
+  const int m0 = blockIdx.x * WO_BM;
+  const int j0 = blockIdx.y * WO_BJ;
+  const int nkb = K / WO_BK;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WO_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);     // one arrive a consumer warpgroup
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // producer: one lane keeps the ring full
+    hopper::regs_dealloc<40>();
+    if (threadIdx.x == 256) {
+      for (int kb = 0; kb < nkb; ++kb) {
+        const int s = kb % WO_STAGES;
+        const int round = kb / WO_STAGES;
+        if (round > 0) hopper::mbar_wait(&empty[s], (round - 1) & 1);
+        uint8_t* st = smem + s * WO_STAGE_BYTES;
+        hopper::mbar_arrive_expect_tx(&full[s], WO_STAGE_BYTES);
+        hopper::tma_load_2d(st, &x_map, &full[s], kb * WO_BK, m0);
+        hopper::tma_load_2d(st + WO_X_BYTES, &w_map, &full[s], kb * WO_BK,
+                            j0);
+      }
+    }
+  } else if (warp >= 4) {
+    hopper::regs_alloc<232>();
+    consume<true>(smem, full, empty, scale, out, M, N, K, group, m0, j0);
+  } else {
+    hopper::regs_alloc<232>();
+    consume<false>(smem, full, empty, scale, out, M, N, K, group, m0, j0);
   }
 }
 
@@ -225,16 +333,33 @@ extern "C" int int4_fwd(const void* x, const void* kq4, const void* scale_g,
                         int group, int act_quant, void* stream) {
   const int nh = N / 2;
   if (M <= 0 || N <= 0 || K <= 0 || N % 16 != 0 || group <= 0 ||
-      group % 128 != 0 || K % group != 0 || (M + BM - 1) / BM > 65535) {
+      group % 128 != 0 || K % group != 0 ||
+      (M + quant::BM - 1) / quant::BM > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!act_quant) {
-    const dim3 grid((nh + BNP - 1) / BNP, (M + BM - 1) / BM);
-    int4_wo_kernel<<<grid, NTHREADS, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const int8_t*>(kq4),
-        static_cast<const float*>(scale_g), static_cast<bf16*>(out), M, N, K,
-        group);
+    CUtensorMap x_map, w_map;
+    cudaError_t err = hopper::make_map_2d(
+        &x_map, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, WO_BM, WO_BK,
+        CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == cudaSuccess) {
+      err = hopper::make_map_2d(&w_map, kq4, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                                nh, K, WO_BJ, WO_BK,
+                                CU_TENSOR_MAP_SWIZZLE_64B);
+    }
+    static bool attr_set = false;
+    if (err == cudaSuccess && !attr_set) {
+      err = cudaFuncSetAttribute(int4_wo_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 WO_SMEM);
+      attr_set = err == cudaSuccess;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((M + WO_BM - 1) / WO_BM, (nh + WO_BJ - 1) / WO_BJ);
+    int4_wo_kernel<<<grid, WO_THREADS, WO_SMEM, st>>>(
+        x_map, w_map, static_cast<const float*>(scale_g),
+        static_cast<bf16*>(out), M, N, K, group);
     return static_cast<int>(cudaGetLastError());
   }
   cudaError_t err = quant::launch_quantize<true>(x, xq, xs, M, K, group, st);

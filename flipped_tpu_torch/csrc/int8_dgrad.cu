@@ -16,54 +16,126 @@
 // The clamp is the saturating float -> int8 conversion of JAX: f32(1/127)
 // lies below 1/127, so the row's absmax entry can divide to 127.00001 and
 // round up to 128, which a plain conversion would wrap to -128.
-// Two launches: the quantize pass (one block per row: the row amax, then the
-// codes and gsc written to scratch the wrapper allocates) and the shared int8
-// GEMM tile (quant_common.cuh) with B = kq read as (N, K), contraction over
-// its rows: int8 mma.sync needs both operands contiguous in the contraction,
-// sm_90 has no 8-bit ldmatrix.trans, and a transposed copy of the weight
-// would double the frozen backbone's memory; so the tile fill transposes 4 x
-// 4 byte blocks of kq in registers on their way to shared memory. Every
-// float step is an explicit __fmul_rn / __fdiv_rn / __fsub_rn, so the kernel
-// computes the plain version's IEEE operations bit for bit.
+// Two launches:
+//   - the quantize pass, one block of 256 threads per row: 16-byte loads of
+//     g and of scale, the row's scaled values kept in registers between the
+//     amax and the codes (rows up to 256 x 8 x QV = 12288 wide; a longer
+//     row reads g a second time), 8 codes stored at once;
+//   - the GEMM, dx = gq . kq over N, on wgmma (wgmma_int8.cuh): TMA-fed,
+//     the operands swapped so that the MN-major kq is transposed 4 x 4
+//     bytes at a time on its way from shared memory into wgmma's register
+//     A operand, gq read by wgmma from shared memory as TMA wrote it.
+// Every float step is an explicit __fmul_rn / __fdiv_rn / __fsub_rn, so the
+// kernel computes the plain version's IEEE operations bit for bit; the
+// int32 sums are exact in any order.
 //
 // What bounds it on an H100: at the 7B training shapes a call is 103-277
 // G multiply-adds of int8 (52-140 us at the 1979 TOP/s peak); the quantize
-// pass reads g twice (the second time mostly from L2) and writes the codes,
-// M * N * 3 bytes or about 0.1 ms at 3.35 TB/s for M 3072, N 11008.
-// Not yet done (later work): cp.async/TMA pipelining, wgmma, fusing the
-// quantize pass into the GEMM's A loads (it needs the whole row's amax
-// first, as the TPU kernel's full-N row blocks do).
+// pass reads g once and writes the codes, M * N * 3 bytes or about 0.03 ms
+// at 3.35 TB/s for M 3072, N 11008.
+// Not yet done (later work): fusing the quantize pass into the GEMM (its
+// A loads need the whole row's amax first, as the TPU kernel's full-N row
+// blocks do), a persistent grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "quant_common.cuh"
+#include "wgmma_int8.cuh"
 
 namespace {
 
 using quant::bf16;
 
 constexpr int QTHREADS = 256;
+constexpr int QV = 6;             // 8-wide vectors a thread keeps on chip
 
-__device__ __forceinline__ float scaled(const bf16* gr, const float* scale,
-                                        int n) {
-  return __fmul_rn(__bfloat162float(gr[n]), scale[n]);
+// 8 consecutive scales from n (n % 8 == 0): two 16-byte loads where the
+// tensor is 16-byte aligned
+__device__ __forceinline__ void load_scale8(const float* scale, int n,
+                                            bool vec, float s[8]) {
+  if (vec) {
+    const float4 a = *reinterpret_cast<const float4*>(scale + n);
+    const float4 b = *reinterpret_cast<const float4*>(scale + n + 4);
+    s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
+    s[4] = b.x; s[5] = b.y; s[6] = b.z; s[7] = b.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s[e] = scale[n + e];
+  }
+}
+
+// gs = float(g) * scale for the 8 elements of vector v of the row
+__device__ __forceinline__ void scaled8(const bf16* gr, const float* scale,
+                                        int v, bool svec, float gs[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(gr + 8 * v);
+  const __nv_bfloat162* e2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+  float s[8];
+  load_scale8(scale, 8 * v, svec, s);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(e2[j]);
+    gs[2 * j] = __fmul_rn(f.x, s[2 * j]);
+    gs[2 * j + 1] = __fmul_rn(f.y, s[2 * j + 1]);
+  }
+}
+
+// the stochastically rounded, saturated code of x = gs / sc at column n
+__device__ __forceinline__ uint32_t sr_code(float gs, float sc, int n,
+                                            uint32_t row_u) {
+  const float x = __fdiv_rn(gs, sc);
+  uint32_t h = __float_as_uint(x);
+  h ^= static_cast<uint32_t>(n) * 0x9E3779B9u;
+  h ^= row_u;
+  h = (h ^ (h >> 16)) * 0x7FEB352Du;
+  h = (h ^ (h >> 15)) * 0x846CA68Bu;
+  h ^= h >> 16;
+  const float u = __fmul_rn(__uint2float_rn(h), 0x1p-32f);
+  const float fl = floorf(x);
+  const float q = fl + (__fsub_rn(x, fl) > u ? 1.f : 0.f);
+  return static_cast<uint32_t>(static_cast<int>(fminf(fmaxf(q, -128.f),
+                                                      127.f))) & 0xffu;
+}
+
+__device__ __forceinline__ void store_codes8(int8_t* qr, int v,
+                                             const float gs[8], float sc,
+                                             uint32_t row_u) {
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    w[e >> 2] |= sr_code(gs[e], sc, 8 * v + e, row_u) << (8 * (e & 3));
+  }
+  *reinterpret_cast<uint2*>(qr + 8 * v) = make_uint2(w[0], w[1]);
 }
 
 __global__ void __launch_bounds__(QTHREADS)
 int8_dgrad_quantize_kernel(const bf16* __restrict__ g,
                            const float* __restrict__ scale,
                            int8_t* __restrict__ gq, float* __restrict__ gsc,
-                           int N, int s_mod) {
+                           int N, int s_mod, bool svec) {
   __shared__ float red[QTHREADS / 32];
   const int row = blockIdx.x;
   const bf16* gr = g + static_cast<long long>(row) * N;
   int8_t* qr = gq + static_cast<long long>(row) * N;
+  const int nvec = N / 8;
 
+  float keep[QV][8];
   float amax = 0.f;
-  for (int n = threadIdx.x; n < N; n += QTHREADS) {
-    amax = fmaxf(amax, fabsf(scaled(gr, scale, n)));
+#pragma unroll
+  for (int j = 0; j < QV; ++j) {
+    const int v = threadIdx.x + j * QTHREADS;
+    if (v < nvec) {
+      scaled8(gr, scale, v, svec, keep[j]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(keep[j][e]));
+    }
+  }
+  for (int v = threadIdx.x + QV * QTHREADS; v < nvec; v += QTHREADS) {
+    float gs[8];
+    scaled8(gr, scale, v, svec, gs);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(gs[e]));
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -78,30 +150,16 @@ int8_dgrad_quantize_kernel(const bf16* __restrict__ g,
   if (threadIdx.x == 0) gsc[row] = sc;
 
   const uint32_t row_u = static_cast<uint32_t>(row % s_mod) * 0x85EBCA6Bu;
-  for (int n = threadIdx.x; n < N; n += QTHREADS) {
-    const float x = __fdiv_rn(scaled(gr, scale, n), sc);
-    uint32_t h = __float_as_uint(x);
-    h ^= static_cast<uint32_t>(n) * 0x9E3779B9u;
-    h ^= row_u;
-    h = (h ^ (h >> 16)) * 0x7FEB352Du;
-    h = (h ^ (h >> 15)) * 0x846CA68Bu;
-    h ^= h >> 16;
-    const float u = __fmul_rn(__uint2float_rn(h), 0x1p-32f);
-    const float fl = floorf(x);
-    const float q = fl + (__fsub_rn(x, fl) > u ? 1.f : 0.f);
-    qr[n] = static_cast<int8_t>(fminf(fmaxf(q, -128.f), 127.f));
+#pragma unroll
+  for (int j = 0; j < QV; ++j) {
+    const int v = threadIdx.x + j * QTHREADS;
+    if (v < nvec) store_codes8(qr, v, keep[j], sc, row_u);
   }
-}
-
-__global__ void __launch_bounds__(quant::GEMM_THREADS)
-int8_dgrad_gemm_kernel(const int8_t* __restrict__ gq,
-                       const int8_t* __restrict__ kq,
-                       const float* __restrict__ gsc, bf16* __restrict__ out,
-                       int M, int K, int N) {
-  // out (M, K) = gq (M, N) . kq (N, K): the tile's columns are K, its
-  // contraction N
-  quant::gemm_tile<quant::B_KN, quant::EPI_ROW>(gq, kq, gsc, nullptr, out, M,
-                                                K, N, quant::BK);
+  for (int v = threadIdx.x + QV * QTHREADS; v < nvec; v += QTHREADS) {
+    float gs[8];
+    scaled8(gr, scale, v, svec, gs);
+    store_codes8(qr, v, gs, sc, row_u);
+  }
 }
 
 }  // namespace
@@ -115,15 +173,14 @@ extern "C" int int8_dgrad(const void* g, const void* kq, const void* scale,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool svec = reinterpret_cast<uintptr_t>(scale) % 16 == 0;
   int8_dgrad_quantize_kernel<<<M, QTHREADS, 0, st>>>(
       static_cast<const bf16*>(g), static_cast<const float*>(scale),
-      static_cast<int8_t*>(gq), static_cast<float*>(gsc), N, s_mod);
+      static_cast<int8_t*>(gq), static_cast<float*>(gsc), N, s_mod, svec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((K + quant::BN - 1) / quant::BN,
-                  (M + quant::BM - 1) / quant::BM);
-  int8_dgrad_gemm_kernel<<<grid, quant::GEMM_THREADS, 0, st>>>(
-      static_cast<const int8_t*>(gq), static_cast<const int8_t*>(kq),
-      static_cast<const float*>(gsc), static_cast<bf16*>(out), M, K, N);
-  return static_cast<int>(cudaGetLastError());
+  // dx (M, K) = gq (M, N) . kq (N, K), contraction over N
+  return static_cast<int>(wgmma_int8::launch_kn_gemm_row(
+      gq, kq, static_cast<const float*>(gsc), static_cast<bf16*>(out), M, K,
+      N, st));
 }

@@ -37,7 +37,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import ModelConfig
-from .attention import chunk_extend_attention
+from .attention import adapter_gated_attention, chunk_extend_attention
 from .int4 import int4_matmul, int4_matmul_grouped
 from .int8 import (int8_matmul, int8_matmul_dgrad, int8_matmul_grouped,
                    outlier_count)
@@ -160,13 +160,16 @@ class RMSNorm(nn.Module):
 
 class Attention(nn.Module):
     """Adapter-gated attention (JAX: llama.py:180-326). The dense forward and
-    `prefill` send segment B through K1 (and its backward through K2);
-    `extend` runs the plain chunk attention."""
+    `prefill` send segment B through K1 (and its backward through K2), or,
+    with use_flash False (--no_flash), through the einsum
+    `adapter_gated_attention` (JAX: llama.py:262-263); `extend` runs the
+    plain chunk attention."""
 
     def __init__(self, cfg: ModelConfig, dtype, frozen_dtype, trainable_dtype,
-                 device=None, quant=None):
+                 device=None, quant=None, use_flash: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.use_flash = use_flash
         mk = lambda: Linear(cfg.dim, cfg.dim, dtype, frozen_dtype, device,
                             **(quant or {}))
         self.wq, self.wk, self.wv, self.wo = mk(), mk(), mk(), mk()
@@ -191,8 +194,10 @@ class Attention(nn.Module):
     def _attend(self, x, rope_cos, rope_sin, adapter, video_start):
         q, k, v = self._qkv(x, rope_cos, rope_sin)
         ak, av = self._adapter_kv(adapter)
-        out = flash_adapter_attention(q, k, v, ak, av, self.gate1, self.gate2,
-                                      video_start, self.cfg.max_feats)
+        attend = (flash_adapter_attention if self.use_flash
+                  else adapter_gated_attention)
+        out = attend(q, k, v, ak, av, self.gate1, self.gate2, video_start,
+                     self.cfg.max_feats)
         return self.wo(out), k, v
 
     def forward(self, x, rope_cos, rope_sin, adapter, video_start):
@@ -243,10 +248,10 @@ class TransformerBlock(nn.Module):
     """Pre-norm residual block (JAX: llama.py:362-423)."""
 
     def __init__(self, cfg: ModelConfig, dtype, frozen_dtype, trainable_dtype,
-                 device=None, quant=None):
+                 device=None, quant=None, use_flash: bool = True):
         super().__init__()
         self.attention = Attention(cfg, dtype, frozen_dtype, trainable_dtype,
-                                   device, quant)
+                                   device, quant, use_flash)
         self.feed_forward = FeedForward(cfg, dtype, frozen_dtype, device,
                                         quant)
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, frozen_dtype,
@@ -281,7 +286,8 @@ class FlippedVQAModel(nn.Module):
                  quantized: bool = False,
                  act_quant: bool = False, quant_group: int = 0,
                  quant_outliers: bool = False, weight_bits: int = 8,
-                 rotated: bool = False, dgrad_quant: bool = False):
+                 rotated: bool = False, dgrad_quant: bool = False,
+                 use_flash: bool = True):
         super().__init__()
         if cfg.audio_merge is not None:
             raise NotImplementedError(
@@ -299,7 +305,8 @@ class FlippedVQAModel(nn.Module):
         first = cfg.n_layers - cfg.adapter_layer
         self.layers = nn.ModuleDict({
             str(i): TransformerBlock(cfg, dtype, frozen_dtype,
-                                     trainable_dtype, device, quant)
+                                     trainable_dtype, device, quant,
+                                     use_flash)
             for i in range(first, cfg.n_layers)})
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps, frozen_dtype, device)
         # the LM head is int8 weight-only in every mode: its logits feed the

@@ -64,7 +64,8 @@ def build_model(run_cfg: RunConfig, device, dtype=torch.bfloat16):
     cfg = resolve_model_config(run_cfg)
     model = FlippedVQAModel(cfg, dtype=dtype, frozen_dtype=dtype,
                             trainable_dtype=torch.float32,
-                            device=torch.device(device), **quant)
+                            device=torch.device(device),
+                            use_flash=run_cfg.train.flash_attention, **quant)
     trainable_parameters(model)
     return model, cfg
 

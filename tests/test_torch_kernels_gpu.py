@@ -486,3 +486,76 @@ def test_int4_and_dgrad_autograd_functions_on_card(cuda):
     assert torch.equal(xa.grad, dx9) and torch.equal(xb.grad, dx9)
     assert torch.equal(xc.grad, qm.int8_dgrad_ref(dy.view(2, 20, 256), kq,
                                                   scale, 20).view(40, 256))
+
+
+# --- edge tiles of the wgmma kernels (K8 weight-only, K10) --------------------
+# K8 weight-only tiles 64 x rows by 128 packed rows (64 a warpgroup) over
+# 64-deep stages, K10's GEMM 256 rows by 128 output columns over 128-deep
+# stages: these shapes end every tile part-way (ragged M; N/2 of 56, 72 and
+# 200, below, across and past a warpgroup's 64 packed rows, the nearest to
+# 60 and 68 that K8's N % 16 == 0 admits; ragged K and contraction for K10)
+# and run one group, several stages a group, and 86 groups.
+EDGE_M = (1, 65, 320, 1000)
+
+
+@pytest.mark.parametrize("m", EDGE_M)
+@pytest.mark.parametrize("n,k,group", [(112, 128, 128), (144, 128, 128),
+                                       (400, 512, 256), (112, 11008, 128),
+                                       (144, 11008, 128)])
+def test_int4_weight_only_edge_tiles(cuda, m, n, k, group):
+    x, codes, kq4, sg, _ = _int4_inputs(cuda, m, k, n, 12)
+    if m == 1:                        # _int4_inputs zeroes row m // 2
+        x = torch.randn(1, k, device=cuda).to(torch.bfloat16)
+    groups = k // group
+    sg = sg[:groups].contiguous()
+    before = qm.int4_matmul.launches
+    out = qm.int4_matmul(x, kq4, sg, False)
+    torch.cuda.synchronize()
+    assert qm.int4_matmul.launches == before + 1
+    ref = qm.int4_matmul_ref(x, kq4, sg, False)
+    w = (codes.double().view(n, groups, group) * sg.t().double()[:, :, None]
+         ).view(n, k)
+    bound = _mma_bound(ref, x, w, k + 2 * groups)
+    assert bool(torch.isfinite(out.float()).all())
+    assert bool(((out.double() - ref.double()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("m", EDGE_M)
+@pytest.mark.parametrize("n,k", [(128, 144), (11008, 144), (272, 11008)])
+def test_int8_dgrad_edge_tiles_bitwise(cuda, m, n, k):
+    """K10 on a 2-D cotangent (s_mod = M) and on the same rows as 3-D with
+    s_mod != M: bit for bit equal to its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    dy = torch.randn(m, n, device=cuda, generator=gen)
+    dy[:, 5] *= 30.0
+    dy = dy.to(torch.bfloat16)
+    kq = torch.randint(-127, 128, (n, k), device=cuda, generator=gen,
+                       dtype=torch.int8)
+    scale = (torch.rand(n, device=cuda, generator=gen) + 0.5) \
+        / (127.0 * k ** 0.5)
+    shape3 = (2, m // 2, n) if m % 2 == 0 else (m, 1, n)
+    for g in (dy, dy.view(shape3)):
+        s_mod = g.shape[-2]
+        before = qm.int8_dgrad.launches
+        dx = qm.int8_dgrad(g, kq, scale, s_mod)
+        torch.cuda.synchronize()
+        assert qm.int8_dgrad.launches == before + 1
+        assert dx.shape == (*g.shape[:-1], k)
+        assert torch.equal(_bits(dx),
+                           _bits(qm.int8_dgrad_ref(g, kq, scale, s_mod)))
+
+
+def test_int8_dgrad_scale_not_16_byte_aligned(cuda):
+    """The quantize pass loads scale 16 bytes at a time where it is 16-byte
+    aligned and element by element where it is not: both bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    m, n, k = 65, 272, 144
+    dy = torch.randn(m, n, device=cuda, generator=gen).to(torch.bfloat16)
+    kq = torch.randint(-127, 128, (n, k), device=cuda, generator=gen,
+                       dtype=torch.int8)
+    base = (torch.rand(n + 1, device=cuda, generator=gen) + 0.5) / 2000.0
+    scale = base[1:]                  # contiguous, 4 bytes past alignment
+    assert scale.data_ptr() % 16 != 0
+    dx = qm.int8_dgrad(dy, kq, scale, m)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(dx), _bits(qm.int8_dgrad_ref(dy, kq, scale, m)))
