@@ -256,11 +256,15 @@ TRAIN_M = 3 * TRAIN_B * TRAIN_S
 QUANT_UNIT = [(10, 256, 136), (37, 384, 256), (37, 272, 120),
               (130, 1024, 1040)]
 # edges of the TMA + wgmma tiles of K8 weight-only (128 x rows by 64 packed
-# rows, 64-deep stages) and K10's GEMM (256 rows by 128 output columns,
-# 128-deep stages): 3 rows (quant_inputs zeroes the middle one), N/2 of 200
-# and 56, a contraction of one group and of 86, a K10 contraction that ends
-# part-way through a stage
-QUANT_EDGE = [(3, 11008, 400), (65, 128, 112), (1000, 512, 144)]
+# rows, 64-deep stages), K10's GEMM (256 rows by 128 output columns,
+# 128-deep stages) and K4 / K9 (256 g rows by 128 dx columns, 64-deep
+# stages; K9's of 64 packed rows): 3 rows (quant_inputs zeroes the middle
+# one), M past a 256-row tile (257, 300, 1000), N/2 of 200, 56, 72 and 520,
+# a contraction of one group and of 86, K4 contractions N (400, 112, 144,
+# 1040) and a K10 contraction that end part-way through a stage, and K4 /
+# K9 dx widths K of exactly one group (128)
+QUANT_EDGE = [(3, 11008, 400), (65, 128, 112), (1000, 512, 144),
+              (257, 256, 1040), (300, 128, 400)]
 QUANT_MAIN = {"wq/wk/wv/wo": (TRAIN_M, 4096, 4096),
               "w1/w3": (TRAIN_M, 4096, 11008),
               "w2": (TRAIN_M, 11008, 4096),

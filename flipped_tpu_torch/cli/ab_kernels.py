@@ -13,7 +13,9 @@ checkout's `chip_smoke.py` (`k1_inputs`, `k2_inputs`, `quant_inputs`,
 ("k10 quantize", "k10 gemm": device time by kernel name under
 torch.profiler, the names with "quantize" the first). Prints the card's name
 and power limit, then one JSON line per turn: device ms by shape and
-kernel. Unpack
+kernel, and under "clocks" the SM clock and power draw that nvidia-smi
+reads right before and right after each kernel's timing, so that a clock
+drop shows in the record instead of reading as a kernel change. Unpack
 the other commit with `git archive` into a directory `.gitignore` lists;
 comparing two commits inside one call keeps the card, its power limit and
 the toolchain the same.
@@ -52,6 +54,13 @@ def k10_split(torch, qm, g, kq, scale, s_mod, n=20) -> dict:
     return {k: v * 1e-3 / n for k, v in parts.items()}
 
 
+def smi_clocks() -> str:
+    """The card's SM clock and power draw now, as nvidia-smi reads them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
 def time_checkout(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
@@ -64,36 +73,43 @@ def time_checkout(root: str) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("ab_kernels times the card: no CUDA device")
     build.build()
+    clocks = {}
+
+    def timed(key, fn):
+        before = smi_clocks()
+        ms = cs.device_ms(torch, fn)
+        clocks[key] = [before, smi_clocks()]
+        return ms
+
     out = {"root": root}
     vs = cs.TRAIN_VS * 2
     for name, (b, s, h, dh) in cs.K1_SHAPES.items():
         q, k, v, g2, video_start = cs.k1_inputs(torch, b, s, h, dh, vs[:b],
                                                 100)
-        out[f"k1 {name}"] = cs.device_ms(
-            torch, lambda: fa.flash_text_attention(q, k, v, g2, video_start,
-                                                   cs.MAX_FEATS))
+        out[f"k1 {name}"] = timed(
+            f"k1 {name}", lambda: fa.flash_text_attention(
+                q, k, v, g2, video_start, cs.MAX_FEATS))
     q, k, v, g2, video_start, do = cs.k2_inputs(torch, *cs.TRAIN_SHAPE,
                                                 cs.TRAIN_VS, 200)
     o, lse = fa.flash_text_attention(q, k, v, g2, video_start, cs.MAX_FEATS)
-    out["k2 train"] = cs.device_ms(
-        torch, lambda: fa.flash_text_attention_bwd(
-            q, k, v, g2, video_start, cs.MAX_FEATS, do, o, lse))
+    out["k2 train"] = timed("k2 train", lambda: fa.flash_text_attention_bwd(
+        q, k, v, g2, video_start, cs.MAX_FEATS, do, o, lse))
     for name in SHAPES:
         m, k, n = cs.QUANT_MAIN[name]
         x, kq, scale, sg, g = cs.quant_inputs(torch, m, k, n, 400)
         x4, kq4, sg4, g4 = cs.int4_inputs(torch, m, k, n, 410)
-        out[name] = {
-            "k3": cs.device_ms(torch, lambda: qm.int8_fwd(x, kq, scale)),
-            "k7": cs.device_ms(torch, lambda: qm.grouped_matmul(x, kq, sg)),
-            "k4": cs.device_ms(torch, lambda: qm.quant_dx(g, kq, sg)),
-            "k8a": cs.device_ms(torch, lambda: qm.int4_matmul(x4, kq4, sg4,
-                                                              True)),
-            "k8w": cs.device_ms(torch, lambda: qm.int4_matmul(x4, kq4, sg4,
-                                                              False)),
-            "k9": cs.device_ms(torch, lambda: qm.int4_dx(g4, kq4, sg4)),
-            "k10": cs.device_ms(torch, lambda: qm.int8_dgrad(
-                g, kq, scale, cs.TRAIN_S)),
-            **k10_split(torch, qm, g, kq, scale, cs.TRAIN_S)}
+        calls = {
+            "k3": lambda: qm.int8_fwd(x, kq, scale),
+            "k7": lambda: qm.grouped_matmul(x, kq, sg),
+            "k4": lambda: qm.quant_dx(g, kq, sg),
+            "k8a": lambda: qm.int4_matmul(x4, kq4, sg4, True),
+            "k8w": lambda: qm.int4_matmul(x4, kq4, sg4, False),
+            "k9": lambda: qm.int4_dx(g4, kq4, sg4),
+            "k10": lambda: qm.int8_dgrad(g, kq, scale, cs.TRAIN_S)}
+        out[name] = {kern: timed(f"{name} {kern}", fn)
+                     for kern, fn in calls.items()}
+        out[name].update(k10_split(torch, qm, g, kq, scale, cs.TRAIN_S))
+    out["clocks"] = clocks
     return out
 
 

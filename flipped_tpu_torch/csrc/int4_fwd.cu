@@ -37,10 +37,11 @@
 // branch is a warp-specialised TMA + wgmma kernel:
 //   - operands swapped: each block computes the transposed tile out^T =
 //     W . x^T, so the packed weight is wgmma's A operand, converted from
-//     nibbles to bf16 in registers (a byte permute, a LOP3 and a bf16x2
-//     subtract per pair, exact), and x, whose rows are K-contiguous, is B
-//     straight from shared memory. The weight crosses HBM and shared memory
-//     packed, half a byte an element; the bf16 weight never exists.
+//     nibbles to bf16 in registers (hopper_common.cuh's nibble_pair_bf16:
+//     a byte permute, a LOP3 and a bf16x2 subtract per pair, exact), and
+//     x, whose rows are K-contiguous, is B straight from shared memory.
+//     The weight crosses HBM and shared memory packed, half a byte an
+//     element; the bf16 weight never exists.
 //   - tile: 64 packed rows x 128 x rows, over 64-deep contraction stages.
 //     One consumer warpgroup takes the low nibbles (output columns j), the
 //     other the high ones (columns N/2 + j) of the same packed rows, each
@@ -96,23 +97,6 @@ __device__ __forceinline__ uint32_t packed_u16(const uint8_t* tile, int p,
                                                int b) {
   const int off = p * 64 + ((((b >> 4) ^ (p >> 1)) & 3) << 4) + (b & 15);
   return *reinterpret_cast<const uint16_t*>(tile + off);
-}
-
-// The bf16 pair of the signed nibbles (the high ones if HI) of the 2 packed
-// bytes in v (contraction positions k and k + 1; low half = k). The
-// nibble x of a code c is c + 8 after ^ 8, so 0x4300 | (x ^ 8) is
-// bf16(128 + c + 8), exact, and subtracting bf16(136) leaves c. One byte
-// permute, one mask-and-xor (a LOP3), and a bf16x2 subtract.
-template <bool HI>
-__device__ __forceinline__ uint32_t nibble_pair_bf16(uint32_t v) {
-  uint32_t u = __byte_perm(v, 0u, 0x4140);    // bytes [b0, 0, b1, 0]
-  if (HI) u >>= 4;
-  u = (u & 0x000F000Fu) ^ 0x43084308u;
-  const __nv_bfloat162 r = __hsub2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u),
-      __halves2bfloat162(__ushort_as_bfloat16(0x4308),
-                         __ushort_as_bfloat16(0x4308)));   // - 136
-  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // The consumer warpgroup HI (0: low nibbles, output columns j0 + p; 1: high
@@ -171,11 +155,11 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full,
     const uint8_t* wt = st + WO_X_BYTES;
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
-      a[ks][0] = nibble_pair_bf16<HI>(packed_u16(wt, p0, 16 * ks + 2 * t));
-      a[ks][1] = nibble_pair_bf16<HI>(packed_u16(wt, p0 + 8, 16 * ks + 2 * t));
-      a[ks][2] = nibble_pair_bf16<HI>(packed_u16(wt, p0, 16 * ks + 2 * t + 8));
-      a[ks][3] =
-          nibble_pair_bf16<HI>(packed_u16(wt, p0 + 8, 16 * ks + 2 * t + 8));
+      const int b = 16 * ks + 2 * t;
+      a[ks][0] = hopper::nibble_pair_bf16<HI>(packed_u16(wt, p0, b));
+      a[ks][1] = hopper::nibble_pair_bf16<HI>(packed_u16(wt, p0 + 8, b));
+      a[ks][2] = hopper::nibble_pair_bf16<HI>(packed_u16(wt, p0, b + 8));
+      a[ks][3] = hopper::nibble_pair_bf16<HI>(packed_u16(wt, p0 + 8, b + 8));
     }
     return st;
   };

@@ -110,11 +110,6 @@ cudaError_t launch_quantize(const void* x, void* xq, void* xs, int M, int K,
 // rows past M or N and bytes past Kc are zero in shared memory. B is one of
 //   B_NK      (N, Kc), Kc-contiguous: kq of K3 and K7, each fragment
 //             register one aligned 32-bit load;
-//   B_KN      (Kc, N), N-contiguous: kq (N_model, K_model) of K10, whose
-//             contraction runs over its rows. int8 mma.sync wants B
-//             contiguous in the contraction and sm_90 has no 8-bit
-//             ldmatrix.trans, so the fill transposes 4 x 4 byte blocks in
-//             registers (__byte_perm) on the way to shared memory;
 //   B_PACKED4 (N/2, Kc) packed int4 (K8): byte [j, k] holds column j in its
 //             low nibble and column j + N/2 in its high nibble. A block
 //             covers 64 packed rows, i.e. output columns [j0, j0 + 64) and
@@ -129,7 +124,6 @@ cudaError_t launch_quantize(const void* x, void* xq, void* xs, int M, int K,
 //     scale[g, n], then d_g = 0; out = bf16(acc). |d_g| <= 127 * 127 * Kc
 //     < 2^24 up to Kc = 1040, and with int4 weights (|w| <= 8) up to
 //     Kc = 16513, so float(d_g) is exact on every shape the model has.
-//   EPI_ROW (K10): out = bf16(float(d) * xs[m]).
 // ---------------------------------------------------------------------------
 constexpr int BM = 128;
 constexpr int BN = 128;
@@ -137,8 +131,8 @@ constexpr int BK = 128;
 constexpr int PITCH = BK + 16;  // 144-byte rows: fragment loads hit 32 banks
 constexpr int GEMM_THREADS = 256;
 
-enum BMode { B_NK = 0, B_KN = 1, B_PACKED4 = 2 };
-enum Epi { EPI_CHANNEL = 0, EPI_GROUPED = 1, EPI_ROW = 2 };
+enum BMode { B_NK = 0, B_PACKED4 = 1 };
+enum Epi { EPI_CHANNEL = 0, EPI_GROUPED = 1 };
 
 __device__ __forceinline__ void mma_s8_16832(int d[4], const uint32_t a[4],
                                              uint32_t b0, uint32_t b1) {
@@ -220,54 +214,20 @@ __device__ __forceinline__ void gemm_tile(
       }
       *reinterpret_cast<uint4*>(a_s + row * PITCH + ch) = av;
     }
-    if (BMODE == B_KN) {
-      // 32 x 32 blocks of 4 contraction rows x 4 columns, 4 a thread; a
-      // warp reads 128 contiguous bytes of each of 4 rows
+    // B_NK: 128 rows, B_PACKED4: 64 packed rows, of 8 chunks of 16 bytes
+    constexpr int ROWS = PACKED ? BN / 2 : BN;
+    const int rows_in = PACKED ? nh : N;
 #pragma unroll
-      for (int j = 0; j < (BK / 4) * (BN / 4) / GEMM_THREADS; ++j) {
-        const int i = threadIdx.x + j * GEMM_THREADS;
-        const int kb = (i / (BN / 4)) * 4;  // contraction offset in the tile
-        const int nb = (i % (BN / 4)) * 4;  // column offset in the tile
-        uint32_t w[4] = {0u, 0u, 0u, 0u};
-        if (n0 + nb < N) {                  // N % 4 == 0: whole blocks
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            if (k0 + kb + r < Kc) {
-              w[r] = *reinterpret_cast<const uint32_t*>(
-                  b + static_cast<long long>(k0 + kb + r) * N + n0 + nb);
-            }
-          }
-        }
-        // byte c of w[r] -> byte r of column word c
-        const uint32_t t01 = __byte_perm(w[0], w[1], 0x5140);
-        const uint32_t t23 = __byte_perm(w[2], w[3], 0x5140);
-        const uint32_t u01 = __byte_perm(w[0], w[1], 0x7362);
-        const uint32_t u23 = __byte_perm(w[2], w[3], 0x7362);
-        int8_t* dst = b_s + nb * PITCH + kb;
-        *reinterpret_cast<uint32_t*>(dst) = __byte_perm(t01, t23, 0x5410);
-        *reinterpret_cast<uint32_t*>(dst + PITCH) =
-            __byte_perm(t01, t23, 0x7632);
-        *reinterpret_cast<uint32_t*>(dst + 2 * PITCH) =
-            __byte_perm(u01, u23, 0x5410);
-        *reinterpret_cast<uint32_t*>(dst + 3 * PITCH) =
-            __byte_perm(u01, u23, 0x7632);
+    for (int j = 0; j < ROWS * (BK / 16) / GEMM_THREADS; ++j) {
+      const int i = threadIdx.x + j * GEMM_THREADS;
+      const int row = i / (BK / 16);
+      const int ch = (i % (BK / 16)) * 16;
+      uint4 bv = make_uint4(0u, 0u, 0u, 0u);
+      if (k0 + ch < Kc && n0 + row < rows_in) {
+        bv = *reinterpret_cast<const uint4*>(
+            b + static_cast<long long>(n0 + row) * Kc + k0 + ch);
       }
-    } else {
-      // B_NK: 128 rows, B_PACKED4: 64 packed rows, of 8 chunks of 16 bytes
-      constexpr int ROWS = PACKED ? BN / 2 : BN;
-      const int rows_in = PACKED ? nh : N;
-#pragma unroll
-      for (int j = 0; j < ROWS * (BK / 16) / GEMM_THREADS; ++j) {
-        const int i = threadIdx.x + j * GEMM_THREADS;
-        const int row = i / (BK / 16);
-        const int ch = (i % (BK / 16)) * 16;
-        uint4 bv = make_uint4(0u, 0u, 0u, 0u);
-        if (k0 + ch < Kc && n0 + row < rows_in) {
-          bv = *reinterpret_cast<const uint4*>(
-              b + static_cast<long long>(n0 + row) * Kc + k0 + ch);
-        }
-        *reinterpret_cast<uint4*>(b_s + row * PITCH + ch) = bv;
-      }
+      *reinterpret_cast<uint4*>(b_s + row * PITCH + ch) = bv;
     }
     __syncthreads();
 
@@ -365,8 +325,6 @@ __device__ __forceinline__ void gemm_tile(
           const int i = 2 * h + c;
           if (EPI == EPI_GROUPED) {
             v[c] = facc[mt][nt][i];
-          } else if (EPI == EPI_ROW) {
-            v[c] = __fmul_rn(__int2float_rn(acc[mt][nt][i]), xv);
           } else {
             v[c] = __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][i]), xv),
                              scale[col + c]);

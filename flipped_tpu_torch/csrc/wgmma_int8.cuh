@@ -28,7 +28,7 @@
 //
 // Exactness: the int32 sums are exact in any order, so the result is the
 // plain version's bit for bit (one __int2float_rn, one __fmul_rn, one bf16
-// rounding, as quant_common.cuh's EPI_ROW).
+// rounding).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -257,6 +257,12 @@ def _check_common(name, a, kq, scale, a_dim, scale_shape):
     return n, k
 
 
+def _tma_aligned(scale_g):
+    """K4 and K9 load their scales by TMA: a 16-byte aligned source."""
+    return (scale_g.data_ptr() % 16 == 0,
+            "scale_g must be 16-byte aligned (the kernel loads it by TMA)")
+
+
 def _launch(fn, *args):
     from .build import build
 
@@ -332,7 +338,8 @@ def quant_dx(g, kq, scale_g):
     _device_ok("quant_dx", g)
     n, k = _check_common("quant_dx", g, kq, scale_g, "N",
                          lambda n, k: (k // GROUP, n))
-    _check("quant_dx", [(k % GROUP == 0, f"needs K % {GROUP} == 0, got {k}")])
+    _check("quant_dx", [(k % GROUP == 0, f"needs K % {GROUP} == 0, got {k}"),
+                        _tma_aligned(scale_g)])
     lead, g2 = _lead(g)
     m = g2.shape[0]
     dx = torch.empty((m, k), dtype=torch.bfloat16, device=g.device)
@@ -413,6 +420,7 @@ def int4_dx(g, kq4, scale_g):
         return int4_dx_ref(g, kq4, scale_g)
     _device_ok("int4_dx", g)
     n, k, group = _check_int4("int4_dx", g, kq4, scale_g, "N")
+    _check("int4_dx", [_tma_aligned(scale_g)])
     lead, g2 = _lead(g)
     m = g2.shape[0]
     dx = torch.empty((m, k), dtype=torch.bfloat16, device=g.device)

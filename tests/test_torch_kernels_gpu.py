@@ -559,3 +559,66 @@ def test_int8_dgrad_scale_not_16_byte_aligned(cuda):
     dx = qm.int8_dgrad(dy, kq, scale, m)
     torch.cuda.synchronize()
     assert torch.equal(_bits(dx), _bits(qm.int8_dgrad_ref(dy, kq, scale, m)))
+
+
+# --- edge tiles of K4 and K9 (dx_wgmma.cuh) ----------------------------------
+# A block is 256 g rows by 128 dx columns over 64-deep contraction stages
+# (K9: 64 packed rows a stage, their low nibbles, then their high ones):
+# these shapes end a row tile part-way (M 65, 257, 1000), a K4 contraction N
+# part-way through a stage (136, 400, 1000), a K9 N/2 too (56, 72, 200,
+# 520), and take a dx width K of exactly one group (128; K9 also 256 as one
+# group of 256). The bound is K4_REL's / K8_WO_REL's (chip_smoke.py).
+DX_EDGE_M = (1, 65, 257, 1000)
+
+
+@pytest.mark.parametrize("m", DX_EDGE_M)
+@pytest.mark.parametrize("n,k", [(136, 128), (1000, 256), (400, 11008)])
+def test_quant_dx_edge_tiles(cuda, monkeypatch, m, n, k):
+    _, kq, _, sg, dy = _quant_inputs(cuda, m, k, n, 15)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    before = qm.quant_dx.launches
+    dx = qm.quant_dx(dy, kq, sg)
+    torch.cuda.synchronize()
+    assert qm.quant_dx.launches == before + 1
+    ref = qm.quant_dx_ref(dy, kq, sg)
+    bound = _mma_bound(ref, dy, qm.dequant(kq, sg, torch.bfloat16).t(), n)
+    assert bool(torch.isfinite(dx.float()).all())
+    assert bool(((dx.double() - ref.double()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("m", DX_EDGE_M)
+@pytest.mark.parametrize("n,k,group", [(112, 128, 128), (400, 256, 256),
+                                       (144, 512, 128), (1040, 11008, 128)])
+def test_int4_dx_edge_tiles(cuda, monkeypatch, m, n, k, group):
+    _, codes, kq4, sg, dy = _int4_inputs(cuda, m, k, n, 16)
+    sg = sg[:k // group].contiguous()
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    before = qm.int4_dx.launches
+    dx = qm.int4_dx(dy, kq4, sg)
+    torch.cuda.synchronize()
+    assert qm.int4_dx.launches == before + 1
+    ref = qm.int4_dx_ref(dy, kq4, sg)
+    bound = _mma_bound(ref, dy, qm.dequant(codes, sg, torch.bfloat16).t(),
+                       n)
+    assert bool(torch.isfinite(dx.float()).all())
+    assert bool(((dx.double() - ref.double()).abs() <= bound).all())
+
+
+def test_dx_wrappers_refuse_unaligned_scales(cuda):
+    """K4 and K9 bring each stage's scales into shared memory by TMA, which
+    needs a 16-byte aligned source: the wrappers refuse other views."""
+    _, kq, _, sg, dy = _quant_inputs(cuda, 16, 256, 128, 17)
+    flat = torch.empty(sg.numel() + 1, device=cuda)
+    off = flat[1:].view(sg.shape)
+    off.copy_(sg)
+    assert off.data_ptr() % 16 != 0
+    with pytest.raises(ValueError):
+        qm.quant_dx(dy, kq, off)
+    _, _, kq4, sg4, dy4 = _int4_inputs(cuda, 16, 256, 256, 17)
+    flat = torch.empty(sg4.numel() + 1, device=cuda)
+    off4 = flat[1:].view(sg4.shape)
+    off4.copy_(sg4)
+    with pytest.raises(ValueError):
+        qm.int4_dx(dy4, kq4, off4)
