@@ -9,7 +9,11 @@ Phases; any failure prints its traceback and exits 1 without a result line:
   2. build    compile flipped_tpu_torch/csrc/ with nvcc for sm_90a, one
               process per source, all started together
   3. K1       flash_text_fwd against its plain version in bf16 at the unit
-              shape and the main-path shapes, and lse against float64
+              shape, the main-path shapes and the edges of its 128-row q
+              and key tiles (S 1 to 255), on strided q/k/v views (slices
+              of one (B, S, 3, H, Dh) tensor), and lse against float64;
+              at S 2049 and 4096 (the forward-only regime up to
+              MAX_SEQ_FWD) within K5's bound (K1_LONG_CASES)
   4. K2       flash_text_bwd against its plain version in bf16 at the unit
               shapes, the training shape and S 650, within the bound stated
               at K2_CASES; dgate2 against a float64 sum
@@ -30,8 +34,9 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               and K10 int8_dgrad bitwise against their plain versions, K4
               quant_dx, K8's weight-only branch and K9 int4_dx within the
               bounds stated at K4_REL and K8_WO_REL, at odd-M unit shapes,
-              the wgmma kernels' tile edges (QUANT_EDGE) and every 7B
-              main-path shape (K10 on 2-D and 3-D cotangents);
+              the wgmma kernels' tile edges (QUANT_EDGE, and K3's own at
+              K3_EDGE) and every 7B main-path shape (K10 on 2-D and 3-D
+              cotangents);
               then through the autograd Functions int8_matmul,
               int8_matmul_grouped, int4_matmul, int4_matmul_grouped and
               int8_matmul_dgrad at the w1/w3 shape
@@ -110,7 +115,20 @@ K1_CASES = [
     (8, 128, 32, 128, (5, 1, -1, 0, 5, 3, 2, 5)),
     (40, 128, 32, 128, (5,) * 40),
     (1, 650, 32, 128, (4,)),
+    # the edges of K1's 128-row q tiles and 128-key K/V tiles: one row,
+    # half a tile, one past it, one short of a tile, one past it, two
+    # tiles less one
+    (2, 1, 8, 128, (-1, 0)),
+    (2, 64, 8, 128, (5, -1)),
+    (2, 65, 8, 128, (0, 5)),
+    (2, 127, 8, 128, (3, 9)),
+    (2, 129, 8, 128, (5, -1)),
+    (2, 255, 8, 128, (7, 0)),
 ]
+# K1 on q, k, v that are slices of one (B, S, 3, H, Dh) tensor, as a fused
+# projection hands them: strides that are not those of a (B, S, H, Dh)
+# tensor, read through the kernel's tensor maps
+K1_STRIDED = [(2, 300, 8, 128, (3, -1)), (*TRAIN_SHAPE, TRAIN_VS)]
 MAX_FEATS = 10
 # Tolerance of K1 against its plain version. The kernel rounds the
 # unnormalised P to bf16 and divides by the row sum at the end; the plain
@@ -125,6 +143,16 @@ MAX_FEATS = 10
 K1_REL = 2.0 ** -7
 K1_ABS_FLOOR = 2.0 ** -14     # for outputs within rounding of zero
 LSE_ATOL = 1e-4               # f32 row sums of up to 650 terms vs float64
+# K1 past S 650, in the forward-only regime up to MAX_SEQ_FWD (B, S, H,
+# Dh, video_start, strided): there K1_REL's analysis no longer covers the
+# f32 sums, and K1 is held within the bound stated at STREAM_CASES for K5,
+# which writes them out: K1 computes K5's function at q_offset 0 with
+# S_k = S, so out within 2^-7 ((P @ |V|) + |plain|) + 2^-14 + (2 (S + S/64)
+# 2^-24 + 2^-16 max_c B) (P @ |V|), and lse within 2^-16 max_c B + (S +
+# S/64 + 64) 2^-24 + 2^-23 |lse64| of the float64 log-sum-exp.
+K1_LONG_CASES = [(1, 2049, 32, 128, (6,), False),
+                 (1, 4096, 32, 128, (9,), False),
+                 (1, 2049, 32, 128, (0,), True)]
 
 K2_SOURCE = "flipped_tpu_torch/csrc/flash_text_bwd.cu"
 K2_REPLACES = "flipped_tpu/model/pallas/flash_attention.py:174"
@@ -265,6 +293,12 @@ QUANT_UNIT = [(10, 256, 136), (37, 384, 256), (37, 272, 120),
 # K9 dx widths K of exactly one group (128)
 QUANT_EDGE = [(3, 11008, 400), (65, 128, 112), (1000, 512, 144),
               (257, 256, 1040), (300, 128, 400)]
+# edges of K3's tiles (128 rows by 256 columns, 128-deep stages): one row,
+# M past a 128- and a 256-row tile (129, 257), N past a 256-column tile
+# (264) and short of one (136), a contraction of one 16-byte step (16) and
+# contractions that end part-way through a stage (144, 400)
+K3_EDGE = [(1, 16, 264), (129, 144, 136), (257, 400, 264), (1, 4096, 136),
+           (257, 16, 136), (129, 1040, 264)]
 QUANT_MAIN = {"wq/wk/wv/wo": (TRAIN_M, 4096, 4096),
               "w1/w3": (TRAIN_M, 4096, 11008),
               "w2": (TRAIN_M, 11008, 4096),
@@ -347,10 +381,16 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def k1_inputs(torch, b, s, h, dh, vs, seed):
+def k1_inputs(torch, b, s, h, dh, vs, seed, strided=False):
+    """q, k, v (B, S, H, Dh) bf16, or with `strided` the three slices of
+    one (B, S, 3, H, Dh) tensor; gate2 (H,) f32, video_start (B,) int32."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn(b, s, h, dh, device="cuda", generator=g)
-               .to(torch.bfloat16) for _ in range(3))
+    if strided:
+        q, k, v = torch.randn(b, s, 3, h, dh, device="cuda", generator=g).to(
+            torch.bfloat16).unbind(2)
+    else:
+        q, k, v = (torch.randn(b, s, h, dh, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(3))
     gate2 = torch.randn(h, device="cuda", generator=g)
     video_start = torch.tensor(vs, dtype=torch.int32, device="cuda")
     return q, k, v, gate2, video_start
@@ -360,8 +400,11 @@ def check_k1(torch, fa):
     from flipped_tpu_torch.model.attention import video_block_bias
 
     worst = 0.0
-    for i, (b, s, h, dh, vs) in enumerate(K1_CASES):
-        q, k, v, gate2, video_start = k1_inputs(torch, b, s, h, dh, vs, i)
+    cases = ([(c, i, False) for i, c in enumerate(K1_CASES)]
+             + [(c, 50 + i, True) for i, c in enumerate(K1_STRIDED)])
+    for (b, s, h, dh, vs), seed, strided in cases:
+        q, k, v, gate2, video_start = k1_inputs(torch, b, s, h, dh, vs, seed,
+                                                strided)
         out, lse = fa.flash_text_attention(q, k, v, gate2, video_start,
                                            MAX_FEATS)
         torch.cuda.synchronize()
@@ -383,9 +426,10 @@ def check_k1(torch, fa):
         torch.cuda.synchronize()
         max_err = float(err.max())
         worst = max(worst, max_err)
-        print(f"K1 {(b, s, h, dh)} vs={vs[:4]}: max|out-plain|={max_err:.6g} "
-              f"(worst {ratio:.3f} of the bound), "
-              f"max|lse-f64|={lse_err:.3g}", flush=True)
+        print(f"K1 {(b, s, h, dh)} vs={vs[:4]}"
+              + (" (strided views)" if strided else "")
+              + f": max|out-plain|={max_err:.6g} (worst {ratio:.3f} of the "
+              f"bound), max|lse-f64|={lse_err:.3g}", flush=True)
         if not torch.isfinite(out).all():
             raise AssertionError("K1 produced non-finite values")
         if ratio > 1.0:
@@ -393,6 +437,33 @@ def check_k1(torch, fa):
                                  f"{(b, s, h, dh)}")
         if lse_err > LSE_ATOL:
             raise AssertionError(f"K1 lse off by {lse_err} at {(b, s, h, dh)}")
+    return worst
+
+
+def check_k1_long(torch, fa):
+    """K1 at K1_LONG_CASES (S past 650, up to MAX_SEQ_FWD) within K5's
+    bounds (`hold_k5` at q_offset 0); returns the worst |kernel - plain|."""
+    worst = 0.0
+    for i, (b, s, h, dh, vs, strided) in enumerate(K1_LONG_CASES):
+        q, k, v, gate2, video_start = k1_inputs(torch, b, s, h, dh, vs,
+                                                70 + i, strided)
+        before = fa.flash_text_attention.launches
+        out, lse = fa.flash_text_attention(q, k, v, gate2, video_start,
+                                           MAX_FEATS)
+        torch.cuda.synchronize()
+        if fa.flash_text_attention.launches != before + 1:
+            raise AssertionError(f"S {s} did not launch K1")
+        err, ratio, lse_ratio = hold_k5(torch, fa, q, k, v, gate2,
+                                        video_start, 0, out, lse)
+        worst = max(worst, err)
+        print(f"K1 {(b, s, h, dh)} vs={vs}"
+              + (" (strided views)" if strided else "")
+              + f": max|out-plain|={err:.6g} ({ratio:.3f} of K5's bound), "
+              f"lse {lse_ratio:.3f} of its bound", flush=True)
+        if ratio > 1.0 or lse_ratio > 1.0:
+            raise AssertionError(f"K1 disagrees with its plain version or "
+                                 f"float64 at {(b, s, h, dh)}")
+        del q, k, v, out, lse
     return worst
 
 
@@ -1198,6 +1269,14 @@ def check_quant(torch, qm, worst):
                                       worst, m // 2))
         print(f"quant {name} (M {m}, K {k}, N {n}): " + ", ".join(msg),
               flush=True)
+    for i, (m, k, n) in enumerate(K3_EDGE):
+        x, kq, scale, _, _ = quant_inputs(torch, m, k, n, 380 + i)
+        if m == 1:        # quant_inputs zeroes row m // 2, the only one
+            gen = torch.Generator(device="cuda").manual_seed(390 + i)
+            x = torch.randn(1, k, device="cuda", generator=gen).to(
+                torch.bfloat16)
+        print(f"quant K3 edge (M {m}, K {k}, N {n}): "
+              + hold_quant(torch, qm, "k3", x, kq, scale, worst), flush=True)
 
 
 @contextlib.contextmanager
@@ -1856,6 +1935,7 @@ def main() -> int:
 
     phase("K1 vs plain")
     k1_err = check_k1(torch, fa)
+    k1_err = max(k1_err, check_k1_long(torch, fa))
 
     phase("K2 vs plain")
     k2_err = check_k2(torch, fa)

@@ -1,21 +1,24 @@
-"""Time K1, K2, K3, K7, K4, K8 (both branches), K9 and K10 of this checkout
-and another on one card, in turns.
+"""Time K1, K2, K3, K5, K7, K4, K8 (both branches), K9 and K10 of this
+checkout and another on one card, in turns.
 
     python -m flipped_tpu_torch.cli.ab_kernels <other checkout>
 
 The turns are other, this, this, other, each in its own process (both
 checkouts' packages have one name): a turn builds its checkout's kernels and
-times, by CUDA-graph replay, K1 at the shapes of `chip_smoke.K1_SHAPES` and
-K2 at the training shape (B 24, S 128), then K3, K7, K4, K8 (w4a8 "k8a",
-weight-only "k8w"), K9 and K10 at the three 3072-row 7B shapes, with that
-checkout's `chip_smoke.py` (`k1_inputs`, `k2_inputs`, `quant_inputs`,
-`int4_inputs`, `device_ms`); K10's two launches are also timed apart
-("k10 quantize", "k10 gemm": device time by kernel name under
-torch.profiler, the names with "quantize" the first). Prints the card's name
-and power limit, then one JSON line per turn: device ms by shape and
-kernel, and under "clocks" the SM clock and power draw that nvidia-smi
-reads right before and right after each kernel's timing, so that a clock
-drop shows in the record instead of reading as a kernel change. Unpack
+times, by CUDA-graph replay, K1 at the shapes of `chip_smoke.K1_SHAPES`, K2
+at the training shape (B 24, S 128) and K5 at the long training shape
+(`LONG_SHAPE`, B 3, S 4096), then K3, K7, K4, K8 (w4a8 "k8a", weight-only
+"k8w"), K9 and K10 at the three 3072-row 7B shapes and K3 at the eval's
+w1/w3 shapes (`K3_EVAL`), with that checkout's `chip_smoke.py`
+(`k1_inputs`, `k2_inputs`, `stream_inputs`, `quant_inputs`, `int4_inputs`,
+`device_ms`); K3's and K10's two launches are also timed apart ("k3
+quantize", "k3 gemm", "k10 quantize", "k10 gemm": device time by kernel
+name under torch.profiler, the names with "quantize" the first). Prints
+the card's name and power limit, then one JSON line per turn: device ms
+by shape and kernel, and under "clocks" the SM clock and power draw that
+nvidia-smi reads right before and right after each kernel's timing, so
+that a clock drop shows in the record instead of reading as a kernel
+change. Unpack
 the other commit with `git archive` into a directory `.gitignore` lists;
 comparing two commits inside one call keeps the card, its power limit and
 the toolchain the same.
@@ -32,25 +35,27 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
 SHAPES = ("wq/wk/wv/wo", "w1/w3", "w2")
 
 
-def k10_split(torch, qm, g, kq, scale, s_mod, n=20) -> dict:
-    """Device ms per call of K10's quantize kernel and of its GEMM kernel,
-    from a torch.profiler trace of `n` calls after 3 warm ones."""
+def launch_split(torch, kern, fn, n=20) -> dict:
+    """Device ms per call of the quantize kernel and of the GEMM kernel that
+    one call of `fn` (K3's or K10's wrapper) launches, from a torch.profiler
+    trace of `n` calls after 3 warm ones."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
-        qm.int8_dgrad(g, kq, scale, s_mod)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            qm.int8_dgrad(g, kq, scale, s_mod)
+            fn()
         torch.cuda.synchronize()
-    parts = {"k10 quantize": 0.0, "k10 gemm": 0.0}
+    parts = {f"{kern} quantize": 0.0, f"{kern} gemm": 0.0}
     for e in prof.profiler.function_events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            key = "k10 quantize" if "quantize" in e.name else "k10 gemm"
-            parts[key] += e.time_range.elapsed_us()
+            part = "quantize" if "quantize" in e.name else "gemm"
+            parts[f"{kern} {part}"] += e.time_range.elapsed_us()
     if not all(parts.values()):
-        raise RuntimeError(f"K10's launches were not both traced: {parts}")
+        raise RuntimeError(f"{kern}'s launches were not both traced: "
+                           f"{parts}")
     return {k: v * 1e-3 / n for k, v in parts.items()}
 
 
@@ -94,6 +99,13 @@ def time_checkout(root: str) -> dict:
     o, lse = fa.flash_text_attention(q, k, v, g2, video_start, cs.MAX_FEATS)
     out["k2 train"] = timed("k2 train", lambda: fa.flash_text_attention_bwd(
         q, k, v, g2, video_start, cs.MAX_FEATS, do, o, lse))
+    b, s, h, _ = cs.LONG_SHAPE
+    q, k, v, _, g2, video_start = cs.stream_inputs(torch, b, s, s, h,
+                                                   cs.LONG_VS, 600)
+    out["k5 long train"] = timed(
+        "k5 long train", lambda: fa.flash_streaming_fwd(
+            q, k, v, g2, video_start, cs.MAX_FEATS))
+    del q, k, v
     for name in SHAPES:
         m, k, n = cs.QUANT_MAIN[name]
         x, kq, scale, sg, g = cs.quant_inputs(torch, m, k, n, 400)
@@ -108,7 +120,13 @@ def time_checkout(root: str) -> dict:
             "k10": lambda: qm.int8_dgrad(g, kq, scale, cs.TRAIN_S)}
         out[name] = {kern: timed(f"{name} {kern}", fn)
                      for kern, fn in calls.items()}
-        out[name].update(k10_split(torch, qm, g, kq, scale, cs.TRAIN_S))
+        out[name].update(launch_split(torch, "k3", calls["k3"]))
+        out[name].update(launch_split(torch, "k10", calls["k10"]))
+    for name, (m, k, n) in cs.K3_EVAL.items():
+        x, kq, scale, _, _ = cs.quant_inputs(torch, m, k, n, 400)
+        call = lambda: qm.int8_fwd(x, kq, scale)
+        out[name] = {"k3": timed(f"{name} k3", call),
+                     **launch_split(torch, "k3", call)}
     out["clocks"] = clocks
     return out
 

@@ -49,8 +49,10 @@ def kernel_class(name: str) -> str:
         return "flash stream (K5/K6)"
     if "flash_text" in low or "flash_bwd" in low:
         return "flash (K1/K2)"
-    # before "gemm": K3 and K7 are int8_gemm_kernel plus their quantize pass
-    if "int8_gemm" in low or "quantize_rows" in low:
+    # before "gemm": K3 is int8_fwd_quantize_kernel and int8_fwd_wgmma_kernel,
+    # K7 int8_gemm_kernel and the grouped quantize pass
+    if ("int8_fwd" in low or "int8_gemm" in low
+            or "quantize_rows" in low):
         return "int8 GEMM (K3/K7)"
     if "quant_dx" in low:
         return "quant dx (K4)"

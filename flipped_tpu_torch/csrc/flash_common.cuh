@@ -1,6 +1,7 @@
 // Device helpers shared by the flash-attention kernels (the tile loops of
-// flash_fwd.cuh and flash_bwd.cuh, which K1, K2, K5, K6a and K6b run): bf16
-// packing, the mma.sync m16n8k16 product, and the gate2 video-block test.
+// flash_fwd_wgmma.cuh, flash_fwd.cuh and flash_bwd.cuh, which K1, K5, K2,
+// K6a and K6b run): bf16 packing, the mma.sync m16n8k16 product (all but
+// K1), and the gate2 video-block test.
 //
 // mma.sync m16n8k16 fragment layouts (bf16 in, f32 accumulate), with lane =
 // 4 * g + t (g = lane >> 2 in 0..7, t = lane & 3):

@@ -1,7 +1,8 @@
-// The forward tile loop shared by K1 (flash_text_fwd.cu) and K5
-// (flash_stream_fwd.cu): causal attention with the gate2 video-block bias
-// for one (batch b, head h, 64-row q tile), K/V streamed through shared
-// memory in 64-key tiles with an online softmax. For q row i (local) at
+// The forward tile loop of K5 (flash_stream_fwd.cu): causal attention with
+// the gate2 video-block bias for one (batch b, head h, 64-row q tile), K/V
+// streamed through shared memory in 64-key tiles with an online softmax.
+// (K1 left it for the TMA-fed wgmma loop of flash_fwd_wgmma.cuh, which
+// keeps q_offset and S_k so that K5 can follow.) For q row i (local) at
 // global position r = q_offset + i, and key c < S_k:
 //   s[i, c] = q[i]·k[c] / sqrt(Dh)                     f32 from bf16 operands
 //           + gate2[h]  where vs >= 0, r >= vs+F, vs <= c < vs+F
@@ -10,8 +11,15 @@
 //   out[i]  = softmax(s[i]) @ v                         f32 softmax, P in bf16,
 //                                                       f32 accumulation
 //   lse[i]  = log sum_c exp(s[i, c])                    read by the backward
-// K1 calls it with q_offset 0 and S_k = S_q; K5 with the q shard's global
-// offset and K/V that may be longer than q.
+// K5 calls it with the q shard's global offset and K/V that may be longer
+// than q.
+//
+// What bounds it on an H100: at the long-context training shape (B 3, S
+// 4096, H 32, Dh 128) the products, ~1,000 FLOP per byte (0.42 ms at the
+// dense bf16 peak, the bytes 0.12 ms). This loop reaches about a seventh of
+// that peak: its K/V tiles are copied through registers into shared memory
+// and a __syncthreads() follows, so no load is in flight while the products
+// run, and mma.sync runs at about a third of wgmma's rate.
 //
 // Blocking: one block of 4 warps per (b, h, 64-row q tile); each warp owns 16
 // q rows. Products are mma.sync m16n8k16 bf16 -> f32. The score accumulator

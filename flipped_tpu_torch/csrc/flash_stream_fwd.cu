@@ -26,9 +26,10 @@
 // causally dead K/V tiles are never loaded, and every block does the QK^T
 // and PV products of its 64 rows on the tensor cores (mma.sync m16n8k16).
 // The TPU kernel's reason to exist, VMEM too small for all of K/V beyond
-// S = 4096, does not carry over: K1's tile loop already streams K/V through
-// shared memory with no sequence bound, so K5 is that loop
-// (flash_fwd.cuh) with the q offset and S_k as parameters. The TPU grid's
+// S = 4096, does not carry over: a tile loop that streams K/V through
+// shared memory has no sequence bound, so K5 is flash_fwd.cuh's loop (K1's
+// until K1 moved to flash_fwd_wgmma.cuh) with the q offset and S_k as
+// parameters. The TPU grid's
 // k axis, which carried the running max, sum and accumulator in VMEM scratch
 // across grid steps, is the loop inside the block; the lse is (B, H, S_q)
 // f32, not the TPU kernel's 8-lane Mosaic layout.

@@ -12,37 +12,39 @@
 //   lse[r]  = log sum_c exp(s[r, c])                     read by the backward (K2)
 //
 // Layout: q, k, v, out are (B, S, H, Dh) bf16, read and written through their
-// batch/sequence/head strides with no transposed or padded copies; gate2 is
-// (H,) f32, video_start (B,) int32, lse (B, H, S) f32.
+// batch/sequence/head strides with no transposed or padded copies (q, k and
+// v share theirs, multiples of 8 elements); gate2 is (H,) f32, video_start
+// (B,) int32, lse (B, H, S) f32.
 //
-// What bounds it on an H100: at the eval shapes (S = 128, Dh = 128) one
-// (b, h) pair does ~4 MFLOP of causal work on 128 KB of q/k/v/out, about 32
-// FLOP per byte, far below the ~295 FLOP/byte at which bf16 tensor cores and
-// not HBM become the limit; and the whole call is tens of microseconds, so
-// launch latency and the tail of 512 small blocks weigh as much as the bytes.
-// What the design does about it: every q/k/v byte is read from HBM once per
-// q tile and out is written once, the S×S scores never leave registers, and
-// causally dead K/V tiles are never loaded. Unlike the TPU kernel, which kept
-// all of K/V in VMEM (hence its S <= 4096 bound), K/V stream through shared
-// memory in 64-key tiles with an online (FA2-style) softmax, so there is no
-// sequence bound; the ragged S edge is masked in the kernel.
-//
-// Blocking: the tile loop of flash_fwd.cuh, shared with K5
-// (flash_stream_fwd.cu), at q_offset 0 and S_k = S: one block of 4 warps per
-// (b, h, 64-row q tile), mma.sync m16n8k16 bf16 -> f32, the score registers
-// reused as the A operand of the PV product.
-// Not yet done (later work): cp.async/TMA double buffering of K/V, wgmma.
+// What bounds it on an H100: at the eval and training shapes (S = 128,
+// Dh = 128) one (b, h) pair does ~4 MFLOP of causal work on 128 KB of
+// q/k/v/out, about 32 FLOP per byte, far below the ~295 FLOP/byte at which
+// bf16 tensor cores and not HBM become the limit: it is bound by bytes, and
+// the whole call is tens of microseconds. At the forward-only lengths up to
+// S 4096 the products grow with S^2 and bound it instead.
+// What the design does about it (flash_fwd_wgmma.cuh): every q/k/v byte is
+// read from HBM once per 128-row q tile, by TMA, and out is written once;
+// a persistent grid whose producer loads the next (b, h) while the consumer
+// warpgroups finish this one keeps loads in flight at S 128, where one q
+// tile is the whole (b, h); both products are wgmma (Q K^T from shared
+// memory, P V with P from registers); the S x S scores never leave
+// registers, and causally dead K/V tiles are never loaded. Unlike the TPU
+// kernel, which kept all of K/V in VMEM (hence its S <= 4096 bound), K/V
+// stream through shared memory with an online (FA2-style) softmax, so
+// there is no sequence bound; the ragged S edge is masked in the kernel.
 
 #include <cuda_runtime.h>
 
-#include "flash_fwd.cuh"
+#include "flash_fwd_wgmma.cuh"
 
 namespace {
 
-template <int DH>
-__global__ void __launch_bounds__(flash::FWD_THREADS)
-flash_text_fwd_kernel(const flash::FwdArgs a) {
-  flash::fwd_tile<DH>(a);
+__global__ void __launch_bounds__(flashw::THREADS, 1)
+flash_text_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const flashw::Args a) {
+  flashw::fwd_body(&q_map, &k_map, &v_map, a);
 }
 
 }  // namespace
@@ -54,23 +56,27 @@ extern "C" int flash_text_fwd(const void* q, const void* k, const void* v,
                               long long ss, long long sh, long long osb,
                               long long oss, long long osh, float scale,
                               void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535) {
+  // every LLaMA preset of the repo has Dh = 128; TMA takes 16-byte strides
+  if (B <= 0 || S <= 0 || H <= 0 || Dh != flashw::DH || sb % 8 != 0 ||
+      ss % 8 != 0 || sh % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const flash::FwdArgs a{
-      static_cast<const flash::bf16*>(q), static_cast<const flash::bf16*>(k),
-      static_cast<const flash::bf16*>(v), static_cast<const float*>(gate2),
-      static_cast<const int*>(video_start), static_cast<flash::bf16*>(out),
-      static_cast<float*>(lse), S, S, 0, H, max_feats, sb, ss, sh, sb, ss,
-      sh, osb, oss, osh, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Dh) {  // every LLaMA preset of the repo has Dh = 128
-    case 128:
-      return static_cast<int>(
-          flash::launch_fwd(flash_text_fwd_kernel<128>, a, B, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = hopper::make_map_4d_bf16(
+        &maps[i], bases[i], Dh, H, S, B, sh, ss, sb, flashw::BOX,
+        flashw::BQ);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const flashw::Args a{static_cast<const float*>(gate2),
+                       static_cast<const int*>(video_start),
+                       static_cast<flashw::bf16*>(out),
+                       static_cast<float*>(lse),
+                       B, S, S, 0, H, max_feats, osb, oss, osh, scale};
+  return static_cast<int>(flashw::launch(flash_text_fwd_kernel, maps[0],
+                                         maps[1], maps[2], a,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* flash_error_string(int code) {

@@ -1,8 +1,9 @@
-// Hopper building blocks shared by the TMA-fed wgmma kernels (K8
-// weight-only in int4_fwd.cu, K10's GEMM in wgmma_int8.cuh, K4 and K9 in
-// dx_wgmma.cuh): mbarriers, TMA tile loads, shared-memory matrix
-// descriptors, the wgmma fences, the int4 dequantize into register
-// operands, and the host-side tensor-map encoder.
+// Hopper building blocks shared by the TMA-fed wgmma kernels (K3 in
+// int8_fwd.cu, K8 weight-only in int4_fwd.cu, K10's GEMM in wgmma_int8.cuh,
+// K4 and K9 in dx_wgmma.cuh, K1 in flash_fwd_wgmma.cuh): mbarriers, TMA
+// tile loads, shared-memory matrix descriptors, the wgmma forms and fences,
+// the int4 dequantize into register operands, and the host-side tensor-map
+// encoders.
 //
 // The tensor maps are built on the host per call with
 // cuTensorMapEncodeTiled, looked up at run time through
@@ -81,6 +82,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for one box of a 4-D tensor map at (c0 innermost .. c3).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -91,6 +104,20 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
   const uint64_t addr = smem_addr(tile);
   return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// Descriptor of an MN-major bf16 operand (K1's V: rows along the
+// contraction, each row contiguous along the output columns) written by TMA
+// with the 128-byte swizzle in 64-column boxes: a swizzle atom is 8
+// contraction rows x 64 columns (1024 bytes); atoms along the contraction
+// are 1024 bytes apart (SBO), atoms along the columns `lbo` bytes apart
+// (LBO: one box). A step of 16 rows along the contraction adds 2048 bytes.
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* tile,
+                                                  uint32_t lbo) {
+  const uint64_t addr = smem_addr(tile);
+  return ((addr & 0x3FFFFull) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) | (64ull << 32) |
          (1ull << 62);
 }
 
@@ -359,6 +386,242 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8_rs(int (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// SS int8 wgmma (K3): A and B both K-major tiles in shared memory
+// (`desc_a`, `desc_b`), 32 contraction bytes a step; D as the m64n256
+// bf16 forms. The _zero form writes d (scale-d 0), the other adds to it.
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss_zero(
+    int (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n"
+      "}\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]),
+        "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]),
+        "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15]),
+        "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]),
+        "=r"(d[24]), "=r"(d[25]), "=r"(d[26]), "=r"(d[27]),
+        "=r"(d[28]), "=r"(d[29]), "=r"(d[30]), "=r"(d[31]),
+        "=r"(d[32]), "=r"(d[33]), "=r"(d[34]), "=r"(d[35]),
+        "=r"(d[36]), "=r"(d[37]), "=r"(d[38]), "=r"(d[39]),
+        "=r"(d[40]), "=r"(d[41]), "=r"(d[42]), "=r"(d[43]),
+        "=r"(d[44]), "=r"(d[45]), "=r"(d[46]), "=r"(d[47]),
+        "=r"(d[48]), "=r"(d[49]), "=r"(d[50]), "=r"(d[51]),
+        "=r"(d[52]), "=r"(d[53]), "=r"(d[54]), "=r"(d[55]),
+        "=r"(d[56]), "=r"(d[57]), "=r"(d[58]), "=r"(d[59]),
+        "=r"(d[60]), "=r"(d[61]), "=r"(d[62]), "=r"(d[63]),
+        "=r"(d[64]), "=r"(d[65]), "=r"(d[66]), "=r"(d[67]),
+        "=r"(d[68]), "=r"(d[69]), "=r"(d[70]), "=r"(d[71]),
+        "=r"(d[72]), "=r"(d[73]), "=r"(d[74]), "=r"(d[75]),
+        "=r"(d[76]), "=r"(d[77]), "=r"(d[78]), "=r"(d[79]),
+        "=r"(d[80]), "=r"(d[81]), "=r"(d[82]), "=r"(d[83]),
+        "=r"(d[84]), "=r"(d[85]), "=r"(d[86]), "=r"(d[87]),
+        "=r"(d[88]), "=r"(d[89]), "=r"(d[90]), "=r"(d[91]),
+        "=r"(d[92]), "=r"(d[93]), "=r"(d[94]), "=r"(d[95]),
+        "=r"(d[96]), "=r"(d[97]), "=r"(d[98]), "=r"(d[99]),
+        "=r"(d[100]), "=r"(d[101]), "=r"(d[102]), "=r"(d[103]),
+        "=r"(d[104]), "=r"(d[105]), "=r"(d[106]), "=r"(d[107]),
+        "=r"(d[108]), "=r"(d[109]), "=r"(d[110]), "=r"(d[111]),
+        "=r"(d[112]), "=r"(d[113]), "=r"(d[114]), "=r"(d[115]),
+        "=r"(d[116]), "=r"(d[117]), "=r"(d[118]), "=r"(d[119]),
+        "=r"(d[120]), "=r"(d[121]), "=r"(d[122]), "=r"(d[123]),
+        "=r"(d[124]), "=r"(d[125]), "=r"(d[126]), "=r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(
+    int (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// SS bf16 wgmma (K1's S = Q K^T): A and B both K-major tiles in shared
+// memory; D as the m64n128 RS form. _zero writes d, the other adds to it.
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_ss_zero(
+    float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_ss(
+    float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// RS bf16 wgmma with B MN-major (the transpose bit, 16-bit types only:
+// K1's O += P V, V's rows contiguous along the output columns); `desc_b`
+// from desc_sw128_mn. Adds to d (K1 zeroes d before its first tile).
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_rs_tb(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // Keeps the compiler from moving reads of an accumulator register across
 // the wgmma wait before it (the asm "writes" the register).
 __device__ __forceinline__ void fence_operand(float& r) {
@@ -366,6 +629,40 @@ __device__ __forceinline__ void fence_operand(float& r) {
 }
 __device__ __forceinline__ void fence_operand(int& r) {
   asm volatile("" : "+r"(r)::"memory");
+}
+
+// ---------------------------------------------------------------------------
+// Epilogue stores (K3, K1): a wgmma accumulator gives lane t of a quad (the
+// 4 lanes of one row) the bf16 pairs at columns 8i + 2t. For 4 consecutive
+// i (32 columns), v[q] being the pair of i0 + q, the quad transposes them so
+// that lane t holds the 8 columns 8 (i0 + t) .. + 7: one 16-byte store a
+// lane and 64 contiguous bytes a row, in place of four 4-byte stores, each
+// of which would write 16-byte pieces of 8 rows.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&v)[4],
+                                                int t) {
+  uint32_t a[4] = {v[0], v[1], v[2], v[3]};
+#pragma unroll
+  for (int k = 0; k < 4; k += 2) {     // lanes t, t ^ 1 swap 1-wide blocks
+    const uint32_t r =
+        __shfl_xor_sync(0xffffffffu, (t & 1) ? a[k] : a[k + 1], 1);
+    if (t & 1) {
+      a[k] = r;
+    } else {
+      a[k + 1] = r;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {        // lanes t, t ^ 2 swap 2-wide blocks
+    const uint32_t r =
+        __shfl_xor_sync(0xffffffffu, (t & 2) ? a[k] : a[k + 2], 2);
+    if (t & 2) {
+      a[k] = r;
+    } else {
+      a[k + 2] = r;
+    }
+  }
+  return make_uint4(a[0], a[1], a[2], a[3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -437,6 +734,32 @@ inline cudaError_t make_map_2d(CUtensorMap* map, const void* base,
   const cuuint32_t estr[2] = {1, 1};
   const CUresult r = fn(map, dtype, 2, const_cast<void*>(base), dims, strides,
                         box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 4-D tensor map over a strided bf16 tensor of logical dims (d3, d2, d1,
+// d0), d0 innermost and contiguous, with element strides s1, s2, s3 (each
+// a multiple of 8: TMA's 16-byte strides) and boxes of (1, 1, box1, box0)
+// with the 128-byte swizzle: K1 reads q, k, v (B, S, H, Dh) as (Dh, H, S,
+// B) with boxes of 64 Dh columns by `box1` rows of S in one head, so rows
+// past S come in as zeros instead of the next batch's.
+inline cudaError_t make_map_4d_bf16(CUtensorMap* map, const void* base,
+                                    uint64_t d0, uint64_t d1, uint64_t d2,
+                                    uint64_t d3, uint64_t s1, uint64_t s2,
+                                    uint64_t s3, uint32_t box0,
+                                    uint32_t box1) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {d0, d1, d2, d3};
+  const cuuint64_t strides[3] = {s1 * 2, s2 * 2, s3 * 2};
+  const cuuint32_t box[4] = {box0, 1, box1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -304,8 +304,8 @@ int4_w4a8_gemm_kernel(const int8_t* __restrict__ xq,
                       const float* __restrict__ scale,
                       bf16* __restrict__ out, int M, int N, int K,
                       int group) {
-  quant::gemm_tile<quant::B_PACKED4, quant::EPI_GROUPED>(xq, kq4, xs, scale,
-                                                         out, M, N, K, group);
+  quant::gemm_tile<quant::B_PACKED4>(xq, kq4, xs, scale, out, M, N, K,
+                                     group);
 }
 
 }  // namespace
@@ -346,7 +346,7 @@ extern "C" int int4_fwd(const void* x, const void* kq4, const void* scale_g,
         static_cast<bf16*>(out), M, N, K, group);
     return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t err = quant::launch_quantize<true>(x, xq, xs, M, K, group, st);
+  cudaError_t err = quant::launch_quantize(x, xq, xs, M, K, group, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((nh + quant::BN / 2 - 1) / (quant::BN / 2),
                   (M + quant::BM - 1) / quant::BM);

@@ -34,9 +34,8 @@ extern "C" int int8_grouped_fwd(const void* x, const void* kq,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      quant::launch_quantize<true>(x, xq, xs, M, K, quant::BK, st);
+  cudaError_t err = quant::launch_quantize(x, xq, xs, M, K, quant::BK, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      quant::launch_gemm<true>(xq, kq, xs, scale_g, out, M, N, K, st));
+      quant::launch_gemm(xq, kq, xs, scale_g, out, M, N, K, st));
 }

@@ -1,7 +1,7 @@
-// Device code shared by K3 (int8_fwd.cu), K7 (int8_grouped_fwd.cu), K8's
-// w4a8 branch (int4_fwd.cu) and K10 (int8_dgrad.cu): the activation quantize
-// pass and the int8 tensor-core GEMM tile with its three B layouts and three
-// epilogues.
+// Device code shared by K7 (int8_grouped_fwd.cu) and K8's w4a8 branch
+// (int4_fwd.cu): the grouped activation quantize pass and the int8
+// tensor-core GEMM tile with its two B layouts and the grouped epilogue;
+// the scale constants K3 (int8_fwd.cu) and K10 (int8_dgrad.cu) share.
 //
 // mma.sync m16n8k32 fragment layouts (s8 in, s32 accumulate), with lane =
 // 4 * g + t (g = lane >> 2 in 0..7, t = lane & 3):
@@ -34,15 +34,14 @@ constexpr float INV127 = 0x1.020408p-7f;  // float32(1/127)
 
 // ---------------------------------------------------------------------------
 // Quantize pass: one warp per (row, group) of x (M, K) bf16, group | K. The
-// scale is amax / 127 (DIVIDE, the grouped formulation of K7 and K8) or
-// amax * float32(1/127) (K3's per-row formulation), floored at EPS; each
-// code is rint(x / scale), half to even. Writes xq (M, K) int8 and xs
-// (M, K / group) f32.
+// scale is amax / 127 (the grouped formulation of K7 and K8), floored at
+// EPS; each code is rint(x / scale), half to even. Writes xq (M, K) int8
+// and xs (M, K / group) f32.
 // ---------------------------------------------------------------------------
 constexpr int QWARPS = 4;  // (row, group) items per block
 
-template <bool DIVIDE>
-__global__ void __launch_bounds__(QWARPS * 32)
+// (static: every source that includes this header keeps its own copy)
+static __global__ void __launch_bounds__(QWARPS * 32)
 quantize_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
                      float* __restrict__ xs, long long items, int group) {
   const long long item =
@@ -68,8 +67,7 @@ quantize_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
   for (int o = 16; o > 0; o >>= 1) {
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   }
-  const float s =
-      fmaxf(DIVIDE ? __fdiv_rn(amax, 127.f) : __fmul_rn(amax, INV127), EPS);
+  const float s = fmaxf(__fdiv_rn(amax, 127.f), EPS);
   if (lane == 0) xs[item] = s;
 
   for (int v = lane; v < nvec; v += 32) {
@@ -89,16 +87,15 @@ quantize_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
   }
 }
 
-template <bool DIVIDE>
-cudaError_t launch_quantize(const void* x, void* xq, void* xs, int M, int K,
-                            int group, cudaStream_t stream) {
+inline cudaError_t launch_quantize(const void* x, void* xq, void* xs, int M,
+                                   int K, int group, cudaStream_t stream) {
   const long long items = static_cast<long long>(M) * (K / group);
   const long long blocks = (items + QWARPS - 1) / QWARPS;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  quantize_rows_kernel<DIVIDE>
-      <<<static_cast<unsigned>(blocks), QWARPS * 32, 0, stream>>>(
-          static_cast<const bf16*>(x), static_cast<int8_t*>(xq),
-          static_cast<float*>(xs), items, group);
+  quantize_rows_kernel<<<static_cast<unsigned>(blocks), QWARPS * 32, 0,
+                         stream>>>(static_cast<const bf16*>(x),
+                                   static_cast<int8_t*>(xq),
+                                   static_cast<float*>(xs), items, group);
   return cudaGetLastError();
 }
 
@@ -108,20 +105,17 @@ cudaError_t launch_quantize(const void* x, void* xq, void* xs, int M, int K,
 // 128 x 128 output tile; each warp owns 64 rows x 32 columns (4 x 4 mma
 // tiles). The contraction streams through shared memory in 128-byte tiles;
 // rows past M or N and bytes past Kc are zero in shared memory. B is one of
-//   B_NK      (N, Kc), Kc-contiguous: kq of K3 and K7, each fragment
-//             register one aligned 32-bit load;
+//   B_NK      (N, Kc), Kc-contiguous: kq of K7, each fragment register
+//             one aligned 32-bit load;
 //   B_PACKED4 (N/2, Kc) packed int4 (K8): byte [j, k] holds column j in its
 //             low nibble and column j + N/2 in its high nibble. A block
 //             covers 64 packed rows, i.e. output columns [j0, j0 + 64) and
 //             [N/2 + j0, N/2 + j0 + 64); one 32-bit load of 4 packed bytes
 //             gives the fragment registers of both columns, the nibbles
 //             sign-extended bytewise.
-// Epilogues:
-//   EPI_CHANNEL (K3): int32 accumulation over all of Kc, then
-//     out = bf16((float(d) * xs[m]) * scale[n]).
-//   EPI_GROUPED (K7, K8 w4a8): after each `group`-wide slice g of Kc (a
-//     multiple of 128), in order, acc = acc + (float(d_g) * xs[m, g]) *
-//     scale[g, n], then d_g = 0; out = bf16(acc). |d_g| <= 127 * 127 * Kc
+// Epilogue (K7, K8 w4a8): after each `group`-wide slice g of Kc (a
+//   multiple of 128), in order, acc = acc + (float(d_g) * xs[m, g]) *
+//   scale[g, n], then d_g = 0; out = bf16(acc). |d_g| <= 127 * 127 * Kc
 //     < 2^24 up to Kc = 1040, and with int4 weights (|w| <= 8) up to
 //     Kc = 16513, so float(d_g) is exact on every shape the model has.
 // ---------------------------------------------------------------------------
@@ -132,7 +126,6 @@ constexpr int PITCH = BK + 16;  // 144-byte rows: fragment loads hit 32 banks
 constexpr int GEMM_THREADS = 256;
 
 enum BMode { B_NK = 0, B_PACKED4 = 1 };
-enum Epi { EPI_CHANNEL = 0, EPI_GROUPED = 1 };
 
 __device__ __forceinline__ void mma_s8_16832(int d[4], const uint32_t a[4],
                                              uint32_t b0, uint32_t b1) {
@@ -152,7 +145,7 @@ __device__ __forceinline__ uint32_t nibbles_hi(uint32_t p) {
   return nibbles_lo(p >> 4);
 }
 
-template <int BMODE, int EPI>
+template <int BMODE>
 __device__ __forceinline__ void gemm_tile(
     const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     const float* __restrict__ xs, const float* __restrict__ scale,
@@ -172,7 +165,7 @@ __device__ __forceinline__ void gemm_tile(
   const int wm = (warp >> 2) * 64;  // the warp's rows within the tile
   // the warp's columns within the tile (PACKED: its 16 packed rows)
   const int wn = (warp & 3) * (PACKED ? 16 : 32);
-  const int groups = Kc / group;    // EPI_GROUPED (Kc % group == 0)
+  const int groups = Kc / group;    // Kc % group == 0
 
   // column of fragment column 2t of n-tile nt; PACKED n-tiles 0, 1 are the
   // low nibbles of packed tiles 0, 1 and n-tiles 2, 3 their high nibbles
@@ -272,7 +265,7 @@ __device__ __forceinline__ void gemm_tile(
     }
     __syncthreads();  // the next tile overwrites a_s / b_s
 
-    if (EPI == EPI_GROUPED && (k0 + BK) % group == 0) {
+    if ((k0 + BK) % group == 0) {
       const int gi = k0 / group;
       float sv[4][2];
 #pragma unroll
@@ -314,54 +307,39 @@ __device__ __forceinline__ void gemm_tile(
     for (int h = 0; h < 2; ++h) {
       const int row = m0 + wm + mt * 16 + g + 8 * h;
       if (row >= M) continue;
-      const float xv = EPI == EPI_GROUPED ? 0.f : xs[row];
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         if (!col_ok(nt)) continue;  // N (or N/2) % 8 == 0: col + 1 is in
-        const int col = col_of(nt);
-        float v[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int i = 2 * h + c;
-          if (EPI == EPI_GROUPED) {
-            v[c] = facc[mt][nt][i];
-          } else {
-            v[c] = __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][i]), xv),
-                             scale[col + c]);
-          }
-        }
         *reinterpret_cast<__nv_bfloat162*>(
-            out + static_cast<long long>(row) * N + col) =
-            __floats2bfloat162_rn(v[0], v[1]);
+            out + static_cast<long long>(row) * N + col_of(nt)) =
+            __floats2bfloat162_rn(facc[mt][nt][2 * h],
+                                  facc[mt][nt][2 * h + 1]);
       }
     }
   }
 }
 
-// K3 (GROUPED = false) and K7 (GROUPED = true): B_NK, group 128
-template <bool GROUPED>
-__global__ void __launch_bounds__(GEMM_THREADS)
+// K7: B_NK, group 128
+static __global__ void __launch_bounds__(GEMM_THREADS)
 int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ kq,
                  const float* __restrict__ xs,
                  const float* __restrict__ scale, bf16* __restrict__ out,
                  int M, int N, int K) {
-  gemm_tile<B_NK, GROUPED ? EPI_GROUPED : EPI_CHANNEL>(xq, kq, xs, scale,
-                                                        out, M, N, K, BK);
+  gemm_tile<B_NK>(xq, kq, xs, scale, out, M, N, K, BK);
 }
 
-template <bool GROUPED>
-cudaError_t launch_gemm(const void* xq, const void* kq, const void* xs,
+inline cudaError_t launch_gemm(const void* xq, const void* kq, const void* xs,
                         const void* scale, void* out, int M, int N, int K,
                         cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int8_gemm_kernel<GROUPED><<<grid, GEMM_THREADS, 0, stream>>>(
+  int8_gemm_kernel<<<grid, GEMM_THREADS, 0, stream>>>(
       static_cast<const int8_t*>(xq), static_cast<const int8_t*>(kq),
       static_cast<const float*>(xs), static_cast<const float*>(scale),
       static_cast<bf16*>(out), M, N, K);
   return cudaGetLastError();
 }
 
-// The shapes both kernels take; the Python wrappers check the same.
+// The shapes K7 takes; the Python wrappers check the same.
 inline bool shapes_ok(int M, int N, int K) {
   return M > 0 && N > 0 && K > 0 && K % 16 == 0 && N % 8 == 0 &&
          (M + BM - 1) / BM <= 65535;

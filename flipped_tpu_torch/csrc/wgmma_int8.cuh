@@ -3,7 +3,8 @@
 // with b contiguous along Nout, i.e. MN-major for the product. K10
 // (int8_dgrad.cu) runs it with a = the quantized cotangent gq (M, N), b =
 // kq (N, K) and the row scales gsc; quant_common.cuh's mma.sync tile stays
-// for K3, K7 and K8 w4a8.
+// for K7 and K8 w4a8. (K3's operands are both K-major and need no swap:
+// int8_fwd.cu reads them with the SS form.)
 //
 // The constraint: for 8-bit types wgmma reads shared-memory operands
 // K-major only (its transpose bits are for 16-bit types), b is MN-major,

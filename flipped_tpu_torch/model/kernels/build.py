@@ -179,7 +179,8 @@ def _compile_and_link(nvcc: str, out_dir: Path, lib_path: Path) -> str:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))])
     except KernelBuildError:
-        os.unlink(tmp)
+        if os.path.exists(tmp):      # nvcc removes its output on failure
+            os.unlink(tmp)
         raise
     os.replace(tmp, lib_path)
     return log

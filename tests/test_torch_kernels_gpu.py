@@ -622,3 +622,86 @@ def test_dx_wrappers_refuse_unaligned_scales(cuda):
     off4.copy_(sg4)
     with pytest.raises(ValueError):
         qm.int4_dx(dy4, kq4, off4)
+
+
+# --- edge tiles of K3 (int8_fwd.cu) and K1 (flash_fwd_wgmma.cuh) -------------
+# K3 tiles 128 rows by 256 columns over 128-deep stages: M of one row and
+# past a 128- and a 256-row tile, N short of and past a 256-column tile, a
+# contraction of one 16-byte step and contractions ending part-way through
+# a stage, and one past the 12288 columns the quantize pass keeps in
+# registers (it reads the rest of the row twice). Bit for bit its plain
+# version (chip_smoke.py states why).
+K3_EDGE_M = (1, 129, 257)
+
+
+@pytest.mark.parametrize("m", K3_EDGE_M)
+@pytest.mark.parametrize("n,k", [(136, 16), (264, 144), (136, 400),
+                                 (264, 4096), (136, 12304)])
+def test_int8_fwd_edge_tiles_bitwise(cuda, m, n, k):
+    x, kq, scale, _, _ = _quant_inputs(cuda, m, k, n, 18)
+    if m == 1:                        # _quant_inputs zeroes row m // 2
+        x = torch.randn(1, k, device=cuda).to(torch.bfloat16)
+    before = qm.int8_fwd.launches
+    out = qm.int8_fwd(x, kq, scale)
+    torch.cuda.synchronize()
+    assert qm.int8_fwd.launches == before + 1
+    assert torch.equal(_bits(out), _bits(qm.int8_fwd_ref(x, kq, scale)))
+
+
+def _k1_hold(q, k, v, g2, video_start, out, lse):
+    """K1 against its plain version within K1_REL's bound (chip_smoke.py)
+    and its lse within 1e-5 relative, 1e-4 absolute of the plain one; past
+    S 650 within K5's bounds instead (chip_smoke.py STREAM_CASES), which add
+    the f32 sums of S terms and the score errors, the lse against the
+    float64 log-sum-exp."""
+    from flipped_tpu_torch.model.attention import video_block_bias
+
+    s, dh = q.shape[1], q.shape[3]
+    ref, ref_lse = fa.flash_text_attention_ref(q, k, v, g2, video_start, 10)
+    mag, _ = fa.flash_text_attention_ref(q, k, v.abs(), g2, video_start, 10)
+    mag = mag.double()
+    bound = 2.0 ** -7 * (mag + ref.double().abs()) + 2.0 ** -14
+    if s <= 650:
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    else:
+        causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        bb = torch.einsum("bshd,bthd->bhst", q.double().abs(),
+                          k.double().abs()) / dh ** 0.5
+        max_b = bb.masked_fill(~causal, 0).amax(-1)          # (B, H, S)
+        del bb
+        sc = torch.einsum("bshd,bthd->bhst", q.double(), k.double()) \
+            / dh ** 0.5 + video_block_bias(video_start, s, 10, g2.double())
+        lse64 = torch.logsumexp(sc.masked_fill(~causal, float("-inf")), -1)
+        del sc
+        lse_bound = (2.0 ** -16 * max_b + (s + s / 64 + 64) * 2.0 ** -24
+                     + 2.0 ** -23 * lse64.abs())
+        assert bool(((lse.double() - lse64).abs() <= lse_bound).all())
+        bound = bound + (2 * (s + s / 64) * 2.0 ** -24
+                         + 2.0 ** -16 * max_b.transpose(1, 2)[..., None]) \
+            * mag
+    assert bool(torch.isfinite(out).all())
+    assert bool(((out.double() - ref.double()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("s", [1, 64, 65, 127, 129, 255, 2049, 4096])
+@pytest.mark.parametrize("strided", [False, True])
+def test_flash_text_fwd_lengths_and_strided_views(cuda, s, strided):
+    """K1 at the edges of its 128-row q and key tiles and up to
+    MAX_SEQ_FWD, on (B, S, H, Dh) tensors and on the three slices of one
+    (B, S, 3, H, Dh) tensor."""
+    b, h = 2, 2
+    g = torch.Generator(device=cuda).manual_seed(19)
+    if strided:
+        q, k, v = torch.randn(b, s, 3, h, 128, device=cuda, generator=g).to(
+            torch.bfloat16).unbind(2)
+    else:
+        q, k, v = (torch.randn(b, s, h, 128, device=cuda, generator=g)
+                   .to(torch.bfloat16) for _ in range(3))
+    g2 = torch.randn(h, device=cuda, generator=g)
+    video_start = torch.tensor([min(5, s - 1), -1], dtype=torch.int32,
+                               device=cuda)
+    before = fa.flash_text_attention.launches
+    out, lse = fa.flash_text_attention(q, k, v, g2, video_start, 10)
+    torch.cuda.synchronize()
+    assert fa.flash_text_attention.launches == before + 1
+    _k1_hold(q, k, v, g2, video_start, out, lse)
