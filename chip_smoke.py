@@ -49,7 +49,9 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               same way at the three 3072-row shapes, and K3 at the eval's
               prefill and extend shapes, with the yardsticks `time_quant`
               names. K5, K6a and K6b at the long training shape (B 3, S
-              4096), with SDPA without the mask as an aside
+              4096), against SDPA's forward (K5) and its backward alone on
+              a saved forward (K6a + K6b), with SDPA without the mask as an
+              aside
   9. train    `flipped_tpu_torch.cli.train.main` at LLaMA-7B width (dim
               4096, 32 layers, random frozen weights from a seed), --vaq
               --qav, batch 8, S 128, one epoch over 64 synthetic NExT-QA
@@ -565,11 +567,13 @@ def check_k2(torch, fa):
     return worst
 
 
-def device_ms(torch, fn, n=20, reps=5):
+def device_ms(torch, fn, n=20, reps=5, stream=None):
     """Device time of one call: `n` calls captured in a CUDA graph, replayed
     `reps` times between CUDA events. Replay has no host work between the
-    launches, so this is the kernels' time, not the Python wrapper's."""
-    side = torch.cuda.Stream()
+    launches, so this is the kernels' time, not the Python wrapper's.
+    `stream`, if given, is the stream the warm-up runs on and the graph
+    captures (an autograd backward runs on its forward's stream)."""
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -577,7 +581,7 @@ def device_ms(torch, fn, n=20, reps=5):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(n):
             fn()
     graph.replay()
@@ -975,10 +979,12 @@ def time_stream(torch, fa):
     plain version (`timed`, the plain versions with few calls: each takes
     tens of ms), the bound, and the library yardstick
     `scaled_dot_product_attention` with the gate2 + causal bias as a bf16
-    (B, H, S, S) mask (`sdpa_mask`): forward for K5, forward and backward
-    for K6a and K6b (one call computes both passes' grads). As an aside,
-    SDPA with is_causal=True and no mask (no gate2 bias: not the same
-    function) shows what the mask costs it."""
+    (B, H, S, S) mask (`sdpa_mask`): forward for K5; its backward alone for
+    K6a and K6b, which take the forward's lse and D as inputs as K6 does
+    (one call computes both passes' grads; `torch.autograd.grad` with
+    retain_graph on one saved forward), with forward and backward beside
+    it. As an aside, SDPA with is_causal=True and no mask (no gate2 bias:
+    not the same function) shows what the mask costs it."""
     import torch.nn.functional as F
 
     b, s, h, dh = LONG_SHAPE
@@ -1006,32 +1012,50 @@ def time_stream(torch, fa):
         return F.scaled_dot_product_attention(
             *(x.transpose(1, 2) for x in xs), **kw)
 
+    def backward(**kw):
+        # the forward runs once, outside the timing, on the stream that the
+        # graph captures: its backward runs on that stream
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            out = sdpa(**kw)
+        ms = device_ms(torch, lambda: torch.autograd.grad(
+            out, xs, dot, retain_graph=True), stream=stream)
+        torch.cuda.current_stream().wait_stream(stream)
+        return ms
+
     fwd = device_ms(torch, lambda: sdpa(attn_mask=mask))
     fwd_bwd = device_ms(torch, lambda: torch.autograd.grad(
         sdpa(attn_mask=mask), xs, dot))
+    bwd = backward(attn_mask=mask)
     causal_fwd = device_ms(torch, lambda: sdpa(is_causal=True))
     causal_fwd_bwd = device_ms(torch, lambda: torch.autograd.grad(
         sdpa(is_causal=True), xs, dot))
+    causal_bwd = backward(is_causal=True)
     del mask
     # K5 moves K1's bytes and does K1's products
     for key, bound, lib in (("k5", k1_bound, fwd),
-                            ("k6a", k6a_bound, fwd_bwd),
-                            ("k6b", k6b_bound, fwd_bwd)):
+                            ("k6a", k6a_bound, bwd),
+                            ("k6b", k6b_bound, bwd)):
         t = times[key]
         t["library_ms"] = lib
         t["bound_ms"], t["bound_by"] = bound(b, s, h, dh)
+        what = ("forward" if key == "k5" else
+                f"backward alone (forward+backward {fwd_bwd:.5f} ms)")
         print(f"{key.upper()} timing {LONG_SHAPE}: device kernel "
               f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, sdpa "
-              f"{'forward' if key == 'k5' else 'forward+backward'} with the "
-              f"bias mask {lib:.5f} ms, bound {t['bound_ms']:.5f} ms "
-              f"({t['bound_by']}); runs {t['runs']}; host per eager call: "
-              f"kernel {t['host_us']:.1f} us, plain {t['plain_host_us']:.1f} "
-              f"us", flush=True)
+              f"{what} with the bias mask {lib:.5f} ms, bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}); runs {t['runs']}; "
+              f"host per eager call: kernel {t['host_us']:.1f} us, plain "
+              f"{t['plain_host_us']:.1f} us", flush=True)
     print(f"sdpa at {LONG_SHAPE} without the mask (is_causal=True, no gate2 "
-          f"bias): forward {causal_fwd:.5f} ms, forward+backward "
-          f"{causal_fwd_bwd:.5f} ms; the mask costs it "
-          f"{fwd - causal_fwd:.5f} and {fwd_bwd - causal_fwd_bwd:.5f} ms",
-          flush=True)
+          f"bias): forward {causal_fwd:.5f} ms, backward alone "
+          f"{causal_bwd:.5f} ms, forward+backward {causal_fwd_bwd:.5f} ms; "
+          f"the mask costs it {fwd - causal_fwd:.5f}, {bwd - causal_bwd:.5f} "
+          f"and {fwd_bwd - causal_fwd_bwd:.5f} ms", flush=True)
+    print(f"K6a + K6b {times['k6a']['ms'] + times['k6b']['ms']:.5f} ms "
+          f"against sdpa's backward alone: {bwd:.5f} ms with the bias mask, "
+          f"{causal_bwd:.5f} ms without", flush=True)
     return times
 
 

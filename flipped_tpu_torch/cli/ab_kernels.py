@@ -1,15 +1,16 @@
-"""Time K1, K2, K3, K5, K7, K4, K8 (both branches), K9 and K10 of this
-checkout and another on one card, in turns.
+"""Time K1, K2, K3, K5, K6a, K6b, K7, K4, K8 (both branches), K9 and K10
+of this checkout and another on one card, in turns.
 
     python -m flipped_tpu_torch.cli.ab_kernels <other checkout>
 
 The turns are other, this, this, other, each in its own process (both
 checkouts' packages have one name): a turn builds its checkout's kernels and
 times, by CUDA-graph replay, K1 at the shapes of `chip_smoke.K1_SHAPES`, K2
-at the training shape (B 24, S 128) and K5 at the long training shape
-(`LONG_SHAPE`, B 3, S 4096), then K3, K7, K4, K8 (w4a8 "k8a", weight-only
-"k8w"), K9 and K10 at the three 3072-row 7B shapes and K3 at the eval's
-w1/w3 shapes (`K3_EVAL`), with that checkout's `chip_smoke.py`
+at the training shape (B 24, S 128), K5 at the long training shape
+(`LONG_SHAPE`, B 3, S 4096) and K6a, K6b there on K5's lse and D, then
+K3, K7, K4, K8 (w4a8 "k8a", weight-only "k8w"), K9 and K10 at the three
+3072-row 7B shapes and K3 at the eval's w1/w3 shapes (`K3_EVAL`), with
+that checkout's `chip_smoke.py`
 (`k1_inputs`, `k2_inputs`, `stream_inputs`, `quant_inputs`, `int4_inputs`,
 `device_ms`); K3's and K10's two launches are also timed apart ("k3
 quantize", "k3 gemm", "k10 quantize", "k10 gemm": device time by kernel
@@ -100,12 +101,20 @@ def time_checkout(root: str) -> dict:
     out["k2 train"] = timed("k2 train", lambda: fa.flash_text_attention_bwd(
         q, k, v, g2, video_start, cs.MAX_FEATS, do, o, lse))
     b, s, h, _ = cs.LONG_SHAPE
-    q, k, v, _, g2, video_start = cs.stream_inputs(torch, b, s, s, h,
-                                                   cs.LONG_VS, 600)
+    q, k, v, do, g2, video_start = cs.stream_inputs(torch, b, s, s, h,
+                                                    cs.LONG_VS, 600)
     out["k5 long train"] = timed(
         "k5 long train", lambda: fa.flash_streaming_fwd(
             q, k, v, g2, video_start, cs.MAX_FEATS))
-    del q, k, v
+    # K6a and K6b on K5's lse and D of the same inputs, as the path runs them
+    o, lse = fa.flash_streaming_fwd(q, k, v, g2, video_start, cs.MAX_FEATS)
+    args = (q, k, v, g2, video_start, cs.MAX_FEATS, do, lse,
+            fa.stream_delta(do, o))
+    out["k6a long train"] = timed(
+        "k6a long train", lambda: fa.flash_streaming_dq(*args))
+    out["k6b long train"] = timed(
+        "k6b long train", lambda: fa.flash_streaming_dkv(*args))
+    del q, k, v, do, o, lse, args
     for name in SHAPES:
         m, k, n = cs.QUANT_MAIN[name]
         x, kq, scale, sg, g = cs.quant_inputs(torch, m, k, n, 400)

@@ -1,5 +1,6 @@
-// The backward tile loops shared by K2 (flash_text_bwd.cu) and K6a/K6b
-// (flash_stream_bwd.cu). For q row i (local) at global position
+// The backward tile loops of K2 (flash_text_bwd.cu), on mma.sync; K6a and
+// K6b run the TMA + wgmma loops of flash_bwd_wgmma.cuh, which compute the
+// same function. For q row i (local) at global position
 // r = q_offset + i and key c, with the forward's scores s (flash_fwd.cuh),
 // its saved row log-sum-exp lse and D = rowsum(dO * O) given per row:
 //   P[i, c]   = exp(s[i, c] - lse[i])       0 unless c <= r, c < S_k, i < S_q

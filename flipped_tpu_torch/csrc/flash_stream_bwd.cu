@@ -1,6 +1,6 @@
 // K6a and K6b for Hopper: the streaming backward of the causal text
 // attention with the gate2 video-block bias, for a q shard at a global
-// offset, in two passes with no atomics.
+// offset, in two passes with no atomics on the outputs.
 //
 // Replaces the TPU kernels of flash_streaming_bwd
 // (flipped_tpu/model/pallas/flash_attention.py:484-578, 665-719):
@@ -8,15 +8,15 @@
 //                                               keys innermost;
 //   K6b _stream_dkv_kernel -> flash_stream_dkv: dk, dv (S_k rows), q rows
 //                                               innermost.
-// What they compute is stated in flash_bwd.cuh: q, dout (B, S_q, H, Dh) at
-// global rows q_offset + i, k, v (B, S_k, H, Dh), the forward's lse and the
-// row statistic D = rowsum(dO * O_text) (B, H, S_q) f32 both computed
-// outside these kernels (the lse by K5, D by the wrapper in plain torch, as
-// the JAX package computes it in XLA, :608-613). dk and dv are partial sums
-// over this shard's rows only (the mask keeps i < S_q, the TPU kernel's
-// row < q_offset + S_q): a sequence-parallel caller sums them over the
-// shards, and sums dgate2 too. Key tiles above every row of the shard write
-// zero dk/dv.
+// What they compute is stated in flash_bwd_wgmma.cuh: q, dout (B, S_q, H,
+// Dh) at global rows q_offset + i, k, v (B, S_k, H, Dh), all contiguous,
+// the forward's lse and the row statistic D = rowsum(dO * O_text) (B, H,
+// S_q) f32 both computed outside these kernels (the lse by K5, D by the
+// wrapper in plain torch, as the JAX package computes it in XLA,
+// :608-613). dk and dv are partial sums over this shard's rows only (the
+// TPU kernel's row < q_offset + S_q): a sequence-parallel caller sums them
+// over the shards, and sums dgate2 too. Key tiles above every row of the
+// shard write zero dk/dv.
 //
 // What bounds them on an H100: at the long-context training shape (B 3,
 // S 4096, H 32, Dh 128) K6a does three products over the 8.4 M causal
@@ -25,59 +25,71 @@
 // 0.83 ms), against 0.50 GB (K6a: q, k, v, dO read, dq written) and 0.60 GB
 // (K6b: dk, dv written) of bytes, 0.15 and 0.18 ms at 3.35 TB/s: both are
 // bound by operations.
-// What the design does about it: every S x S tile (P, dP, dS) stays in
-// registers, the products run on the tensor cores (mma.sync m16n8k16), and
-// causally dead tiles are skipped per block and per warp. The TPU grid
-// carried dq, dk/dv and dgate2 in VMEM scratch across sequential grid steps;
-// blocks on the card run in no order, so each sum is a loop inside one
-// block (the dq and dkdv tile loops of flash_bwd.cuh, shared with K2), and
-// dgate2 becomes one partial per (b, h, 64-row q tile), summed by the
-// caller. Splitting the passes (recomputing P in each) keeps every output
-// with one writer instead of the atomics a fused pass would need.
-// Not yet done (later work): cp.async/TMA double buffering, ldmatrix,
-// wgmma.
+// What the design does about it (flash_bwd_wgmma.cuh): every product is a
+// wgmma on operands that TMA wrote into shared memory through an mbarrier
+// ring, a producer warp keeping the loads in flight while two consumer
+// warpgroups compute; every S x S tile (P, dP, dS) stays in registers and
+// feeds the next product from there; the tiles are 128 rows (K6a) or 128
+// keys (K6b) an item, so each K/V (K6a) or Q/dO (K6b) byte is read once per
+// item; causally dead tiles are never loaded; a persistent grid takes items
+// from a shared counter, the longest first, in groups of a few heads that
+// L2 holds. The TPU grid carried dq, dk/dv and dgate2 in
+// VMEM scratch across sequential grid steps; blocks on the card run in no
+// order, so each sum is a loop inside one block, and dgate2 becomes one
+// partial per (b, h, 64-row q tile), summed by the caller. Splitting the
+// passes (recomputing P in each) keeps every output with one writer instead
+// of the atomics a fused pass would need.
 
 #include <cuda_runtime.h>
 
-#include "flash_bwd.cuh"
+#include "flash_bwd_wgmma.cuh"
 
 namespace {
 
-using flash::bf16;
+// each kernel's shared item counter and count of blocks done (zero between
+// launches: the last block of a launch resets them)
+__device__ unsigned int dq_sched[2];
+__device__ unsigned int dkv_sched[2];
 
-template <int DH>
-__global__ void __launch_bounds__(flash::BWD_THREADS)
-flash_stream_dq_kernel(const flash::BwdArgs a) {
-  flash::dq_tile<DH>(a);
+__global__ void __launch_bounds__(flashbw::THREADS, 1)
+flash_stream_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap do_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const flashbw::Args a) {
+  flashbw::dq_body(&q_map, &do_map, &k_map, &v_map, a);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(flash::BWD_THREADS)
-flash_stream_dkv_kernel(const flash::BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  flash::dkdv_tile<DH>(a, smem_raw);
+__global__ void __launch_bounds__(flashbw::THREADS, 1)
+flash_stream_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap do_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const flashbw::Args a) {
+  flashbw::dkv_body(&q_map, &do_map, &k_map, &v_map, a);
 }
 
-bool bad_shape(int B, int S_q, int S_k, int H, int q_offset) {
+// every LLaMA preset of the repo has Dh = 128
+bool bad_shape(int B, int S_q, int S_k, int H, int Dh, int q_offset) {
   return B <= 0 || S_q <= 0 || S_k <= 0 || H <= 0 || q_offset < 0 ||
-         B > 65535 || H > 65535;
+         Dh != flashbw::DH;
 }
 
-flash::BwdArgs make_args(const void* q, const void* k, const void* v,
-                         const void* dout, const void* lse,
-                         const void* delta, const void* gate2,
-                         const void* video_start, void* dq, void* dk,
-                         void* dv, void* dg2_part, int S_q, int S_k, int H,
-                         int q_offset, int max_feats, float scale) {
-  return flash::BwdArgs{
-      static_cast<const bf16*>(q),     static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v),     static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse),  static_cast<const float*>(delta),
-      static_cast<const float*>(gate2),
-      static_cast<const int*>(video_start),
-      static_cast<bf16*>(dq),          static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv),          static_cast<float*>(dg2_part),
-      S_q, S_k, q_offset, H, max_feats, scale};
+flashbw::Args make_args(const void* lse, const void* delta,
+                        const void* gate2, const void* video_start, void* dq,
+                        void* dg2_part, void* dk, void* dv, void* sched,
+                        int B, int S_q, int S_k, int H, int q_offset,
+                        int max_feats, float scale) {
+  return flashbw::Args{static_cast<const float*>(lse),
+                       static_cast<const float*>(delta),
+                       static_cast<const float*>(gate2),
+                       static_cast<const int*>(video_start),
+                       static_cast<flashbw::bf16*>(dq),
+                       static_cast<float*>(dg2_part),
+                       static_cast<flashbw::bf16*>(dk),
+                       static_cast<flashbw::bf16*>(dv),
+                       static_cast<unsigned int*>(sched),
+                       B, S_q, S_k, q_offset, H, max_feats, scale};
 }
 
 }  // namespace
@@ -90,20 +102,25 @@ extern "C" int flash_stream_dq(const void* q, const void* k, const void* v,
                                void* dg2_part, int B, int S_q, int S_k, int H,
                                int Dh, int q_offset, int max_feats,
                                float scale, void* stream) {
-  if (bad_shape(B, S_q, S_k, H, q_offset)) {
+  if (bad_shape(B, S_q, S_k, H, Dh, q_offset)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const flash::BwdArgs a =
-      make_args(q, k, v, dout, lse, delta, gate2, video_start, dq, nullptr,
-                nullptr, dg2_part, S_q, S_k, H, q_offset, max_feats, scale);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Dh) {  // every LLaMA preset of the repo has Dh = 128
-    case 128:
-      return static_cast<int>(
-          flash::launch_dq(flash_stream_dq_kernel<128>, a, B, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  CUtensorMap maps[4];
+  cudaError_t err = flashbw::make_maps(maps, q, dout, k, v, B, S_q, S_k, H,
+                                       flashbw::DQ_BQ, flashbw::DQ_BKV);
+  void* sched = nullptr;
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&sched, dq_sched);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const flashbw::Args a =
+      make_args(lse, delta, gate2, video_start, dq, dg2_part, nullptr,
+                nullptr, sched, B, S_q, S_k, H, q_offset, max_feats, scale);
+  static bool attr_set = false;
+  const long long items =
+      static_cast<long long>((S_q + flashbw::DQ_BQ - 1) / flashbw::DQ_BQ) *
+      H * B;
+  return static_cast<int>(flashbw::launch(
+      flash_stream_dq_kernel, maps, a, items, flashbw::DQ_SMEM, attr_set,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // K6b: dk, dv (B, S_k, H, Dh), partial over this shard's rows.
@@ -114,18 +131,23 @@ extern "C" int flash_stream_dkv(const void* q, const void* k, const void* v,
                                 int B, int S_q, int S_k, int H, int Dh,
                                 int q_offset, int max_feats, float scale,
                                 void* stream) {
-  if (bad_shape(B, S_q, S_k, H, q_offset)) {
+  if (bad_shape(B, S_q, S_k, H, Dh, q_offset)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const flash::BwdArgs a =
-      make_args(q, k, v, dout, lse, delta, gate2, video_start, nullptr, dk,
-                dv, nullptr, S_q, S_k, H, q_offset, max_feats, scale);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Dh) {
-    case 128:
-      return static_cast<int>(
-          flash::launch_dkdv<128>(flash_stream_dkv_kernel<128>, a, B, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  CUtensorMap maps[4];
+  cudaError_t err = flashbw::make_maps(maps, q, dout, k, v, B, S_q, S_k, H,
+                                       flashbw::DKV_BQ, flashbw::DKV_BK);
+  void* sched = nullptr;
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&sched, dkv_sched);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const flashbw::Args a =
+      make_args(lse, delta, gate2, video_start, nullptr, nullptr, dk, dv,
+                sched, B, S_q, S_k, H, q_offset, max_feats, scale);
+  static bool attr_set = false;
+  const long long items =
+      static_cast<long long>((S_k + flashbw::DKV_BK - 1) / flashbw::DKV_BK) *
+      H * B;
+  return static_cast<int>(flashbw::launch(
+      flash_stream_dkv_kernel, maps, a, items, flashbw::DKV_SMEM, attr_set,
+      static_cast<cudaStream_t>(stream)));
 }

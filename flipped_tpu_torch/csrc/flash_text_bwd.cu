@@ -29,10 +29,10 @@
 // What the design does about the TPU kernel's shape: that kernel held all
 // of S x S for one (b, h) in VMEM, which 227 KB of shared memory cannot
 // hold at S 650 (TVQA) and beyond. Here the work is tiled in three passes
-// (the dkdv and dq tile loops of flash_bwd.cuh, shared with K6a and K6b in
-// flash_stream_bwd.cu, at q_offset 0 and S_k = S), so any S is taken; the
-// wrapper (model/kernels/flash_attention.py) routes S <= MAX_SEQ_BWD = 2048
-// here and longer sequences to K6, as the JAX package does:
+// (the dkdv and dq tile loops of flash_bwd.cuh at q_offset 0 and S_k = S),
+// so any S is taken; the wrapper (model/kernels/flash_attention.py) routes
+// S <= MAX_SEQ_BWD = 2048 here and longer sequences to K6, as the JAX
+// package does:
 //   1. delta: D for every row, one warp per row.
 //   2. dq:    one block per (b, h, 64-row q tile), 4 warps x 16 rows, the
 //             loop over 32-key K/V tiles up to the diagonal; one dgate2
@@ -43,8 +43,9 @@
 // No atomics: every output element and every dgate2 partial has one writer,
 // so the result is the same from run to run. Rows past S are zero-filled on
 // load (0 * garbage could be NaN) and masked out of P.
-// Not yet done (later work): cp.async/TMA double buffering, ldmatrix, wgmma,
-// and fusing the dq pass into the dkdv pass.
+// Not yet done (later work): moving onto flash_bwd_wgmma.cuh's TMA + wgmma
+// loops (K6a's and K6b's, which keep q_offset, S_q and S_k general), and
+// fusing the dq pass into the dkdv pass.
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the TMA-fed wgmma kernels (K3 in
 // int8_fwd.cu, K8 weight-only in int4_fwd.cu, K10's GEMM in wgmma_int8.cuh,
-// K4 and K9 in dx_wgmma.cuh, K1 in flash_fwd_wgmma.cuh): mbarriers, TMA
+// K4 and K9 in dx_wgmma.cuh, K1 in flash_fwd_wgmma.cuh, K6a and K6b in
+// flash_bwd_wgmma.cuh): mbarriers, TMA
 // tile loads, shared-memory matrix descriptors, the wgmma forms and fences,
 // the int4 dequantize into register operands, and the host-side tensor-map
 // encoders.
@@ -584,8 +585,9 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_ss(
 }
 
 // RS bf16 wgmma with B MN-major (the transpose bit, 16-bit types only:
-// K1's O += P V, V's rows contiguous along the output columns); `desc_b`
-// from desc_sw128_mn. Adds to d (K1 zeroes d before its first tile).
+// K1's O += P V, V's rows contiguous along the output columns; K6a's
+// dQ += dS K and K6b's dV += P^T dO, dK += dS^T Q likewise); `desc_b` from
+// desc_sw128_mn. Adds to d (the callers zero d before their first tile).
 __device__ __forceinline__ void wgmma_m64n128k16_bf16_rs_tb(
     float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(
@@ -620,6 +622,59 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_rs_tb(
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// SS bf16 wgmma m64n64k16 (K6a's S = Q K^T and dP = dO V^T over 64-key
+// tiles, K6b's S^T = K Q^T and dP^T = V dO^T over 64-row q steps): A and
+// B both K-major tiles in shared memory; D d[4i + e] at (row 16w + g,
+// column 8i + 2t + e), d[4i + 2 + e] at row 16w + g + 8, i in 0..7.
+// _zero writes d, the other adds to it.
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_ss_zero(
+    float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(
+    float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // Keeps the compiler from moving reads of an accumulator register across

@@ -158,33 +158,63 @@ def test_flash_stream_fwd_matches_plain(cuda, b, s_q, s_k, h, q_offset, vs):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("b,s_q,s_k,h,q_offset,vs", STREAM_CASES)
+# Edges of K6a's and K6b's tiles (K6a: 128-row q items of two 64-row
+# warpgroups against 128-key tiles; K6b: 128-key items of two 64-key
+# warpgroups against 64-row q steps): S_q of 1 (at offsets that give its
+# row more than one key: with one key, dS is 0 and both sides return only
+# the rounding of dP - D), 65 and 129, past a 64-row and a 128-row tile,
+# and none of them nor 258 a multiple of 4 (lse and D rows that are not
+# 16 bytes apart); S_k > q_offset + S_q at an offset that
+# is no multiple of a tile, so that K6b's last key tiles see no row; a
+# video block across the 128-key tile edge (vs 120 with max_feats 10) and
+# one across the warpgroups' 64-key edge (vs 60); B * H * tiles above the
+# card's 132 SMs, so that the persistent grids wrap; and runs of work a
+# warpgroup skips: 248 of K6b's 256 key tiles after every row (S_q 64
+# against S_k 4096), and a K6a warpgroup whose 64 rows all lie past S_q
+# across 25 key tiles (S_q 64 at q_offset 3000).
+STREAM_EDGE = [(1, 1, 2, 2, 1, (0,)), (2, 1, 300, 2, 200, (5, -1)),
+               (2, 65, 65, 4, 0, (3, -1)), (1, 129, 129, 4, 0, (60,)),
+               (1, 258, 258, 2, 0, (120,)), (1, 100, 400, 2, 37, (10,)),
+               (3, 520, 520, 32, 0, (5, -1, 40)),
+               (1, 64, 4096, 8, 0, (5,)), (2, 64, 3200, 4, 3000, (3000, -1))]
+
+
+@pytest.mark.parametrize("b,s_q,s_k,h,q_offset,vs",
+                         STREAM_CASES + STREAM_EDGE)
 def test_flash_stream_bwd_matches_plain(cuda, b, s_q, s_k, h, q_offset, vs):
+    """K6a and K6b: one launch each, within the coarse bound below of their
+    plain versions; keys after every row (c > q_offset + S_q - 1) exactly
+    zero in dk and dv; a second run equal bit for bit (one writer an
+    element, no atomics on the outputs)."""
     q, k, v, do, g2, video_start = _stream_inputs(cuda, b, s_q, s_k, h, vs, 6)
     out, lse = fa.flash_streaming_fwd(q, k, v, g2, video_start, 10, q_offset)
     delta = fa.stream_delta(do, out)
+    args = (q, k, v, g2, video_start, 10, do, lse, delta, q_offset)
     b_dq, b_dkv = fa.flash_streaming_dq.launches, \
         fa.flash_streaming_dkv.launches
-    dq, dg2 = fa.flash_streaming_dq(q, k, v, g2, video_start, 10, do, lse,
-                                    delta, q_offset)
-    dk, dv = fa.flash_streaming_dkv(q, k, v, g2, video_start, 10, do, lse,
-                                    delta, q_offset)
+    got = fa.flash_streaming_dq(*args) + fa.flash_streaming_dkv(*args)
     torch.cuda.synchronize()
     assert (fa.flash_streaming_dq.launches,
             fa.flash_streaming_dkv.launches) == (b_dq + 1, b_dkv + 1)
-    ref_dq, ref_dg2 = fa.flash_streaming_dq_ref(q, k, v, g2, video_start, 10,
-                                                do, lse, delta, q_offset)
-    refs = (ref_dq,) + fa.flash_streaming_dkv_ref(
-        q, k, v, g2, video_start, 10, do, lse, delta, q_offset)
+    again = fa.flash_streaming_dq(*args) + fa.flash_streaming_dkv(*args)
+    refs = fa.flash_streaming_dq_ref(*args) + fa.flash_streaming_dkv_ref(
+        *args)
     # the same D and lse on both sides: a flip of one bf16 ulp in P or dS
     # moves a grad by 2^-7 of one term; chip_smoke.py states the full bound,
     # this is its coarse form
-    for name, x, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+    for name, x, y, r in zip(("dq", "dgate2", "dk", "dv"), got, again, refs):
         assert bool(torch.isfinite(x).all()), name
+        assert torch.equal(x, y), name
+        if name == "dgate2":
+            # both sum the same f32 dS over the block, in other orders
+            torch.testing.assert_close(x, r, rtol=1e-3, atol=1e-3)
+            continue
         tol = 2.0 ** -6 * float(r.float().abs().max())
         assert float((x.float() - r.float()).abs().max()) <= tol, name
-    # both sum the same f32 dS over the block, in other orders
-    torch.testing.assert_close(dg2, ref_dg2, rtol=1e-3, atol=1e-3)
+    dead = q_offset + s_q                      # the first key no row sees
+    if dead < s_k:
+        assert not bool(got[2][:, dead:].any()), "dk past every row"
+        assert not bool(got[3][:, dead:].any()), "dv past every row"
 
 
 def test_flash_stream_shards_sum_to_the_full_backward(cuda):

@@ -1,9 +1,9 @@
-"""Host-side facts of the TMA + wgmma kernels (K3, K1, K8 weight-only,
-K10's GEMM, K4 and K9) that hold without a card: the profiler files their
-kernels under their classes, their main loops are wgmma fed by TMA through
-an mbarrier ring, with no mma.sync left in them, and the integer tricks by
-which K4 and K9 dequantize into wgmma's register operand are exact (the
-CUDA sources themselves run only on the card:
+"""Host-side facts of the TMA + wgmma kernels (K3, K1, K6a, K6b, K8
+weight-only, K10's GEMM, K4 and K9) that hold without a card: the profiler
+files their kernels under their classes, their main loops are wgmma fed by
+TMA through an mbarrier ring, with no mma.sync left in them, and the
+integer tricks by which K4 and K9 dequantize into wgmma's register operand
+are exact (the CUDA sources themselves run only on the card:
 tests/test_torch_kernels_gpu.py)."""
 import re
 from pathlib import Path
@@ -48,6 +48,12 @@ def _function(src: str, name: str) -> str:
      "int8 GEMM (K3/K7)"),
     ("void (anonymous namespace)::flash_text_fwd_kernel(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, flashw::Args)", "flash (K1/K2)"),
+    ("void (anonymous namespace)::flash_stream_dq_kernel(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, flashbw::Args)",
+     "flash stream (K5/K6)"),
+    ("void (anonymous namespace)::flash_stream_dkv_kernel(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, flashbw::Args)",
+     "flash stream (K5/K6)"),
     ("nvjet_hsh_128x256_64x4_2x1_v_bz_coopA_TNN", "gemm")])
 def test_profile_classes_the_wgmma_kernels(name, cls):
     assert tprofile.kernel_class(name) == cls
@@ -110,6 +116,67 @@ def test_k1_products_are_wgmma():
     common = (CSRC / "hopper_common.cuh").read_text()
     # the transposed-B form: scale-a 1, scale-b 1, tnspB 1
     assert "p, 1, 1, 1;" in _function(common, "wgmma_m64n128k16_bf16_rs_tb")
+
+
+@pytest.mark.parametrize("loop,produce,forms", [
+    ("dq_consume", "dq_produce", ("wgmma_m64n128k16_bf16_ss",)),
+    ("dkv_consume", "dkv_produce", ("wgmma_m64n64k16_bf16_ss",))])
+def test_k6_loops_are_tma_fed_wgmma(loop, produce, forms):
+    """K6a's and K6b's loops (flash_bwd_wgmma.cuh) wait on the TMA ring's
+    barriers and run their products as wgmma: S and dP (K6b: S^T and dP^T)
+    SS through `ss_dh`, dq (K6b: dv and dk) RS with B MN-major through
+    `rs_mn`; their producers load by 4-D TMA; no mma.sync is left, and the
+    consumers take 232 registers from the producer warpgroup."""
+    src = (CSRC / "flash_bwd_wgmma.cuh").read_text()
+    body = _function(src, loop)
+    assert "ss_dh(" in body and "rs_mn(" in body and "mbar_wait(" in body
+    ss_forms = src[src.index("void ss("):src.index("void ss_dh(")]
+    for form in forms:
+        assert f"hopper::{form}_zero" in ss_forms and f"hopper::{form}(" \
+            in ss_forms
+    rs = _function(src, "rs_mn")
+    assert "wgmma_m64n128k16_bf16_rs_tb" in rs and "desc_sw128_mn" in rs
+    assert "tma_load_4d" in _function(src, produce)
+    assert "mma_16816" not in src and "mma.sync" not in src
+    assert "regs_alloc<232>" in src and "regs_dealloc<40>" in src
+    common = (CSRC / "hopper_common.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in common
+
+
+def test_k6_every_consumer_warp_releases_a_stage():
+    """Every empty barrier of K6a and K6b counts the 8 consumer warps and is
+    arrived on by lane 0 of each: with one arrival a warpgroup, a warp that
+    trails its warpgroup through skipped work (no wgmma ties the four
+    together) can see a stage refilled twice and wait forever on a parity
+    that has come round again."""
+    src = (CSRC / "flash_bwd_wgmma.cuh").read_text()
+    assert "constexpr int CONSUMER_WARPS = 8;" in src
+    inits = re.findall(r"mbar_init\((&?bar\.empty\w*(?:\[s\])?), (\w+)\)",
+                       src)
+    assert len(inits) == 4 and all(n == "CONSUMER_WARPS" for _, n in inits)
+    for loop in ("dq_consume", "dkv_consume"):
+        body = _function(src, loop)
+        arrives = [m.start() for m in re.finditer(
+            r"hopper::mbar_arrive\(&?bar\.empty", body)]
+        assert len(arrives) >= 3
+        for at in arrives:        # the condition that guards the arrival
+            cond = body[body.rindex("if (", 0, at):at]
+            assert "lane == 0" in cond and "leader" not in cond, cond
+
+
+def test_k6_runs_the_new_loops_and_k2_keeps_flash_bwd():
+    """flash_stream_bwd.cu (K6a, K6b) runs flash_bwd_wgmma.cuh's loops and
+    no longer includes flash_bwd.cuh, which serves K2 (flash_text_bwd.cu)
+    alone; the __global__ names keep "flash_stream", by which the profiler
+    files them."""
+    k6 = (CSRC / "flash_stream_bwd.cu").read_text()
+    assert '#include "flash_bwd_wgmma.cuh"' in k6
+    assert '#include "flash_bwd.cuh"' not in k6
+    assert "flashbw::dq_body" in k6 and "flashbw::dkv_body" in k6
+    assert "flash_stream_dq_kernel" in k6 and "flash_stream_dkv_kernel" in k6
+    k2 = (CSRC / "flash_text_bwd.cu").read_text()
+    assert '#include "flash_bwd.cuh"' in k2
+    assert "flash::dq_tile" in k2 and "flash::dkdv_tile" in k2
 
 
 def test_k3_epilogue_keeps_the_jax_order_and_no_mma_sync():
