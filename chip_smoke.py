@@ -43,8 +43,9 @@ Phases; any failure prints its traceback and exits 1 without a result line:
   8. timing   K1 and K2, kernel and plain version: device time by CUDA-graph
               replay between CUDA events, host time per eager call; the
               library yardstick `scaled_dot_product_attention` with the
-              gate2 + causal bias as a float mask (forward for K1, forward
-              and backward for K2); and each kernel's bound from its bytes
+              gate2 + causal bias as a float mask (forward for K1; for K2
+              its backward alone on a saved forward, with forward and
+              backward beside it); and each kernel's bound from its bytes
               and operations. K3, K7, K4, K8 (both branches), K9 and K10 the
               same way at the three 3072-row shapes, and K3 at the eval's
               prefill and extend shapes, with the yardsticks `time_quant`
@@ -974,6 +975,45 @@ def k6b_bound(b, s, h, dh):
     return bound_ms(nbytes, 4 * 2 * dh * causal_pairs(s) * b * h)
 
 
+def sdpa_times(torch, q, k, v, do, mask):
+    """Device ms of `scaled_dot_product_attention` on q, k, v (B, S, H, Dh)
+    with cotangent do: "mask" with the gate2 + causal bias as the bf16
+    (B, H, S, S) `mask`, "causal" with is_causal=True and no mask (no gate2
+    bias: not the same function, an aside); each as "fwd" the forward,
+    "fwd_bwd" the forward and backward, and "bwd" the backward alone on one
+    saved forward, as the kernels K2 and K6 take the forward's out and lse
+    (`torch.autograd.grad` with retain_graph; the forward runs once, outside
+    the timing, on the stream that the graph captures)."""
+    import torch.nn.functional as F
+
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    dot = do.transpose(1, 2)
+
+    def sdpa(**kw):
+        return F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in xs), **kw)
+
+    def backward(**kw):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            out = sdpa(**kw)
+        ms = device_ms(torch, lambda: torch.autograd.grad(
+            out, xs, dot, retain_graph=True), stream=stream)
+        torch.cuda.current_stream().wait_stream(stream)
+        return ms
+
+    times = {}
+    for key, kw in (("mask", {"attn_mask": mask}),
+                    ("causal", {"is_causal": True})):
+        times[key] = {
+            "fwd": device_ms(torch, lambda: sdpa(**kw)),
+            "fwd_bwd": device_ms(torch, lambda: torch.autograd.grad(
+                sdpa(**kw), xs, dot)),
+            "bwd": backward(**kw)}
+    return times
+
+
 def time_stream(torch, fa):
     """K5, K6a and K6b at the long training shape (LONG_SHAPE): kernel and
     plain version (`timed`, the plain versions with few calls: each takes
@@ -984,9 +1024,7 @@ def time_stream(torch, fa):
     (one call computes both passes' grads; `torch.autograd.grad` with
     retain_graph on one saved forward), with forward and backward beside
     it. As an aside, SDPA with is_causal=True and no mask (no gate2 bias:
-    not the same function) shows what the mask costs it."""
-    import torch.nn.functional as F
-
+    not the same function) shows what the mask costs it (`sdpa_times`)."""
     b, s, h, dh = LONG_SHAPE
     q, k, v, do, gate2, vs = stream_inputs(torch, b, s, s, h, LONG_VS, 600)
     out, lse = fa.flash_streaming_fwd(q, k, v, gate2, vs, MAX_FEATS)
@@ -1004,35 +1042,10 @@ def time_stream(torch, fa):
                          *args, do, lse, delta),
                      lambda: fa.flash_streaming_dkv_ref(*args, do, lse, delta),
                      **few)}
-    mask = sdpa_mask(torch, gate2, vs, s)
-    xs = [x.detach().requires_grad_() for x in (q, k, v)]
-    dot = do.transpose(1, 2)
-
-    def sdpa(**kw):
-        return F.scaled_dot_product_attention(
-            *(x.transpose(1, 2) for x in xs), **kw)
-
-    def backward(**kw):
-        # the forward runs once, outside the timing, on the stream that the
-        # graph captures: its backward runs on that stream
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            out = sdpa(**kw)
-        ms = device_ms(torch, lambda: torch.autograd.grad(
-            out, xs, dot, retain_graph=True), stream=stream)
-        torch.cuda.current_stream().wait_stream(stream)
-        return ms
-
-    fwd = device_ms(torch, lambda: sdpa(attn_mask=mask))
-    fwd_bwd = device_ms(torch, lambda: torch.autograd.grad(
-        sdpa(attn_mask=mask), xs, dot))
-    bwd = backward(attn_mask=mask)
-    causal_fwd = device_ms(torch, lambda: sdpa(is_causal=True))
-    causal_fwd_bwd = device_ms(torch, lambda: torch.autograd.grad(
-        sdpa(is_causal=True), xs, dot))
-    causal_bwd = backward(is_causal=True)
-    del mask
+    sdpa = sdpa_times(torch, q, k, v, do, sdpa_mask(torch, gate2, vs, s))
+    fwd, fwd_bwd, bwd = (sdpa["mask"][x] for x in ("fwd", "fwd_bwd", "bwd"))
+    causal_fwd, causal_fwd_bwd, causal_bwd = (
+        sdpa["causal"][x] for x in ("fwd", "fwd_bwd", "bwd"))
     # K5 moves K1's bytes and does K1's products
     for key, bound, lib in (("k5", k1_bound, fwd),
                             ("k6a", k6a_bound, bwd),
@@ -1102,8 +1115,11 @@ def time_k1(torch, fa):
 
 
 def time_k2(torch, fa):
-    import torch.nn.functional as F
-
+    """K2 at the training shape against its plain version, its bound, and
+    the library yardstick: SDPA's backward alone on one saved forward with
+    the gate2 + causal mask (K2 reads K1's out and lse: it is the backward
+    alone), with SDPA's forward + backward beside it and SDPA without the
+    mask as an aside (`sdpa_times`)."""
     b, s, h, dh = TRAIN_SHAPE
     q, k, v, gate2, vs, do = k2_inputs(torch, b, s, h, dh, TRAIN_VS, 200)
     out, lse = fa.flash_text_attention(q, k, v, gate2, vs, MAX_FEATS)
@@ -1111,23 +1127,19 @@ def time_k2(torch, fa):
                   q, k, v, gate2, vs, MAX_FEATS, do, out, lse),
               lambda: fa.flash_text_attention_bwd_ref(
                   q, k, v, gate2, vs, MAX_FEATS, do))
-    mask = sdpa_mask(torch, gate2, vs, s)
-    xs = [x.detach().requires_grad_() for x in (q, k, v)]
-    dot = do.transpose(1, 2)
-
-    def library():
-        o = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in xs),
-                                           attn_mask=mask)
-        return torch.autograd.grad(o, xs, dot)
-
-    t["library_ms"] = device_ms(torch, library)
+    lib = sdpa_times(torch, q, k, v, do, sdpa_mask(torch, gate2, vs, s))
+    t["library_ms"] = lib["mask"]["bwd"]
     t["bound_ms"], t["bound_by"] = k2_bound(b, s, h, dh)
     print(f"K2 timing {TRAIN_SHAPE}: device kernel {t['ms']:.5f} ms, plain "
-          f"{t['plain_ms']:.5f} ms, sdpa forward+backward "
-          f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms "
+          f"{t['plain_ms']:.5f} ms, sdpa backward alone with the bias mask "
+          f"{t['library_ms']:.5f} ms (forward+backward "
+          f"{lib['mask']['fwd_bwd']:.5f} ms), bound {t['bound_ms']:.5f} ms "
           f"({t['bound_by']}); runs {t['runs']}; host per eager call: kernel "
           f"{t['host_us']:.1f} us, plain {t['plain_host_us']:.1f} us",
           flush=True)
+    print(f"sdpa at {TRAIN_SHAPE} without the mask (is_causal=True, no gate2 "
+          f"bias): backward alone {lib['causal']['bwd']:.5f} ms, "
+          f"forward+backward {lib['causal']['fwd_bwd']:.5f} ms", flush=True)
     return t
 
 

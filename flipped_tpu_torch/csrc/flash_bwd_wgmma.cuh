@@ -1,8 +1,8 @@
 // The backward loops of K6a (dq) and K6b (dk, dv) on Hopper, for
-// flash_stream_bwd.cu: warp-specialised blocks, every operand tile fed by
-// TMA through an mbarrier ring, every product on wgmma. What they compute
-// is flash_bwd.cuh's function: for q row i (local) at global position
-// r = q_offset + i and key c, with the forward's saved lse and
+// flash_stream_bwd.cu and for K2 (flash_text_bwd.cu): warp-specialised
+// blocks, every operand tile fed by TMA through an mbarrier ring, every
+// product on wgmma. What they compute: for q row i (local) at global
+// position r = q_offset + i and key c, with the forward's saved lse and
 // D = rowsum(dO * O) per row,
 //   P[i, c]   = exp(s[i, c] - lse[i])       0 unless c <= r and c < S_k
 //   dS[i, c]  = P[i, c] (dP[i, c] - D[i]),  dP = dO V^T, f32
@@ -37,19 +37,21 @@
 //     wgmmas (all four operands K-major along Dh, 128-byte swizzle); P and
 //     dS stay in registers; dQ += dS K is an RS wgmma with dS packed from
 //     the accumulator layout and K read MN-major through the transpose
-//     bit. lse and D of a thread's two rows are read once an item. A
+//     bit. lse and D of a thread's two rows are read once an item (with
+//     OWN_D, K2's, D is summed from the item's dO and O, which TMA brings
+//     beside Q and dO, and written out for dkv_body). A
 //     warpgroup skips the key tiles past its own last row, so a row meets
 //     the same key tiles, in the same order and with the same masks, where
 //     ever its q tile starts: a shard's dq equals the full run's rows.
 //   dkv_body (K6b): an item is one (b, h, 128-key tile), 64 keys a consumer
-//     warpgroup, K and V resident for the item. The loop walks 64-row q
-//     steps from the first row that sees the tile to S_q; the producer
-//     brings each step's Q and dO by TMA and its lse and D by plain loads
-//     (their rows are S_q * 4 bytes apart, not always the 16 bytes TMA
-//     needs) into a ring of DKV_STAGES stages. S^T = K Q^T and dP^T = V
-//     dO^T are SS wgmmas m64n64k16; dV += P^T dO and dK += dS^T Q are RS
-//     wgmmas with P^T and dS^T from registers and dO, Q MN-major. Key tiles
-//     above every row write zeros.
+//     warpgroup, K and V resident for the item (in one of KV_SLOTS
+//     buffers). The loop walks 64-row q steps from the first row that sees
+//     the tile to S_q; the producer brings each step's Q and dO by TMA and
+//     its lse and D by plain loads (their rows are S_q * 4 bytes apart, not
+//     always the 16 bytes TMA needs) into a ring of STAGES stages. S^T =
+//     K Q^T and dP^T = V dO^T are SS wgmmas m64n64k16; dV += P^T dO and
+//     dK += dS^T Q are RS wgmmas with P^T and dS^T from registers and dO, Q
+//     MN-major. Key tiles above every row write zeros.
 // No atomics on the outputs (the only atomics are the item counter's):
 // every output element and every dgate2 partial has one writer, so the
 // result is the same from run to run.
@@ -99,23 +101,33 @@ constexpr int DQ_N_BARS = 2 + 3 * DQ_STAGES;
 constexpr int DQ_RED = DQ_BARS + DQ_N_BARS * 8;           // 2 x 8 floats
 constexpr int DQ_ITEM = DQ_RED + 16 * 4;                  // the item
 constexpr int DQ_SMEM = DQ_ITEM + 16 + 1024;
+// dq_body<true> (K2): the item's rows of the forward's output O, after the
+// rest, 1024-byte aligned for the 128-byte swizzle
+constexpr int DQ_O = (DQ_ITEM + 16 + 1023) / 1024 * 1024;
+constexpr int DQ_SMEM_OWN_D = DQ_O + tile_bytes(DQ_BQ) + 1024;
 
 // K6b
 constexpr int DKV_BK = 128;          // keys an item
 constexpr int DKV_BQ = 64;           // q rows a step
-constexpr int DKV_STAGES = 4;
-constexpr int DKV_K = 0;                                  // K, then V
-constexpr int DKV_Q = 2 * tile_bytes(DKV_BK);             // stages: Q, dO
-constexpr int DKV_STAGE = 2 * tile_bytes(DKV_BQ);
-constexpr int DKV_STATS = DKV_Q + DKV_STAGES * DKV_STAGE; // lse, D a stage
-constexpr int DKV_BARS = DKV_STATS + DKV_STAGES * 2 * DKV_BQ * 4;
-constexpr int DKV_N_BARS = 2 + 2 * DKV_STAGES;
-constexpr int DKV_ITEM = DKV_BARS + DKV_N_BARS * 8;        // the item
-constexpr int DKV_SMEM = DKV_ITEM + 16 + 1024;
+constexpr int DKV_STAGE = 2 * tile_bytes(DKV_BQ);         // a step: Q, dO
+// dkv_body's shared memory with KV_SLOTS buffers of an item's K and V and
+// STAGES stages of q steps. K6 takes 1 and 4: K and V stay resident while
+// an item's many steps run. K2 (S <= 2048, two steps an item at S 128)
+// takes 2 and 2: the next item's K and V load while this one's steps run.
+template <int KV_SLOTS, int STAGES>
+struct Dkv {
+  static constexpr int KV = 2 * tile_bytes(DKV_BK);        // a slot: K, V
+  static constexpr int Q = KV_SLOTS * KV;                  // the stages
+  static constexpr int STATS = Q + STAGES * DKV_STAGE;     // lse, D a stage
+  static constexpr int BARS = STATS + STAGES * 2 * DKV_BQ * 4;
+  static constexpr int N_BARS = 2 * KV_SLOTS + 2 * STAGES;
+  static constexpr int ITEM = BARS + N_BARS * 8;           // a slot's item
+  static constexpr int SMEM = ITEM + 4 * KV_SLOTS + 1024;
+};
 
 struct Args {
   const float* lse;          // (B, H, S_q)
-  const float* delta;        // (B, H, S_q)
+  float* delta;              // (B, H, S_q): read, or written by dq_body<true>
   const float* gate2;        // (H,)
   const int* video_start;    // (B,)
   bf16* dq;                  // (B, S_q, H, Dh)
@@ -287,11 +299,13 @@ struct DqBars {
   uint64_t* empty_kv;
 };
 
+template <bool OWN_D>
 __device__ __forceinline__ void dq_produce(uint8_t* smem, const DqBars& bar,
                                            const CUtensorMap* q_map,
                                            const CUtensorMap* do_map,
                                            const CUtensorMap* k_map,
                                            const CUtensorMap* v_map,
+                                           const CUtensorMap* o_map,
                                            const Args& a, int items) {
   constexpr int QB = tile_bytes(DQ_BQ) / 2;     // one box of Q
   constexpr int KB = tile_bytes(DQ_BKV) / 2;    // one box of K
@@ -310,12 +324,17 @@ __device__ __forceinline__ void dq_produce(uint8_t* smem, const DqBars& bar,
     dq_decode(a, item, qt, h, b);
     uint8_t* qs = smem + DQ_Q;
     uint8_t* dos = qs + tile_bytes(DQ_BQ);
-    hopper::mbar_arrive_expect_tx(bar.full_q, 2 * tile_bytes(DQ_BQ));
+    hopper::mbar_arrive_expect_tx(bar.full_q,
+                                  (OWN_D ? 3 : 2) * tile_bytes(DQ_BQ));
     for (int x = 0; x < 2; ++x) {
       hopper::tma_load_4d(qs + x * QB, q_map, bar.full_q, x * BOX, h,
                           qt * DQ_BQ, b);
       hopper::tma_load_4d(dos + x * QB, do_map, bar.full_q, x * BOX, h,
                           qt * DQ_BQ, b);
+      if (OWN_D) {
+        hopper::tma_load_4d(smem + DQ_O + x * QB, o_map, bar.full_q,
+                            x * BOX, h, qt * DQ_BQ, b);
+      }
     }
     const int n_kt = dq_kv_tiles(a, qt);
     for (int j = 0; j < n_kt; ++j, ++nkv) {
@@ -339,7 +358,52 @@ __device__ __forceinline__ void dq_produce(uint8_t* smem, const DqBars& bar,
   }
 }
 
-// The consumer warpgroups of K6a: every item of the block in turn.
+// D = rowsum(dO * O) of the thread's rows 16w + g and 16w + g + 8 of a
+// warpgroup's 64 (at do_rows and o_rows, each two 64-column boxes `box`
+// bytes apart, written by TMA with the 128-byte swizzle: the 16-byte chunk
+// c of row r sits at chunk c ^ (r % 8)). The thread sums chunks 2t and
+// 2t + 1 of both boxes in f32, its quad the rest; every lane of the quad
+// returns the rows' sums.
+__device__ __forceinline__ void row_dots(float& d0, float& d1,
+                                         const uint8_t* do_rows,
+                                         const uint8_t* o_rows, int box,
+                                         int w, int g, int t) {
+  float d[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * w + g + 8 * r;
+    float acc = 0.f;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int off = x * box + row * ROW + (((2 * t + k) ^ (row & 7)) << 4);
+        const uint4 dv = *reinterpret_cast<const uint4*>(do_rows + off);
+        const uint4 ov = *reinterpret_cast<const uint4*>(o_rows + off);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 u = __bfloat1622float2(d2[e]);
+          const float2 v = __bfloat1622float2(o2[e]);
+          acc += u.x * v.x + u.y * v.y;
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    d[r] = acc;
+  }
+  d0 = d[0];
+  d1 = d[1];
+}
+
+// The consumer warpgroups of K6a: every item of the block in turn. With
+// OWN_D (K2) the row statistic D comes from the item's dO and O in shared
+// memory, summed before the first key tile (between a product's issue and
+// its wait, ptxas serialises the products: C7520), and is written out for
+// the dk/dv pass; otherwise it is read from a.delta.
+template <bool OWN_D>
 __device__ __forceinline__ void dq_consume(uint8_t* smem, const DqBars& bar,
                                            const Args& a) {
   constexpr int NACC = DQ_BKV / 2;              // S and dP floats a thread
@@ -379,8 +443,11 @@ __device__ __forceinline__ void dq_consume(uint8_t* smem, const DqBars& bar,
     // rows past S_q: lse = D = 0 keeps P finite, and dS = P (0 - 0) = 0
     const float lse0 = r0 < S_q ? a.lse[bh * S_q + r0] : 0.f;
     const float lse1 = r1 < S_q ? a.lse[bh * S_q + r1] : 0.f;
-    const float d0 = r0 < S_q ? a.delta[bh * S_q + r0] : 0.f;
-    const float d1 = r1 < S_q ? a.delta[bh * S_q + r1] : 0.f;
+    float d0 = 0.f, d1 = 0.f;
+    if (!OWN_D) {
+      d0 = r0 < S_q ? a.delta[bh * S_q + r0] : 0.f;
+      d1 = r1 < S_q ? a.delta[bh * S_q + r1] : 0.f;
+    }
     const uint8_t* q_rows = smem + DQ_Q + wg * WG_ROWS * ROW;
     const uint8_t* do_rows = q_rows + tile_bytes(DQ_BQ);
     const int n_kt = dq_kv_tiles(a, qt);
@@ -389,6 +456,14 @@ __device__ __forceinline__ void dq_consume(uint8_t* smem, const DqBars& bar,
     const int last_j = wg_row < S_q
         ? min(n_kt - 1, (a.q_offset + wg_row + WG_ROWS - 1) / DQ_BKV)
         : -1;
+    if (OWN_D && last_j >= 0) {   // D of the warpgroup's rows, once an item
+      row_dots(d0, d1, do_rows, smem + DQ_O + wg * WG_ROWS * ROW, QB, w, g,
+               t);
+      if (t == 0) {
+        if (r0 < S_q) a.delta[bh * S_q + r0] = d0;
+        if (r1 < S_q) a.delta[bh * S_q + r1] = d1;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     float dg2 = 0.f;
@@ -474,10 +549,14 @@ __device__ __forceinline__ void dq_consume(uint8_t* smem, const DqBars& bar,
   }
 }
 
+// OWN_D (K2): D comes from O (o_map) and dO, and is written to a.delta;
+// otherwise a.delta holds it (o_map unused).
+template <bool OWN_D>
 __device__ __forceinline__ void dq_body(const CUtensorMap* q_map,
                                         const CUtensorMap* do_map,
                                         const CUtensorMap* k_map,
                                         const CUtensorMap* v_map,
+                                        const CUtensorMap* o_map,
                                         const Args& a) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
@@ -499,11 +578,12 @@ __device__ __forceinline__ void dq_body(const CUtensorMap* q_map,
   if (threadIdx.x >= 256) {
     hopper::regs_dealloc<40>();
     if (threadIdx.x == 256) {
-      dq_produce(smem, bar, q_map, do_map, k_map, v_map, a, items);
+      dq_produce<OWN_D>(smem, bar, q_map, do_map, k_map, v_map, o_map, a,
+                        items);
     }
   } else {
     hopper::regs_alloc<232>();
-    dq_consume(smem, bar, a);
+    dq_consume<OWN_D>(smem, bar, a);
   }
 }
 
@@ -533,9 +613,9 @@ __device__ __forceinline__ int dkv_steps(const Args& a, int kt) {
 }
 
 struct DkvBars {
-  uint64_t* full_kv;    // K and V of the item
+  uint64_t* full_kv;    // [KV_SLOTS]: K and V of an item
   uint64_t* empty_kv;
-  uint64_t* full_q;     // [DKV_STAGES]: Q, dO, lse and D of a step
+  uint64_t* full_q;     // [STAGES]: Q, dO, lse and D of a step
   uint64_t* empty_q;
 };
 
@@ -544,26 +624,31 @@ struct DkvBars {
 // barrier (33 arrivals a phase: lane 0's expect_tx and the 32 lanes'). An
 // item with no q step (keys after every row) still passes through the K/V
 // barriers, with no load, so that the consumers learn it and write zeros.
+template <int KV_SLOTS, int STAGES>
 __device__ __forceinline__ void dkv_produce(uint8_t* smem, const DkvBars& bar,
                                             const CUtensorMap* q_map,
                                             const CUtensorMap* do_map,
                                             const CUtensorMap* k_map,
                                             const CUtensorMap* v_map,
                                             const Args& a, int items) {
+  using L = Dkv<KV_SLOTS, STAGES>;
   constexpr int KB = tile_bytes(DKV_BK) / 2;
   constexpr int QB = tile_bytes(DKV_BQ) / 2;
   const int lane = threadIdx.x % 32;
-  int* item_slot = reinterpret_cast<int*>(smem + DKV_ITEM);
+  int* item_slot = reinterpret_cast<int*>(smem + L::ITEM);
   int nq = 0;
   for (int ni = 0;; ++ni) {
     int item = lane == 0 ? next_item(a, ni, items) : 0;
     item = __shfl_sync(0xffffffffu, item, 0);
-    // the consumers have read the slot once they release the item's K/V
-    if (ni > 0) hopper::mbar_wait(bar.empty_kv, (ni - 1) & 1);
+    const int slot = ni % KV_SLOTS;
+    // the consumers have read the slot once they release its K/V
+    if (ni >= KV_SLOTS) {
+      hopper::mbar_wait(&bar.empty_kv[slot], (ni / KV_SLOTS - 1) & 1);
+    }
     if (item < 0) {                   // the consumers stop
       if (lane == 0) {
-        *item_slot = item;
-        hopper::mbar_arrive(bar.full_kv);
+        item_slot[slot] = item;
+        hopper::mbar_arrive(&bar.full_kv[slot]);
       }
       break;
     }
@@ -571,18 +656,18 @@ __device__ __forceinline__ void dkv_produce(uint8_t* smem, const DkvBars& bar,
     dkv_decode(a, item, kt, h, b);
     const int n_steps = dkv_steps(a, kt);
     if (lane == 0) {
-      *item_slot = item;
+      item_slot[slot] = item;
       if (n_steps == 0) {             // zeros: the item, and no load
-        hopper::mbar_arrive(bar.full_kv);
+        hopper::mbar_arrive(&bar.full_kv[slot]);
       } else {
-        uint8_t* ks = smem + DKV_K;
+        uint8_t* ks = smem + slot * L::KV;
         uint8_t* vs = ks + tile_bytes(DKV_BK);
-        hopper::mbar_arrive_expect_tx(bar.full_kv, 2 * tile_bytes(DKV_BK));
+        hopper::mbar_arrive_expect_tx(&bar.full_kv[slot], L::KV);
         for (int x = 0; x < 2; ++x) {
-          hopper::tma_load_4d(ks + x * KB, k_map, bar.full_kv, x * BOX, h,
-                              kt * DKV_BK, b);
-          hopper::tma_load_4d(vs + x * KB, v_map, bar.full_kv, x * BOX, h,
-                              kt * DKV_BK, b);
+          hopper::tma_load_4d(ks + x * KB, k_map, &bar.full_kv[slot],
+                              x * BOX, h, kt * DKV_BK, b);
+          hopper::tma_load_4d(vs + x * KB, v_map, &bar.full_kv[slot],
+                              x * BOX, h, kt * DKV_BK, b);
         }
       }
     }
@@ -591,13 +676,13 @@ __device__ __forceinline__ void dkv_produce(uint8_t* smem, const DkvBars& bar,
     const float* d_b = a.delta + bh * a.S_q;
     const int q_first = dkv_first_row(a, kt);
     for (int st = 0; st < n_steps; ++st, ++nq) {
-      const int s = nq % DKV_STAGES;
+      const int s = nq % STAGES;
       const int q0 = q_first + st * DKV_BQ;
-      if (nq >= DKV_STAGES) {
-        hopper::mbar_wait(&bar.empty_q[s], (nq / DKV_STAGES - 1) & 1);
+      if (nq >= STAGES) {
+        hopper::mbar_wait(&bar.empty_q[s], (nq / STAGES - 1) & 1);
       }
       if (lane == 0) {
-        uint8_t* qs = smem + DKV_Q + s * DKV_STAGE;
+        uint8_t* qs = smem + L::Q + s * DKV_STAGE;
         uint8_t* dos = qs + tile_bytes(DKV_BQ);
         hopper::mbar_arrive_expect_tx(&bar.full_q[s], DKV_STAGE);
         for (int x = 0; x < 2; ++x) {
@@ -609,7 +694,7 @@ __device__ __forceinline__ void dkv_produce(uint8_t* smem, const DkvBars& bar,
       }
       // rows past S_q: lse = D = 0 keeps P finite; their zero Q and dO rows
       // add nothing to dk and dv
-      float* stats = reinterpret_cast<float*>(smem + DKV_STATS) +
+      float* stats = reinterpret_cast<float*>(smem + L::STATS) +
                      s * 2 * DKV_BQ;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -624,8 +709,10 @@ __device__ __forceinline__ void dkv_produce(uint8_t* smem, const DkvBars& bar,
 }
 
 // The consumer warpgroups of K6b: every item of the block in turn.
+template <int KV_SLOTS, int STAGES>
 __device__ __forceinline__ void dkv_consume(uint8_t* smem, const DkvBars& bar,
                                             const Args& a) {
+  using L = Dkv<KV_SLOTS, STAGES>;
   constexpr int KB = tile_bytes(DKV_BK) / 2;
   constexpr int QB = tile_bytes(DKV_BQ) / 2;
   const int wg = threadIdx.x / 128;
@@ -637,16 +724,17 @@ __device__ __forceinline__ void dkv_consume(uint8_t* smem, const DkvBars& bar,
   const int max_feats = a.max_feats;
   const float scale = a.scale;
   const long long rs = static_cast<long long>(a.H) * DH;
-  const uint8_t* k_rows = smem + DKV_K + wg * WG_ROWS * ROW;
-  const uint8_t* v_rows = k_rows + tile_bytes(DKV_BK);
-  const int* item_slot = reinterpret_cast<const int*>(smem + DKV_ITEM);
+  const int* item_slot = reinterpret_cast<const int*>(smem + L::ITEM);
 
   float st[32], dpt[32], dk[64], dv[64];
   int nq = 0;
   for (int ni = 0;; ++ni) {
-    hopper::mbar_wait(bar.full_kv, ni & 1);
-    const int item = *item_slot;
+    const int slot = ni % KV_SLOTS;
+    hopper::mbar_wait(&bar.full_kv[slot], (ni / KV_SLOTS) & 1);
+    const int item = item_slot[slot];
     if (item < 0) break;
+    const uint8_t* k_rows = smem + slot * L::KV + wg * WG_ROWS * ROW;
+    const uint8_t* v_rows = k_rows + tile_bytes(DKV_BK);
     int kt, h, b;
     dkv_decode(a, item, kt, h, b);
     const int kw0 = kt * DKV_BK + WG_ROWS * wg;   // the warpgroup's first key
@@ -660,15 +748,15 @@ __device__ __forceinline__ void dkv_consume(uint8_t* smem, const DkvBars& bar,
       const float g2 = a.gate2[h];
       const int q_first = dkv_first_row(a, kt);
       for (int step = 0; step < n_steps; ++step, ++nq) {
-        const int s = nq % DKV_STAGES;
+        const int s = nq % STAGES;
         const int q0 = q_first + step * DKV_BQ;
         const bool last = step == n_steps - 1;
-        const uint8_t* q_tile = smem + DKV_Q + s * DKV_STAGE;
+        const uint8_t* q_tile = smem + L::Q + s * DKV_STAGE;
         const uint8_t* do_tile = q_tile + tile_bytes(DKV_BQ);
         const float* stats = reinterpret_cast<const float*>(
-            smem + DKV_STATS) + s * 2 * DKV_BQ;
+            smem + L::STATS) + s * 2 * DKV_BQ;
         // a skipped step is waited for too (see dq_consume)
-        hopper::mbar_wait(&bar.full_q[s], (nq / DKV_STAGES) & 1);
+        hopper::mbar_wait(&bar.full_q[s], (nq / STAGES) & 1);
         if (kw0 < S_k && a.q_offset + q0 + DKV_BQ - 1 >= kw0) {
           hopper::wgmma_fence();
           ss_dh(st, k_rows, KB, q_tile, QB);
@@ -678,7 +766,7 @@ __device__ __forceinline__ void dkv_consume(uint8_t* smem, const DkvBars& bar,
           fence_all(st);
           fence_all(dpt);
           // the warpgroup's last read of K and V for this item
-          if (last && lane == 0) hopper::mbar_arrive(bar.empty_kv);
+          if (last && lane == 0) hopper::mbar_arrive(&bar.empty_kv[slot]);
 
           // st[4i + e] is (key key0, q row q0 + 8i + 2t + e), st[4i + 2 + e]
           // key key1. P^T goes into st, dS^T into dpt.
@@ -722,12 +810,12 @@ __device__ __forceinline__ void dkv_consume(uint8_t* smem, const DkvBars& bar,
           fence_all(dv);
           fence_all(dk);
         } else if (last && lane == 0) {
-          hopper::mbar_arrive(bar.empty_kv);
+          hopper::mbar_arrive(&bar.empty_kv[slot]);
         }
         if (lane == 0) hopper::mbar_arrive(&bar.empty_q[s]);
       }
     } else if (lane == 0) {
-      hopper::mbar_arrive(bar.empty_kv);
+      hopper::mbar_arrive(&bar.empty_kv[slot]);
     }
     if (kw0 < S_k) {
       const long long off = static_cast<long long>(b) * S_k * rs + h * DH;
@@ -737,20 +825,26 @@ __device__ __forceinline__ void dkv_consume(uint8_t* smem, const DkvBars& bar,
   }
 }
 
+// KV_SLOTS and STAGES: the shared-memory layout `Dkv` (K6: 1, 4; K2: 2, 2)
+template <int KV_SLOTS, int STAGES>
 __device__ __forceinline__ void dkv_body(const CUtensorMap* q_map,
                                          const CUtensorMap* do_map,
                                          const CUtensorMap* k_map,
                                          const CUtensorMap* v_map,
                                          const Args& a) {
+  using L = Dkv<KV_SLOTS, STAGES>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + DKV_BARS);
-  const DkvBars bar{bars, bars + 1, bars + 2, bars + 2 + DKV_STAGES};
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  const DkvBars bar{bars, bars + KV_SLOTS, bars + 2 * KV_SLOTS,
+                    bars + 2 * KV_SLOTS + STAGES};
   const int items = dkv_ktiles(a) * a.H * a.B;
   if (threadIdx.x == 0) {
-    hopper::mbar_init(bar.full_kv, 1);
-    hopper::mbar_init(bar.empty_kv, CONSUMER_WARPS);
-    for (int s = 0; s < DKV_STAGES; ++s) {
+    for (int s = 0; s < KV_SLOTS; ++s) {
+      hopper::mbar_init(&bar.full_kv[s], 1);
+      hopper::mbar_init(&bar.empty_kv[s], CONSUMER_WARPS);
+    }
+    for (int s = 0; s < STAGES; ++s) {
       hopper::mbar_init(&bar.full_q[s], 33);
       hopper::mbar_init(&bar.empty_q[s], CONSUMER_WARPS);
     }
@@ -760,11 +854,12 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap* q_map,
   if (threadIdx.x >= 256) {
     hopper::regs_dealloc<40>();
     if (threadIdx.x < 288) {
-      dkv_produce(smem, bar, q_map, do_map, k_map, v_map, a, items);
+      dkv_produce<KV_SLOTS, STAGES>(smem, bar, q_map, do_map, k_map, v_map,
+                                    a, items);
     }
   } else {
     hopper::regs_alloc<232>();
-    dkv_consume(smem, bar, a);
+    dkv_consume<KV_SLOTS, STAGES>(smem, bar, a);
   }
 }
 
@@ -789,14 +884,28 @@ inline cudaError_t make_maps(CUtensorMap (&maps)[4], const void* q,
   return cudaSuccess;
 }
 
+inline Args make_args(const void* lse, const void* delta, const void* gate2,
+                      const void* video_start, void* dq, void* dg2_part,
+                      void* dk, void* dv, void* sched, int B, int S_q,
+                      int S_k, int H, int q_offset, int max_feats,
+                      float scale) {
+  return Args{static_cast<const float*>(lse),
+              static_cast<float*>(const_cast<void*>(delta)),
+              static_cast<const float*>(gate2),
+              static_cast<const int*>(video_start), static_cast<bf16*>(dq),
+              static_cast<float*>(dg2_part), static_cast<bf16*>(dk),
+              static_cast<bf16*>(dv), static_cast<unsigned int*>(sched),
+              B, S_q, S_k, q_offset, H, max_feats, scale};
+}
+
 // The launch of `kernel` (a __global__ wrapper of dq_body or dkv_body
-// taking the maps of q, dout, k, v and Args) on a persistent grid over
+// taking the tensor maps `maps`, then Args) on a persistent grid over
 // `items` work items. `attr_set` is the caller's: the shared-memory opt-in
 // is made once per kernel.
-template <typename Kernel>
-inline cudaError_t launch(Kernel kernel, const CUtensorMap (&maps)[4],
-                          const Args& a, long long items, int smem,
-                          bool& attr_set, cudaStream_t stream) {
+template <typename Kernel, typename... Maps>
+inline cudaError_t launch(Kernel kernel, const Args& a, long long items,
+                          int smem, bool& attr_set, cudaStream_t stream,
+                          const Maps&... maps) {
   cudaError_t err = cudaSuccess;
   if (!attr_set) {
     err = cudaFuncSetAttribute(
@@ -811,8 +920,7 @@ inline cudaError_t launch(Kernel kernel, const CUtensorMap (&maps)[4],
   if (err != cudaSuccess) return err;
   if (items <= 0 || items > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int grid = items < sms ? static_cast<int>(items) : sms;
-  kernel<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3],
-                                          a);
+  kernel<<<grid, THREADS, smem, stream>>>(maps..., a);
   return cudaGetLastError();
 }
 

@@ -57,7 +57,7 @@ flash_stream_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
                        const flashbw::Args a) {
-  flashbw::dq_body(&q_map, &do_map, &k_map, &v_map, a);
+  flashbw::dq_body<false>(&q_map, &do_map, &k_map, &v_map, nullptr, a);
 }
 
 __global__ void __launch_bounds__(flashbw::THREADS, 1)
@@ -66,30 +66,13 @@ flash_stream_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
                         const __grid_constant__ CUtensorMap v_map,
                         const flashbw::Args a) {
-  flashbw::dkv_body(&q_map, &do_map, &k_map, &v_map, a);
+  flashbw::dkv_body<1, 4>(&q_map, &do_map, &k_map, &v_map, a);
 }
 
 // every LLaMA preset of the repo has Dh = 128
 bool bad_shape(int B, int S_q, int S_k, int H, int Dh, int q_offset) {
   return B <= 0 || S_q <= 0 || S_k <= 0 || H <= 0 || q_offset < 0 ||
          Dh != flashbw::DH;
-}
-
-flashbw::Args make_args(const void* lse, const void* delta,
-                        const void* gate2, const void* video_start, void* dq,
-                        void* dg2_part, void* dk, void* dv, void* sched,
-                        int B, int S_q, int S_k, int H, int q_offset,
-                        int max_feats, float scale) {
-  return flashbw::Args{static_cast<const float*>(lse),
-                       static_cast<const float*>(delta),
-                       static_cast<const float*>(gate2),
-                       static_cast<const int*>(video_start),
-                       static_cast<flashbw::bf16*>(dq),
-                       static_cast<float*>(dg2_part),
-                       static_cast<flashbw::bf16*>(dk),
-                       static_cast<flashbw::bf16*>(dv),
-                       static_cast<unsigned int*>(sched),
-                       B, S_q, S_k, q_offset, H, max_feats, scale};
 }
 
 }  // namespace
@@ -112,15 +95,17 @@ extern "C" int flash_stream_dq(const void* q, const void* k, const void* v,
   if (err == cudaSuccess) err = cudaGetSymbolAddress(&sched, dq_sched);
   if (err != cudaSuccess) return static_cast<int>(err);
   const flashbw::Args a =
-      make_args(lse, delta, gate2, video_start, dq, dg2_part, nullptr,
-                nullptr, sched, B, S_q, S_k, H, q_offset, max_feats, scale);
+      flashbw::make_args(lse, delta, gate2, video_start, dq, dg2_part,
+                         nullptr, nullptr, sched, B, S_q, S_k, H, q_offset,
+                         max_feats, scale);
   static bool attr_set = false;
   const long long items =
       static_cast<long long>((S_q + flashbw::DQ_BQ - 1) / flashbw::DQ_BQ) *
       H * B;
   return static_cast<int>(flashbw::launch(
-      flash_stream_dq_kernel, maps, a, items, flashbw::DQ_SMEM, attr_set,
-      static_cast<cudaStream_t>(stream)));
+      flash_stream_dq_kernel, a, items, flashbw::DQ_SMEM, attr_set,
+      static_cast<cudaStream_t>(stream), maps[0], maps[1], maps[2],
+      maps[3]));
 }
 
 // K6b: dk, dv (B, S_k, H, Dh), partial over this shard's rows.
@@ -141,13 +126,15 @@ extern "C" int flash_stream_dkv(const void* q, const void* k, const void* v,
   if (err == cudaSuccess) err = cudaGetSymbolAddress(&sched, dkv_sched);
   if (err != cudaSuccess) return static_cast<int>(err);
   const flashbw::Args a =
-      make_args(lse, delta, gate2, video_start, nullptr, nullptr, dk, dv,
-                sched, B, S_q, S_k, H, q_offset, max_feats, scale);
+      flashbw::make_args(lse, delta, gate2, video_start, nullptr, nullptr,
+                         dk, dv, sched, B, S_q, S_k, H, q_offset, max_feats,
+                         scale);
   static bool attr_set = false;
   const long long items =
       static_cast<long long>((S_k + flashbw::DKV_BK - 1) / flashbw::DKV_BK) *
       H * B;
   return static_cast<int>(flashbw::launch(
-      flash_stream_dkv_kernel, maps, a, items, flashbw::DKV_SMEM, attr_set,
-      static_cast<cudaStream_t>(stream)));
+      flash_stream_dkv_kernel, a, items, flashbw::Dkv<1, 4>::SMEM, attr_set,
+      static_cast<cudaStream_t>(stream), maps[0], maps[1], maps[2],
+      maps[3]));
 }

@@ -17,136 +17,79 @@
 // rounds them (:210, :219).
 //
 // Layout: q, k, v, out, dout, dq, dk, dv are contiguous (B, S, H, Dh) bf16;
-// lse and delta (B, H, S) f32; gate2 (H,) f32; video_start (B,) int32;
-// dg2_part (B, H, ceil(S / 64)) f32, summed by the caller.
+// lse and delta (B, H, S) f32 (delta: D, written by the first pass); gate2
+// (H,) f32; video_start (B,) int32;
+// dg2_part (B, H, ceil(S / 64)) f32, one partial per 64 q rows, summed by
+// the caller.
 //
 // What bounds it on an H100: at the training shape (B 24, S 128, H 32,
 // Dh 128) the call reads q/k/v/out/dout (126 MB) and writes dq/dk/dv
 // (75 MB): ~60 us at 3.35 TB/s, against ~16 GFLOP of causal products,
-// ~16 us at the dense bf16 peak. So it is bound by bytes, and the design
-// reads each operand a small number of times and keeps every S x S tile
-// (P, dP, dS) in registers.
+// ~16 us at the dense bf16 peak. So it is bound by bytes; the two passes
+// below read q, dout, k and v twice and out once (about 302 MB, ~90 us at
+// 3.35 TB/s), and every S x S tile (P, dP, dS) stays in registers.
 // What the design does about the TPU kernel's shape: that kernel held all
 // of S x S for one (b, h) in VMEM, which 227 KB of shared memory cannot
-// hold at S 650 (TVQA) and beyond. Here the work is tiled in three passes
-// (the dkdv and dq tile loops of flash_bwd.cuh at q_offset 0 and S_k = S),
-// so any S is taken; the wrapper (model/kernels/flash_attention.py) routes
-// S <= MAX_SEQ_BWD = 2048 here and longer sequences to K6, as the JAX
-// package does:
-//   1. delta: D for every row, one warp per row.
-//   2. dq:    one block per (b, h, 64-row q tile), 4 warps x 16 rows, the
-//             loop over 32-key K/V tiles up to the diagonal; one dgate2
-//             partial per block.
-//   3. dkdv:  one block per (b, h, 64-key tile), 4 warps x 16 keys, the loop
-//             over 32-row q tiles from the key tile's first row to S; dK and
-//             dV in registers.
-// No atomics: every output element and every dgate2 partial has one writer,
-// so the result is the same from run to run. Rows past S are zero-filled on
-// load (0 * garbage could be NaN) and masked out of P.
-// Not yet done (later work): moving onto flash_bwd_wgmma.cuh's TMA + wgmma
-// loops (K6a's and K6b's, which keep q_offset, S_q and S_k general), and
-// fusing the dq pass into the dkdv pass.
+// hold at S 650 (TVQA) and beyond. Here the work is tiled in two passes,
+// K6a's and K6b's loops (flash_bwd_wgmma.cuh) at q_offset 0 and S_q =
+// S_k = S, so any S is taken; the wrapper
+// (model/kernels/flash_attention.py) routes S <= MAX_SEQ_BWD = 2048 here
+// and longer sequences to K6, as the JAX package does:
+//   1. dq:    K6a's loop (dq_body<true>): a persistent grid of 128-row q
+//             items, Q, dO and O by TMA once an item, 128-key K/V tiles
+//             through a TMA ring, S, dP SS wgmmas, dq += dS K an RS wgmma;
+//             one dgate2 partial per consumer warpgroup (64 q rows). D =
+//             rowsum(dO * O) is summed from shared memory once an item (the
+//             TPU kernel computes D inside too, :213-215; K6's D comes from
+//             the caller), and written to `delta` for the second pass.
+//   2. dkdv:  K6b's loop: 128-key items with K and V resident, 64-row q
+//             steps of Q, dO, lse and D through a ring, S^T, dP^T SS
+//             wgmmas, dV += P^T dO and dK += dS^T Q RS wgmmas; with two
+//             K/V buffers and two q stages (dkv_body<2, 2>; K6 has one and
+//             four), so that the next item's K and V load while this one's
+//             few steps run.
+// The two loops take their items from counters of their own
+// (`text_dq_sched`, `text_dkv_sched` below, not K6's), in groups of a few
+// heads.
+// No atomics on the outputs: every output element and every dgate2 partial
+// has one writer, so the result is the same from run to run. Rows past S
+// come in as zeros by TMA and keys past S are masked out of P.
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
-#include "flash_bwd.cuh"
+#include "flash_bwd_wgmma.cuh"
 
 namespace {
 
-using flash::bf16;
+// each loop's shared item counter and count of blocks done (zero between
+// launches: the last block of a launch resets them)
+__device__ unsigned int text_dq_sched[2];
+__device__ unsigned int text_dkv_sched[2];
 
-constexpr int DELTA_ROWS = 8;  // rows (warps) per delta block
-
-template <int DH>
-__global__ void __launch_bounds__(DELTA_ROWS * 32)
-flash_bwd_delta_kernel(const bf16* __restrict__ out,
-                       const bf16* __restrict__ dout,
-                       float* __restrict__ delta, int S, int H,
-                       long long rows) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * DELTA_ROWS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const bf16* o = out + row * DH;
-  const bf16* d = dout + row * DH;
-  float acc = 0.f;
-#pragma unroll
-  for (int c = lane * 4; c < DH; c += 128) {
-    const uint2 ov = *reinterpret_cast<const uint2*>(o + c);
-    const uint2 dv = *reinterpret_cast<const uint2*>(d + c);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float2 a = __bfloat1622float2(o2[j]);
-      const float2 b = __bfloat1622float2(d2[j]);
-      acc += a.x * b.x + a.y * b.y;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  }
-  if (lane == 0) {
-    const int h = static_cast<int>(row % H);
-    const long long bs = row / H;
-    const int s = static_cast<int>(bs % S);
-    const long long b = bs / S;
-    delta[(b * H + h) * S + s] = acc;
-  }
+__global__ void __launch_bounds__(flashbw::THREADS, 1)
+flash_text_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap o_map,
+                     const flashbw::Args a) {
+  flashbw::dq_body<true>(&q_map, &do_map, &k_map, &v_map, &o_map, a);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(flash::BWD_THREADS)
-flash_bwd_dkdv_kernel(const flash::BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  flash::dkdv_tile<DH>(a, smem_raw);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(flash::BWD_THREADS)
-flash_bwd_dq_kernel(const flash::BwdArgs a) {
-  flash::dq_tile<DH>(a);
-}
-
-template <int DH>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                       const void* out, const void* dout, const void* lse,
-                       const void* gate2, const void* video_start, void* dq,
-                       void* dk, void* dv, void* delta, void* dg2_part, int B,
-                       int S, int H, int max_feats, float scale,
-                       cudaStream_t stream) {
-  const bf16* q_ = static_cast<const bf16*>(q);
-  const bf16* k_ = static_cast<const bf16*>(k);
-  const bf16* v_ = static_cast<const bf16*>(v);
-  const bf16* do_ = static_cast<const bf16*>(dout);
-  const float* lse_ = static_cast<const float*>(lse);
-  const float* g2_ = static_cast<const float*>(gate2);
-  const int* vs_ = static_cast<const int*>(video_start);
-  float* delta_ = static_cast<float*>(delta);
-
-  const long long rows = static_cast<long long>(B) * S * H;
-  const long long n_delta = (rows + DELTA_ROWS - 1) / DELTA_ROWS;
-  if (n_delta > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_bwd_delta_kernel<DH><<<static_cast<unsigned>(n_delta),
-                               DELTA_ROWS * 32, 0, stream>>>(
-      static_cast<const bf16*>(out), do_, delta_, S, H, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const flash::BwdArgs a{
-      q_, k_, v_, do_, lse_, delta_, g2_, vs_, static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      static_cast<float*>(dg2_part), S, S, 0, H, max_feats, scale};
-  err = flash::launch_dq(flash_bwd_dq_kernel<DH>, a, B, stream);
-  if (err != cudaSuccess) return err;
-  return flash::launch_dkdv<DH>(flash_bwd_dkdv_kernel<DH>, a, B, stream);
+__global__ void __launch_bounds__(flashbw::THREADS, 1)
+flash_text_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap do_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const flashbw::Args a) {
+  flashbw::dkv_body<2, 2>(&q_map, &do_map, &k_map, &v_map, a);
 }
 
 }  // namespace
 
+// delta (B, H, S) f32 is scratch: the dq pass writes D there for the dk/dv
+// pass.
 extern "C" int flash_text_bwd(const void* q, const void* k, const void* v,
                               const void* out, const void* dout,
                               const void* lse, const void* gate2,
@@ -154,16 +97,48 @@ extern "C" int flash_text_bwd(const void* q, const void* k, const void* v,
                               void* dv, void* delta, void* dg2_part, int B,
                               int S, int H, int Dh, int max_feats, float scale,
                               void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535) {
+  // every LLaMA preset of the repo has Dh = 128
+  if (B <= 0 || S <= 0 || H <= 0 || Dh != flashbw::DH) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Dh) {  // every LLaMA preset of the repo has Dh = 128
-    case 128:
-      return static_cast<int>(launch_bwd<128>(
-          q, k, v, out, dout, lse, gate2, video_start, dq, dk, dv, delta,
-          dg2_part, B, S, H, max_feats, scale, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[4], o_map;
+  void* sched = nullptr;
+  cudaError_t err = flashbw::make_maps(maps, q, dout, k, v, B, S, S, H,
+                                       flashbw::DQ_BQ, flashbw::DQ_BKV);
+  if (err == cudaSuccess) {
+    err = hopper::make_map_4d_bf16(
+        &o_map, out, flashbw::DH, H, S, B, flashbw::DH,
+        static_cast<uint64_t>(H) * flashbw::DH,
+        static_cast<uint64_t>(S) * H * flashbw::DH, flashbw::BOX,
+        flashbw::DQ_BQ);
   }
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&sched, text_dq_sched);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool dq_attr = false;
+  err = flashbw::launch(
+      flash_text_dq_kernel,
+      flashbw::make_args(lse, delta, gate2, video_start, dq, dg2_part,
+                         nullptr, nullptr, sched, B, S, S, H, 0, max_feats,
+                         scale),
+      static_cast<long long>((S + flashbw::DQ_BQ - 1) / flashbw::DQ_BQ) * H *
+          B,
+      flashbw::DQ_SMEM_OWN_D, dq_attr, st, maps[0], maps[1], maps[2],
+      maps[3], o_map);
+
+  if (err == cudaSuccess) {
+    err = flashbw::make_maps(maps, q, dout, k, v, B, S, S, H, flashbw::DKV_BQ,
+                             flashbw::DKV_BK);
+  }
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&sched, text_dkv_sched);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool dkv_attr = false;
+  return static_cast<int>(flashbw::launch(
+      flash_text_dkv_kernel,
+      flashbw::make_args(lse, delta, gate2, video_start, nullptr, nullptr, dk,
+                         dv, sched, B, S, S, H, 0, max_feats, scale),
+      static_cast<long long>((S + flashbw::DKV_BK - 1) / flashbw::DKV_BK) *
+          H * B,
+      flashbw::Dkv<2, 2>::SMEM, dkv_attr, st, maps[0], maps[1], maps[2],
+      maps[3]));
 }

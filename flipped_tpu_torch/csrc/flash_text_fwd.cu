@@ -22,15 +22,15 @@
 // bf16 tensor cores and not HBM become the limit: it is bound by bytes, and
 // the whole call is tens of microseconds. At the forward-only lengths up to
 // S 4096 the products grow with S^2 and bound it instead.
-// What the design does about it (flash_fwd_wgmma.cuh): every q/k/v byte is
-// read from HBM once per 128-row q tile, by TMA, and out is written once;
-// a persistent grid whose producer loads the next (b, h) while the consumer
-// warpgroups finish this one keeps loads in flight at S 128, where one q
-// tile is the whole (b, h); both products are wgmma (Q K^T from shared
-// memory, P V with P from registers); the S x S scores never leave
-// registers, and causally dead K/V tiles are never loaded. Unlike the TPU
-// kernel, which kept all of K/V in VMEM (hence its S <= 4096 bound), K/V
-// stream through shared memory with an online (FA2-style) softmax, so
+// What the design does about it (flash_fwd_wgmma.cuh, K5's loop too): every
+// q/k/v byte is read from HBM once per 128-row q tile, by TMA, and out is
+// written once; a persistent grid whose producer loads the next (b, h)
+// while the consumer warpgroups finish this one keeps loads in flight at
+// S 128, where one q tile is the whole (b, h); both products are wgmma
+// (Q K^T from shared memory, P V with P from registers); the S x S scores
+// never leave registers, and causally dead K/V tiles are never loaded.
+// Unlike the TPU kernel, which kept all of K/V in VMEM (hence its S <= 4096
+// bound), K/V stream through shared memory with an online softmax, so
 // there is no sequence bound; the ragged S edge is masked in the kernel.
 
 #include <cuda_runtime.h>
@@ -39,12 +39,17 @@
 
 namespace {
 
-__global__ void __launch_bounds__(flashw::THREADS, 1)
+// the item counter and count of blocks done (zero between launches: the
+// last block of a launch resets them)
+__device__ unsigned int fwd_sched[2];
+
+template <bool MULTI>
+__global__ void __launch_bounds__(flashw::threads(MULTI), 1)
 flash_text_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map,
                       const flashw::Args a) {
-  flashw::fwd_body(&q_map, &k_map, &v_map, a);
+  flashw::fwd_body<MULTI>(&q_map, &k_map, &v_map, a);
 }
 
 }  // namespace
@@ -69,14 +74,24 @@ extern "C" int flash_text_fwd(const void* q, const void* k, const void* v,
         flashw::BQ);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  void* sched = nullptr;
+  const cudaError_t err = cudaGetSymbolAddress(&sched, fwd_sched);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const flashw::Args a{static_cast<const float*>(gate2),
                        static_cast<const int*>(video_start),
                        static_cast<flashw::bf16*>(out),
                        static_cast<float*>(lse),
+                       static_cast<unsigned int*>(sched),
                        B, S, S, 0, H, max_feats, osb, oss, osh, scale};
-  return static_cast<int>(flashw::launch(flash_text_fwd_kernel, maps[0],
-                                         maps[1], maps[2], a,
-                                         static_cast<cudaStream_t>(stream)));
+  static bool attr_set[2] = {false, false};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t launched =
+      flashw::multi_tile(a)
+          ? flashw::launch<true>(flash_text_fwd_kernel<true>, maps, a,
+                                 attr_set[1], st)
+          : flashw::launch<false>(flash_text_fwd_kernel<false>, maps, a,
+                                  attr_set[0], st);
+  return static_cast<int>(launched);
 }
 
 extern "C" const char* flash_error_string(int code) {

@@ -1,10 +1,9 @@
 // Hopper building blocks shared by the TMA-fed wgmma kernels (K3 in
 // int8_fwd.cu, K8 weight-only in int4_fwd.cu, K10's GEMM in wgmma_int8.cuh,
-// K4 and K9 in dx_wgmma.cuh, K1 in flash_fwd_wgmma.cuh, K6a and K6b in
-// flash_bwd_wgmma.cuh): mbarriers, TMA
-// tile loads, shared-memory matrix descriptors, the wgmma forms and fences,
-// the int4 dequantize into register operands, and the host-side tensor-map
-// encoders.
+// K4 and K9 in dx_wgmma.cuh, K1 and K5 in flash_fwd_wgmma.cuh, K2, K6a
+// and K6b in flash_bwd_wgmma.cuh): mbarriers, TMA tile loads, shared-memory
+// matrix descriptors, the wgmma forms and fences, the int4 dequantize into
+// register operands, and the host-side tensor-map encoders.
 //
 // The tensor maps are built on the host per call with
 // cuTensorMapEncodeTiled, looked up at run time through
@@ -777,10 +776,27 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// The encoder (cuTensorMapEncodeTiled, outside the runtime API) needs a
+// context current on the calling thread. The runtime makes the current
+// device's primary context current at a thread's first runtime call, but
+// a wrapper may be the first CUDA work of a thread: PyTorch's autograd
+// runs a backward on a worker thread of its own and selects the device
+// there without a runtime call, so a kernel called first in a backward
+// (K2 from the autograd.Function) would find no context. cudaSetDevice
+// makes the device's context current.
+inline cudaError_t current_context() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  return err;
+}
+
 inline cudaError_t make_map_2d(CUtensorMap* map, const void* base,
                                CUtensorMapDataType dtype, int elem,
                                uint64_t rows, uint64_t cols, uint32_t box_rows,
                                uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+  const cudaError_t err = current_context();
+  if (err != cudaSuccess) return err;
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {cols, rows};
@@ -805,6 +821,8 @@ inline cudaError_t make_map_4d_bf16(CUtensorMap* map, const void* base,
                                     uint64_t d3, uint64_t s1, uint64_t s2,
                                     uint64_t s3, uint32_t box0,
                                     uint32_t box1) {
+  const cudaError_t err = current_context();
+  if (err != cudaSuccess) return err;
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {d0, d1, d2, d3};

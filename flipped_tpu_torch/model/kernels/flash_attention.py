@@ -54,9 +54,9 @@ from ..attention import NEG_INF, adapter_prefix_attention
 # head dims the kernels are instantiated for (csrc/flash_*.cu): every LLaMA
 # preset the repo names (7B, 13B, 33B) has 128
 KERNEL_HEAD_DIMS = (128,)
-# q rows per dgate2 partial of K2 (a dq block, csrc/flash_bwd.cuh BQ_DQ) and
-# K6a (a consumer warpgroup, csrc/flash_bwd_wgmma.cuh WG_ROWS): one partial
-# per (b, h, 64-row q tile)
+# q rows per dgate2 partial of K2 and K6a (a consumer warpgroup of their dq
+# loop, csrc/flash_bwd_wgmma.cuh WG_ROWS): one partial per (b, h, 64-row q
+# tile)
 DQ_TILE = 64
 # The JAX package's switch to the streaming kernels (flash_attention.py:
 # 47-48): a forward above MAX_SEQ_FWD takes K5, a backward above MAX_SEQ_BWD

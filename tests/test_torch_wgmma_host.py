@@ -1,9 +1,10 @@
-"""Host-side facts of the TMA + wgmma kernels (K3, K1, K6a, K6b, K8
-weight-only, K10's GEMM, K4 and K9) that hold without a card: the profiler
-files their kernels under their classes, their main loops are wgmma fed by
-TMA through an mbarrier ring, with no mma.sync left in them, and the
-integer tricks by which K4 and K9 dequantize into wgmma's register operand
-are exact (the CUDA sources themselves run only on the card:
+"""Host-side facts of the TMA + wgmma kernels (K3, K1, K5, K2, K6a, K6b,
+K8 weight-only, K10's GEMM, K4 and K9) that hold without a card: the
+profiler files their kernels under their classes, their main loops are
+wgmma fed by TMA through an mbarrier ring, with no mma.sync left in them or
+in any flash source, the forward's item order groups heads, and the integer
+tricks by which K4 and K9 dequantize into wgmma's register operand are
+exact (the CUDA sources themselves run only on the card:
 tests/test_torch_kernels_gpu.py)."""
 import re
 from pathlib import Path
@@ -54,6 +55,14 @@ def _function(src: str, name: str) -> str:
     ("void (anonymous namespace)::flash_stream_dkv_kernel(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, flashbw::Args)",
      "flash stream (K5/K6)"),
+    ("void (anonymous namespace)::flash_stream_fwd_kernel(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, flashw::Args)", "flash stream (K5/K6)"),
+    ("void (anonymous namespace)::flash_text_dq_kernel(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, flashbw::Args)",
+     "flash (K1/K2)"),
+    ("void (anonymous namespace)::flash_text_dkv_kernel(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, flashbw::Args)",
+     "flash (K1/K2)"),
     ("nvjet_hsh_128x256_64x4_2x1_v_bz_coopA_TNN", "gemm")])
 def test_profile_classes_the_wgmma_kernels(name, cls):
     assert tprofile.kernel_class(name) == cls
@@ -68,7 +77,8 @@ def test_profile_classes_the_wgmma_kernels(name, cls):
      "regs_alloc<232>"),
     ("int8_fwd.cu", "consume", "wgmma_m64n256k32_s8_ss", "tma_load_2d",
      "regs_alloc<232>"),
-    # K1: one producer warp, no setmaxnreg (288 threads fit 224 registers)
+    # K1 and K5: the kernels' __launch_bounds__ of 384 threads, the
+    # consumers at setmaxnreg 232 (test_k1_products_are_wgmma)
     ("flash_fwd_wgmma.cuh", "consume", "wgmma_m64n128k16_bf16_ss",
      "tma_load_4d", "__launch_bounds__")])
 def test_main_loops_are_tma_fed_wgmma(source, loop, wgmma, tma, regs):
@@ -101,21 +111,144 @@ def _kernel_file_text(source: str) -> str:
 
 
 def test_k1_products_are_wgmma():
-    """K1's S = Q K^T is the SS bf16 form, O += P V the RS form with B
-    transposed (V MN-major, its descriptor from desc_sw128_mn); K1 runs the
-    new loop, K5 stays on flash_fwd.cuh's."""
+    """K1's and K5's S = Q K^T is the SS bf16 form, O += P V the RS form
+    with B transposed (V MN-major, its descriptor from desc_sw128_mn); both
+    flash_text_fwd.cu (K1) and flash_stream_fwd.cu (K5) run that loop
+    (`flashw::fwd_body`), the consumers at 232 registers from a producer
+    warpgroup at 40, and flash_fwd.cuh's mma.sync loop is gone."""
     src = (CSRC / "flash_fwd_wgmma.cuh").read_text()
     assert "wgmma_m64n128k16_bf16_ss" in _function(src, "qk")
     pv = _function(src, "pv")
     assert "wgmma_m64n128k16_bf16_rs_tb" in pv and "desc_sw128_mn" in pv
     assert "mma.sync" not in src and "mma_16816" not in src
-    assert '#include "flash_fwd_wgmma.cuh"' in (
-        CSRC / "flash_text_fwd.cu").read_text()
-    assert '#include "flash_fwd.cuh"' in (
-        CSRC / "flash_stream_fwd.cu").read_text()
+    assert "regs_alloc<232>" in src and "regs_dealloc<40>" in src
+    for kernel in ("flash_text_fwd.cu", "flash_stream_fwd.cu"):
+        text = (CSRC / kernel).read_text()
+        assert '#include "flash_fwd_wgmma.cuh"' in text, kernel
+        assert "flashw::fwd_body" in text and "flashw::launch" in text
+        assert '#include "flash_fwd.cuh"' not in text, kernel
+    assert not (CSRC / "flash_fwd.cuh").exists()
     common = (CSRC / "hopper_common.cuh").read_text()
     # the transposed-B form: scale-a 1, scale-b 1, tnspB 1
     assert "p, 1, 1, 1;" in _function(common, "wgmma_m64n128k16_bf16_rs_tb")
+
+
+def test_fwd_overlaps_softmax_with_pv():
+    """For each key tile after the first, the forward loop issues S_j =
+    Q K_j^T, rescales O and issues O += P_{j-1} V_{j-1}, waits for the
+    first group only (wgmma_wait<1>), and takes S_j's softmax while P V
+    runs, before it waits for P V (wgmma_wait<0>) and packs P_j. Without
+    MULTI (every item one K/V tile) the loop is compiled out."""
+    src = (CSRC / "flash_fwd_wgmma.cuh").read_text()
+    body = _function(src, "consume")
+    loop = body[body.index("for (int j = 1; MULTI && j < n_kt;"):]
+    loop = loop[:loop.index("the item's last P V")]
+    order = ["qk(sc", "rescale(o, alpha)", "pv(o, p", "wgmma_wait<1>",
+             "softmax_tile(", "wgmma_wait<0>", "pack_p(p, sc)"]
+    pos = 0
+    for x in order:                   # each after the one before
+        pos = loop.index(x, pos) + 1
+    assert "__expf(sc[4 * i]" in _function(src, "softmax_tile")
+    for kernel in ("flash_text_fwd.cu", "flash_stream_fwd.cu"):
+        text = (CSRC / kernel).read_text()
+        assert "flashw::multi_tile(a)" in text and "<true>" in text \
+            and "<false>" in text
+
+
+def test_fwd_every_consumer_warp_releases_a_stage():
+    """The forward's empty barriers (Q slots, K and V stages) count the 8
+    consumer warps, and lane 0 of each warp arrives, as in K6a and K6b."""
+    src = (CSRC / "flash_fwd_wgmma.cuh").read_text()
+    assert "constexpr int CONSUMER_WARPS = 8;" in src
+    inits = re.findall(r"mbar_init\(&bar\.(empty_\w)\[i\], (\w+)\)", src)
+    assert sorted(n for n, _ in inits) == ["empty_k", "empty_q", "empty_v"]
+    assert all(c == "CONSUMER_WARPS" for _, c in inits)
+    body = _function(src, "consume")
+    arrives = [m.start() for m in re.finditer(
+        r"hopper::mbar_arrive\(&bar\.empty", body)]
+    assert len(arrives) == 6          # tile 0 (K, Q), the loop (K, Q, V),
+    for at in arrives:                # the last P V (V)
+        cond = body[body.rindex("if (lane == 0)", 0, at):at]
+        assert "\n    }" not in cond, cond
+
+
+def _fwd_decode():
+    """flash_fwd_wgmma.cuh's `decode` run as Python: its statements are
+    integer arithmetic on non-negative ints (C's / is then //)."""
+    src = (CSRC / "flash_fwd_wgmma.cuh").read_text()
+    group = int(re.search(r"constexpr int GROUP = (\d+);", src).group(1))
+    bq = int(re.search(r"constexpr int BQ = (\d+);", src).group(1))
+    body = _function(src, "decode")
+    stmts = [" ".join(st.split()).replace("const int ", "").replace("/", "//")
+             for st in body[body.index("{") + 1:].split(";")]
+    code = "\n".join(st for st in stmts if st and st != "}")
+
+    def decode(a, item):
+        env = {"a": a, "item": item, "GROUP": group, "min": min,
+               "n_qtiles": lambda a: -(-a.S_q // bq)}
+        exec(code, env)
+        return env["qt"], env["h"], env["b"]
+    return decode, group
+
+
+@pytest.mark.parametrize("b,s,h", [(3, 4096, 32), (1, 8192, 32),
+                                   (24, 128, 32), (2, 300, 5)])
+def test_fwd_item_order_groups_heads(b, s, h):
+    """K5's (and K1's) items: every (b, h, q tile) once; items come in
+    groups of GROUP (b, h) pairs, the q tiles with the most K/V tiles first
+    within a group, so that any 132 consecutive items (the card's SMs) touch
+    at most 2 GROUP heads at S 4096 and 8192; at S 128 (one q tile a head)
+    the order is the (b, h) order."""
+    from types import SimpleNamespace
+
+    decode, group = _fwd_decode()
+    a = SimpleNamespace(B=b, H=h, S_q=s)
+    tiles = -(-s // 128)
+    items = [decode(a, i) for i in range(b * h * tiles)]
+    assert sorted(items) == sorted((qt, hh, bb) for qt in range(tiles)
+                                   for hh in range(h) for bb in range(b))
+    heads = [bb * h + hh for _, hh, bb in items]
+    for g0 in range(0, len(items), group * tiles):
+        chunk = items[g0:g0 + group * tiles]
+        assert len({heads[g0 + i] for i in range(len(chunk))}) <= group
+        qts = [qt for qt, _, _ in chunk]
+        assert qts == sorted(qts, reverse=True)
+    if tiles == 1:
+        assert heads == list(range(b * h))
+    if tiles >= 32:
+        assert max(len(set(heads[i:i + 132]))
+                   for i in range(0, len(heads) - 132, 7)) <= 2 * group
+
+
+@pytest.mark.parametrize("source", [
+    "flash_common.cuh", "flash_fwd_wgmma.cuh", "flash_bwd_wgmma.cuh",
+    "flash_text_fwd.cu", "flash_text_bwd.cu", "flash_stream_fwd.cu",
+    "flash_stream_bwd.cu"])
+@pytest.mark.parametrize("word", ["mma_16816", "mma.sync"])
+def test_no_flash_source_has_mma_sync(source, word):
+    """The whole attention family (K1, K2, K5, K6a, K6b) is on TMA + wgmma:
+    no flash source names the mma.sync product, and the list above is every
+    flash source there is."""
+    assert sorted(p.name for p in CSRC.glob("flash_*")) == sorted(
+        ["flash_common.cuh", "flash_fwd_wgmma.cuh", "flash_bwd_wgmma.cuh",
+         "flash_text_fwd.cu", "flash_text_bwd.cu", "flash_stream_fwd.cu",
+         "flash_stream_bwd.cu"])
+    assert word not in (CSRC / source).read_text()
+
+
+@pytest.mark.parametrize("source,kernel,cls", [
+    ("flash_stream_fwd.cu", "flash_stream_fwd_kernel", "flash stream (K5/K6)"),
+    ("flash_text_fwd.cu", "flash_text_fwd_kernel", "flash (K1/K2)"),
+    ("flash_text_bwd.cu", "flash_text_dq_kernel", "flash (K1/K2)"),
+    ("flash_text_bwd.cu", "flash_text_dkv_kernel", "flash (K1/K2)")])
+def test_flash_globals_keep_the_profile_names(source, kernel, cls):
+    """Each __global__ of the K1, K2 and K5 sources is named as the
+    profiler files it (cli/profile.py `kernel_class`)."""
+    src = (CSRC / source).read_text()
+    assert re.search(rf"__global__ void(?: __launch_bounds__\(.*\))?\s+"
+                     rf"{kernel}\(", src), kernel
+    assert tprofile.kernel_class(f"void (anonymous namespace)::{kernel}(...)") \
+        == cls
 
 
 @pytest.mark.parametrize("loop,produce,forms", [
@@ -165,18 +298,61 @@ def test_k6_every_consumer_warp_releases_a_stage():
 
 
 def test_k6_runs_the_new_loops_and_k2_keeps_flash_bwd():
-    """flash_stream_bwd.cu (K6a, K6b) runs flash_bwd_wgmma.cuh's loops and
-    no longer includes flash_bwd.cuh, which serves K2 (flash_text_bwd.cu)
-    alone; the __global__ names keep "flash_stream", by which the profiler
-    files them."""
+    """flash_stream_bwd.cu (K6a, K6b) and flash_text_bwd.cu (K2) both run
+    flash_bwd_wgmma.cuh's loops, each with item counters of its own (K2's
+    dq pass also sums D, which K6 gets from its caller), and
+    flash_bwd.cuh's mma.sync loops are gone; the __global__ names keep
+    "flash_stream" (K6) and "flash_text" (K2), by which the profiler files
+    them."""
     k6 = (CSRC / "flash_stream_bwd.cu").read_text()
     assert '#include "flash_bwd_wgmma.cuh"' in k6
-    assert '#include "flash_bwd.cuh"' not in k6
     assert "flashbw::dq_body" in k6 and "flashbw::dkv_body" in k6
     assert "flash_stream_dq_kernel" in k6 and "flash_stream_dkv_kernel" in k6
     k2 = (CSRC / "flash_text_bwd.cu").read_text()
-    assert '#include "flash_bwd.cuh"' in k2
-    assert "flash::dq_tile" in k2 and "flash::dkdv_tile" in k2
+    assert '#include "flash_bwd_wgmma.cuh"' in k2
+    assert "flashbw::dq_body" in k2 and "flashbw::dkv_body" in k2
+    # K2's dq pass sums D = rowsum(dO * O) itself (no delta kernel); K6
+    # takes D from the caller
+    assert "dq_body<true>" in k2 and "dq_body<false>" in k6
+    assert "delta_kernel" not in k2 and "DQ_SMEM_OWN_D" in k2
+    assert "flash_text_dq_kernel" in k2 and "flash_text_dkv_kernel" in k2
+    for text in (k6, k2):
+        assert '#include "flash_bwd.cuh"' not in text
+        assert "flash::dq_tile" not in text and "flash::dkdv_tile" not in text
+    counters = [set(re.findall(r"__device__ unsigned int (\w+)\[2\];", t))
+                for t in (k6, k2)]
+    assert len(counters[0]) == len(counters[1]) == 2
+    assert not counters[0] & counters[1]
+    assert not (CSRC / "flash_bwd.cuh").exists()
+
+
+def test_k2_row_dots_read_every_column_once():
+    """flash_bwd_wgmma.cuh's `row_dots` (K2's D = rowsum(dO * O) from shared
+    memory): its offset expression, evaluated for every lane and step,
+    reads each 16-byte chunk of each of a warpgroup's 64 rows exactly once
+    through the 128-byte swizzle that TMA wrote (logical chunk c of row r at
+    chunk c ^ (r % 8) of its 128-byte row), the quad's 4 lanes between
+    them, and stays within the rows' two 64-column boxes."""
+    src = (CSRC / "flash_bwd_wgmma.cuh").read_text()
+    body = _function(src, "row_dots")
+    expr = re.search(r"const int off = ([^;]+);", body).group(1)
+    rows, box = 64, 128 * 128          # the boxes of a 128-row tile
+    for w in range(4):
+        for g in range(8):
+            for r in range(2):
+                row = 16 * w + g + 8 * r
+                seen = []
+                for t in range(4):
+                    for x in range(2):
+                        for k in range(2):
+                            off = eval(expr, {"x": x, "box": box, "row": row,
+                                              "ROW": 128, "t": t, "k": k})
+                            assert off % 16 == 0 and 0 <= off < 2 * box
+                            bx, rest = divmod(off, box)
+                            assert rest // 128 == row < rows
+                            seen.append(bx * 8 + ((rest % 128) // 16
+                                                  ^ (row % 8)))
+                assert sorted(seen) == list(range(16)), (row, seen)
 
 
 def test_k3_epilogue_keeps_the_jax_order_and_no_mma_sync():
