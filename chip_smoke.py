@@ -7,7 +7,9 @@ Phases; any failure prints its traceback and exits 1 without a result line:
   1. device   torch and CUDA versions, the card's name and power limit;
               exits 1 when torch sees no CUDA device (there is no CPU path)
   2. build    compile flipped_tpu_torch/csrc/ with nvcc for sm_90a, one
-              process per source, all started together
+              process per source, all started together; fails, naming the
+              source, if ptxas reports serialised wgmmas (C7510-C7520,
+              `build.wgmma_serialisation_warnings`)
   3. K1       flash_text_fwd against its plain version in bf16 at the unit
               shape, the main-path shapes and the edges of its 128-row q
               and key tiles (S 1 to 255), on strided q/k/v views (slices
@@ -34,9 +36,9 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               and K10 int8_dgrad bitwise against their plain versions, K4
               quant_dx, K8's weight-only branch and K9 int4_dx within the
               bounds stated at K4_REL and K8_WO_REL, at odd-M unit shapes,
-              the wgmma kernels' tile edges (QUANT_EDGE, and K3's own at
-              K3_EDGE) and every 7B main-path shape (K10 on 2-D and 3-D
-              cotangents);
+              the wgmma kernels' tile edges (QUANT_EDGE, and K3's, K7's
+              and K8 w4a8's own at K3_EDGE, K7_EDGE and K8A_EDGE) and every
+              7B main-path shape (K10 on 2-D and 3-D cotangents);
               then through the autograd Functions int8_matmul,
               int8_matmul_grouped, int4_matmul, int4_matmul_grouped and
               int8_matmul_dgrad at the w1/w3 shape
@@ -47,9 +49,9 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               its backward alone on a saved forward, with forward and
               backward beside it); and each kernel's bound from its bytes
               and operations. K3, K7, K4, K8 (both branches), K9 and K10 the
-              same way at the three 3072-row shapes, and K3 at the eval's
-              prefill and extend shapes, with the yardsticks `time_quant`
-              names. K5, K6a and K6b at the long training shape (B 3, S
+              same way at the three 3072-row shapes, and K3 and K8 w4a8 at
+              the eval's prefill and extend shapes, with the yardsticks
+              `time_quant` names. K5, K6a and K6b at the long training shape (B 3, S
               4096), against SDPA's forward (K5) and its backward alone on
               a saved forward (K6a + K6b), with SDPA without the mask as an
               aside
@@ -65,7 +67,7 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               K3 and 288 K10 more), frozen weights bitwise unchanged, no
               trainable moved by update 1 (lr 0) and every trainable moved
               by update 2; the step without remat (the bench default) timed
-              at none, w8a8, w4a8, w8a8d and int4
+              at none, w8a8, w4a8, w8a8d, int4 and w8a8g
  10. eval     the classification eval at 7B width through
               `flipped_tpu_torch.cli.evaluate.main` at --quantize none, w8a8
               and w4a8: 32 K1 (and 576 K3 under w8a8, 576 K8 under w4a8)
@@ -302,6 +304,18 @@ QUANT_EDGE = [(3, 11008, 400), (65, 128, 112), (1000, 512, 144),
 # contractions that end part-way through a stage (144, 400)
 K3_EDGE = [(1, 16, 264), (129, 144, 136), (257, 400, 264), (1, 4096, 136),
            (257, 16, 136), (129, 1040, 264)]
+# edges of K7's tiles (128 rows by 128 columns, one 128-wide group a stage,
+# two accumulators alternating between groups) and K8 w4a8's (128 x rows by
+# 64 packed rows, the same group loop): one row, M short of and past a
+# 64-row warpgroup and past a 128- and a 256-row tile, N past and short of
+# a tile (K7 N 136 and 264, K8 N/2 72 and 200), a contraction of one group,
+# an odd group count (9) and 86 groups (an even count: the kernels' other
+# instantiation); K8 also at group 256 (K8A_EDGE: (M, K, N, group))
+K7_EDGE = [(1, 128, 136), (63, 1152, 264), (65, 11008, 136),
+           (129, 128, 264), (257, 1152, 136), (257, 11008, 264)]
+K8A_EDGE = [(1, 128, 144, 128), (63, 1152, 400, 128), (65, 11008, 144, 128),
+            (129, 2304, 400, 256), (257, 2304, 144, 256),
+            (257, 11008, 400, 128)]
 QUANT_MAIN = {"wq/wk/wv/wo": (TRAIN_M, 4096, 4096),
               "w1/w3": (TRAIN_M, 4096, 11008),
               "w2": (TRAIN_M, 11008, 4096),
@@ -309,7 +323,8 @@ QUANT_MAIN = {"wq/wk/wv/wo": (TRAIN_M, 4096, 4096),
 # K3 timed at the w1/w3 shape of the eval too: the cached scorer's prefill
 # (batch 8 x S 128 rows) and its chunk extend (8 x 5 options x 8 tokens).
 # Every shape any main path hands K3, K7 or K4 is also held against the
-# plain version after the paths have run (`catch_quant_inputs`).
+# plain version after the paths have run (`catch_quant_inputs`). K8's w4a8
+# branch, the w4a8 eval's GEMM, is timed at the same two shapes.
 K3_EVAL = {"eval prefill w1/w3": (TRAIN_B * TRAIN_S, 4096, 11008),
            "eval extend w1/w3": (320, 4096, 11008)}
 # the shape of each kernel's row in the kernels line: the largest per call
@@ -359,7 +374,7 @@ QUANT_KERNELS = ("k3", "k7", "k4", "k8a", "k8w", "k9", "k10")
 TRAIN_RUNS = (("none", False), ("w8a8", False), ("w8a8g", True),
               ("w8a8o", True), ("w4a8", False), ("w8a8d", False),
               ("int4", True), ("w4a8r", True))
-TIMED_STEPS = ("none", "w8a8", "w4a8", "w8a8d", "int4")
+TIMED_STEPS = ("none", "w8a8", "w4a8", "w8a8d", "int4", "w8a8g")
 EVAL_RUNS = ("none", "w8a8", "w4a8")
 # the long-context train path (--quantize, flags, one update only): 4
 # updates with the chunked LM head (their update timed with remat), one
@@ -1164,16 +1179,17 @@ def quant_inputs(torch, m, k, n, seed):
     return x, kq, scale, sg, g
 
 
-def int4_inputs(torch, m, k, n, seed):
+def int4_inputs(torch, m, k, n, seed, group=128):
     """x, g as `quant_inputs`; int4 codes (N, K) in [-8, 7] packed to
-    kq4 (N/2, K), and the int4 scales 1/(7 sqrt K) times U(0.5, 1.5)."""
+    kq4 (N/2, K), and the int4 scales (K / group, N) 1/(7 sqrt K) times
+    U(0.5, 1.5)."""
     from flipped_tpu_torch.model.int4 import pack_int4
 
     x, _, _, _, g = quant_inputs(torch, m, k, n, seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     codes = torch.randint(-8, 8, (n, k), device="cuda", generator=gen,
                           dtype=torch.int8)
-    sg = ((torch.rand(k // 128, n, device="cuda", generator=gen) + 0.5)
+    sg = ((torch.rand(k // group, n, device="cuda", generator=gen) + 0.5)
           / (7.0 * math.sqrt(k)))
     return x, pack_int4(codes), sg, g
 
@@ -1305,14 +1321,29 @@ def check_quant(torch, qm, worst):
                                       worst, m // 2))
         print(f"quant {name} (M {m}, K {k}, N {n}): " + ", ".join(msg),
               flush=True)
+    def one_row(x, seed):
+        """quant_inputs zeroes row m // 2: for M 1 the only one"""
+        if x.shape[0] > 1:
+            return x
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(1, x.shape[1], device="cuda", generator=gen).to(
+            torch.bfloat16)
+
     for i, (m, k, n) in enumerate(K3_EDGE):
         x, kq, scale, _, _ = quant_inputs(torch, m, k, n, 380 + i)
-        if m == 1:        # quant_inputs zeroes row m // 2, the only one
-            gen = torch.Generator(device="cuda").manual_seed(390 + i)
-            x = torch.randn(1, k, device="cuda", generator=gen).to(
-                torch.bfloat16)
         print(f"quant K3 edge (M {m}, K {k}, N {n}): "
-              + hold_quant(torch, qm, "k3", x, kq, scale, worst), flush=True)
+              + hold_quant(torch, qm, "k3", one_row(x, 390 + i), kq, scale,
+                           worst), flush=True)
+    for i, (m, k, n) in enumerate(K7_EDGE):
+        x, kq, _, sg, _ = quant_inputs(torch, m, k, n, 420 + i)
+        print(f"quant K7 edge (M {m}, K {k}, N {n}): "
+              + hold_quant(torch, qm, "k7", one_row(x, 430 + i), kq, sg,
+                           worst), flush=True)
+    for i, (m, k, n, group) in enumerate(K8A_EDGE):
+        x, kq4, sg, _ = int4_inputs(torch, m, k, n, 440 + i, group)
+        print(f"quant K8 w4a8 edge (M {m}, K {k}, N {n}, group {group}): "
+              + hold_quant(torch, qm, "k8a", one_row(x, 450 + i), kq4, sg,
+                           worst), flush=True)
 
 
 @contextlib.contextmanager
@@ -1492,6 +1523,19 @@ def time_k3(torch, qm, m, k, n):
     return t
 
 
+def time_k8a(torch, qm, m, k, n):
+    """K8's w4a8 branch and its plain version (`timed`) and its bound; no
+    library yardstick (no PyTorch call computes a grouped-scale int4
+    product)."""
+    x, kq4, sg, _ = int4_inputs(torch, m, k, n, 410)
+    t = timed(torch, lambda: qm.int4_matmul(x, kq4, sg, True),
+              lambda: qm.int4_matmul_ref(x, kq4, sg, True))
+    t["library_ms"] = None
+    t["bound_ms"], t["bound_by"] = quant_bound(m, k, n, sg.numel(),
+                                               weight_bytes=n * k // 2)
+    return t
+
+
 def time_int4_dgrad(torch, qm, m, k, n):
     """K8 (both branches), K9 and K10 at one shape: kernel and plain version
     (`timed`), the bound, and the library yardsticks: for K8 weight-only a
@@ -1507,11 +1551,7 @@ def time_int4_dgrad(torch, qm, m, k, n):
     _, kq, scale, _, _ = quant_inputs(torch, m, k, n, 400)
     wd = qm.dequant(qm.unpack_int4(kq4), sg, torch.bfloat16)
     int4_bytes = dict(weight_bytes=n * k // 2)
-    t8a = timed(torch, lambda: qm.int4_matmul(x, kq4, sg, True),
-                lambda: qm.int4_matmul_ref(x, kq4, sg, True))
-    t8a["library_ms"] = None
-    t8a["bound_ms"], t8a["bound_by"] = quant_bound(m, k, n, sg.numel(),
-                                                   **int4_bytes)
+    t8a = time_k8a(torch, qm, m, k, n)
     t8w = timed(torch, lambda: qm.int4_matmul(x, kq4, sg, False),
                 lambda: qm.int4_matmul_ref(x, kq4, sg, False))
     t8w["library_ms"] = device_ms(torch, lambda: F.linear(x, wd))
@@ -1540,7 +1580,8 @@ def time_int4_dgrad(torch, qm, m, k, n):
 
 def time_quant(torch, qm):
     """K3, K7, K4, K8 (both branches), K9 and K10 at the three 3072-row
-    shapes, and K3 at the eval's w1/w3 shapes: kernel and plain version
+    shapes, and K3 and K8 w4a8 at the eval's w1/w3 shapes: kernel and plain
+    version
     (`timed`), the bound, and the library yardsticks: for K3 those of
     `time_k3`; for K4 a cuBLAS bf16 product on the weight dequantized
     beforehand (no dequantize); for K7 none (no PyTorch call computes a
@@ -1569,6 +1610,9 @@ def time_quant(torch, qm):
             for kern, t in time_int4_dgrad(torch, qm, m, k, n).items():
                 rows.append((kern.upper(), t))
                 times[kern][name] = t
+        else:
+            times["k8a"][name] = time_k8a(torch, qm, m, k, n)
+            rows.append(("K8A", times["k8a"][name]))
         for kern, t in rows:
             lib = ("none" if t["library_ms"] is None
                    else f"{t['library_ms']:.5f} ms")
@@ -1966,8 +2010,13 @@ def main() -> int:
     lib = kbuild.build(force=True)
     print(f"built {lib.path} in {time.perf_counter() - t0:.2f} s", flush=True)
     for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or line.startswith("# nvcc"):
             print("  " + line.strip(), flush=True)
+    serialised = kbuild.wgmma_serialisation_warnings(lib.log)
+    if serialised:
+        raise AssertionError(
+            "ptxas serialised wgmmas in "
+            + "; ".join(f"{src}: {line}" for src, line in serialised))
 
     phase("K1 vs plain")
     k1_err = check_k1(torch, fa)

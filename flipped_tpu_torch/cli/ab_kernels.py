@@ -9,12 +9,14 @@ times, by CUDA-graph replay, K1 at the shapes of `chip_smoke.K1_SHAPES`, K2
 at the training shape (B 24, S 128), K5 at the long training shape
 (`LONG_SHAPE`, B 3, S 4096) and K6a, K6b there on K5's lse and D, then
 K3, K7, K4, K8 (w4a8 "k8a", weight-only "k8w"), K9 and K10 at the three
-3072-row 7B shapes and K3 at the eval's w1/w3 shapes (`K3_EVAL`), with
-that checkout's `chip_smoke.py`
+3072-row 7B shapes and K3 and K8 w4a8 at the eval's w1/w3 shapes
+(`K3_EVAL`), with that checkout's `chip_smoke.py`
 (`k1_inputs`, `k2_inputs`, `stream_inputs`, `quant_inputs`, `int4_inputs`,
-`device_ms`); K3's and K10's two launches are also timed apart ("k3
-quantize", "k3 gemm", "k10 quantize", "k10 gemm": device time by kernel
-name under torch.profiler, the names with "quantize" the first). Prints
+`device_ms`); the two launches of K3, K7, K8 w4a8 and K10 are also timed
+apart ("k3 quantize", "k3 gemm", and so on for "k7", "k8a" and "k10":
+device time by kernel name under torch.profiler, the names with
+"quantize" the first: K3's int8_fwd_quantize_kernel, K7's and K8's
+quantize_rows_kernel, K10's int8_dgrad_quantize_kernel). Prints
 the card's name and power limit, then one JSON line per turn: device ms
 by shape and kernel, and under "clocks" the SM clock and power draw that
 nvidia-smi reads right before and right after each kernel's timing, so
@@ -38,8 +40,8 @@ SHAPES = ("wq/wk/wv/wo", "w1/w3", "w2")
 
 def launch_split(torch, kern, fn, n=20) -> dict:
     """Device ms per call of the quantize kernel and of the GEMM kernel that
-    one call of `fn` (K3's or K10's wrapper) launches, from a torch.profiler
-    trace of `n` calls after 3 warm ones."""
+    one call of `fn` (K3's, K7's, K8 w4a8's or K10's wrapper) launches, from
+    a torch.profiler trace of `n` calls after 3 warm ones."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -129,13 +131,17 @@ def time_checkout(root: str) -> dict:
             "k10": lambda: qm.int8_dgrad(g, kq, scale, cs.TRAIN_S)}
         out[name] = {kern: timed(f"{name} {kern}", fn)
                      for kern, fn in calls.items()}
-        out[name].update(launch_split(torch, "k3", calls["k3"]))
-        out[name].update(launch_split(torch, "k10", calls["k10"]))
+        for kern in ("k3", "k7", "k8a", "k10"):
+            out[name].update(launch_split(torch, kern, calls[kern]))
     for name, (m, k, n) in cs.K3_EVAL.items():
         x, kq, scale, _, _ = cs.quant_inputs(torch, m, k, n, 400)
-        call = lambda: qm.int8_fwd(x, kq, scale)
-        out[name] = {"k3": timed(f"{name} k3", call),
-                     **launch_split(torch, "k3", call)}
+        x4, kq4, sg4, _ = cs.int4_inputs(torch, m, k, n, 410)
+        calls = {"k3": lambda: qm.int8_fwd(x, kq, scale),
+                 "k8a": lambda: qm.int4_matmul(x4, kq4, sg4, True)}
+        out[name] = {}
+        for kern, call in calls.items():
+            out[name][kern] = timed(f"{name} {kern}", call)
+            out[name].update(launch_split(torch, kern, call))
     out["clocks"] = clocks
     return out
 

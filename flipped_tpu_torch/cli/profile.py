@@ -50,13 +50,14 @@ def kernel_class(name: str) -> str:
     if "flash_text" in low or "flash_bwd" in low:
         return "flash (K1/K2)"
     # before "gemm": K3 is int8_fwd_quantize_kernel and int8_fwd_wgmma_kernel,
-    # K7 int8_gemm_kernel and the grouped quantize pass
-    if ("int8_fwd" in low or "int8_gemm" in low
+    # K7 int8_grouped_wgmma_kernel and the grouped quantize pass (which K8's
+    # w4a8 branch runs too)
+    if ("int8_fwd" in low or "int8_grouped" in low
             or "quantize_rows" in low):
         return "int8 GEMM (K3/K7)"
     if "quant_dx" in low:
         return "quant dx (K4)"
-    if "int4_w4a8_gemm" in low or "int4_wo" in low:
+    if "int4_w4a8" in low or "int4_wo" in low:
         return "int4 GEMM (K8)"
     if "int4_dx" in low:
         return "int4 dx (K9)"

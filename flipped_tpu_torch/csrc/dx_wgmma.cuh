@@ -305,13 +305,7 @@ inline cudaError_t launch(Kernel kernel, const void* g, const void* kq,
                               CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K / group,
                               N, 1, BC, CU_TENSOR_MAP_SWIZZLE_NONE);
   }
-  static bool attr_set = false;
-  if (err == cudaSuccess && !attr_set) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM);
-    attr_set = err == cudaSuccess;
-  }
+  if (err == cudaSuccess) err = hopper::smem_opt_in(kernel, SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid(K / BKO, (M + BM - 1) / BM);
   kernel<<<grid, THREADS, SMEM, stream>>>(g_map, w_map, s_map,

@@ -248,8 +248,8 @@ __device__ __forceinline__ int dq_qtiles(const Args& a) {
 // a counter the grid shares, so that a block takes an item when it is
 // ready for one (greedy, longest first); -1 past the last. A block counts
 // itself done when it runs past the last item, and the last one done
-// resets the counter for the next launch (the port launches a kernel on
-// one stream, one launch after the other).
+// resets the counter for the next launch. The counter is the caller's
+// stream's, as in the forward (flash_fwd_wgmma.cuh `next_item`).
 __device__ __forceinline__ int next_item(const Args& a, int n, int items) {
   const int item = n == 0 ? static_cast<int>(blockIdx.x)
                           : static_cast<int>(gridDim.x +
@@ -900,18 +900,12 @@ inline Args make_args(const void* lse, const void* delta, const void* gate2,
 
 // The launch of `kernel` (a __global__ wrapper of dq_body or dkv_body
 // taking the tensor maps `maps`, then Args) on a persistent grid over
-// `items` work items. `attr_set` is the caller's: the shared-memory opt-in
-// is made once per kernel.
+// `items` work items.
 template <typename Kernel, typename... Maps>
 inline cudaError_t launch(Kernel kernel, const Args& a, long long items,
-                          int smem, bool& attr_set, cudaStream_t stream,
+                          int smem, cudaStream_t stream,
                           const Maps&... maps) {
-  cudaError_t err = cudaSuccess;
-  if (!attr_set) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    attr_set = err == cudaSuccess;
-  }
+  cudaError_t err = hopper::smem_opt_in(kernel, smem);
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {

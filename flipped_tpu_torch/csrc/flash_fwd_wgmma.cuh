@@ -91,6 +91,7 @@ struct Args {
   bf16* out;
   float* lse;                 // (B, H, S_q)
   unsigned int* sched;        // [2]: the next shared item, the blocks done
+                              // (the caller's stream's, zero between launches)
   int B, S_q, S_k, q_offset, H, max_feats;
   long long osb, oss, osh;    // out strides (batch, sequence, head)
   float scale;
@@ -113,8 +114,10 @@ __device__ __forceinline__ int n_qtiles(const Args& a) {
 // the counter the grid shares, so that a block takes an item when it is
 // ready for one; -1 past the last. A block counts itself done when it runs
 // past the last item, and the last one done resets the counter for the
-// next launch (the port launches a kernel on one stream, one launch after
-// the other).
+// next launch. The counter is the caller's stream's (the wrappers keep one
+// per stream, model/kernels/flash_attention.py): launches on one stream
+// run one after the other, and two launches in flight on two streams take
+// two counters, so neither takes the other's items.
 __device__ __forceinline__ int next_item(const Args& a, int n, int items) {
   const int item = n == 0 ? static_cast<int>(blockIdx.x)
                           : static_cast<int>(gridDim.x +
@@ -498,19 +501,11 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* q_map,
 inline bool multi_tile(const Args& a) { return a.S_k > BKV; }
 
 // Host: the launch of `kernel` (a __global__ wrapper of fwd_body taking
-// the three maps and Args) on a persistent grid. `attr_set` is the
-// caller's: the shared-memory opt-in is made once per kernel.
+// the three maps and Args) on a persistent grid.
 template <bool MULTI, typename Kernel>
 inline cudaError_t launch(Kernel kernel, const CUtensorMap (&maps)[3],
-                          const Args& a, bool& attr_set,
-                          cudaStream_t stream) {
-  cudaError_t err = cudaSuccess;
-  if (!attr_set) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM);
-    attr_set = err == cudaSuccess;
-  }
+                          const Args& a, cudaStream_t stream) {
+  cudaError_t err = hopper::smem_opt_in(kernel, SMEM);
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {

@@ -46,11 +46,6 @@
 
 namespace {
 
-// each kernel's shared item counter and count of blocks done (zero between
-// launches: the last block of a launch resets them)
-__device__ unsigned int dq_sched[2];
-__device__ unsigned int dkv_sched[2];
-
 __global__ void __launch_bounds__(flashbw::THREADS, 1)
 flash_stream_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap do_map,
@@ -77,33 +72,33 @@ bool bad_shape(int B, int S_q, int S_k, int H, int Dh, int q_offset) {
 
 }  // namespace
 
-// K6a: dq (B, S_q, H, Dh) and dg2_part (B, H, ceil(S_q / 64)).
+// K6a: dq (B, S_q, H, Dh) and dg2_part (B, H, ceil(S_q / 64)). `sched` is
+// the item counter (two uint32, zero between launches: the last block
+// resets them) of the caller's stream: launches on one stream run in
+// order, launches on two take two counters.
 extern "C" int flash_stream_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, const void* gate2,
                                const void* video_start, void* dq,
                                void* dg2_part, int B, int S_q, int S_k, int H,
                                int Dh, int q_offset, int max_feats,
-                               float scale, void* stream) {
+                               float scale, void* sched, void* stream) {
   if (bad_shape(B, S_q, S_k, H, Dh, q_offset)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap maps[4];
   cudaError_t err = flashbw::make_maps(maps, q, dout, k, v, B, S_q, S_k, H,
                                        flashbw::DQ_BQ, flashbw::DQ_BKV);
-  void* sched = nullptr;
-  if (err == cudaSuccess) err = cudaGetSymbolAddress(&sched, dq_sched);
   if (err != cudaSuccess) return static_cast<int>(err);
   const flashbw::Args a =
       flashbw::make_args(lse, delta, gate2, video_start, dq, dg2_part,
                          nullptr, nullptr, sched, B, S_q, S_k, H, q_offset,
                          max_feats, scale);
-  static bool attr_set = false;
   const long long items =
       static_cast<long long>((S_q + flashbw::DQ_BQ - 1) / flashbw::DQ_BQ) *
       H * B;
   return static_cast<int>(flashbw::launch(
-      flash_stream_dq_kernel, a, items, flashbw::DQ_SMEM, attr_set,
+      flash_stream_dq_kernel, a, items, flashbw::DQ_SMEM,
       static_cast<cudaStream_t>(stream), maps[0], maps[1], maps[2],
       maps[3]));
 }
@@ -115,26 +110,23 @@ extern "C" int flash_stream_dkv(const void* q, const void* k, const void* v,
                                 const void* video_start, void* dk, void* dv,
                                 int B, int S_q, int S_k, int H, int Dh,
                                 int q_offset, int max_feats, float scale,
-                                void* stream) {
+                                void* sched, void* stream) {
   if (bad_shape(B, S_q, S_k, H, Dh, q_offset)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap maps[4];
   cudaError_t err = flashbw::make_maps(maps, q, dout, k, v, B, S_q, S_k, H,
                                        flashbw::DKV_BQ, flashbw::DKV_BK);
-  void* sched = nullptr;
-  if (err == cudaSuccess) err = cudaGetSymbolAddress(&sched, dkv_sched);
   if (err != cudaSuccess) return static_cast<int>(err);
   const flashbw::Args a =
       flashbw::make_args(lse, delta, gate2, video_start, nullptr, nullptr,
                          dk, dv, sched, B, S_q, S_k, H, q_offset, max_feats,
                          scale);
-  static bool attr_set = false;
   const long long items =
       static_cast<long long>((S_k + flashbw::DKV_BK - 1) / flashbw::DKV_BK) *
       H * B;
   return static_cast<int>(flashbw::launch(
-      flash_stream_dkv_kernel, a, items, flashbw::Dkv<1, 4>::SMEM, attr_set,
+      flash_stream_dkv_kernel, a, items, flashbw::Dkv<1, 4>::SMEM,
       static_cast<cudaStream_t>(stream), maps[0], maps[1], maps[2],
       maps[3]));
 }

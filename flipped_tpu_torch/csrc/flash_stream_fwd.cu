@@ -44,10 +44,6 @@
 
 namespace {
 
-// the item counter and count of blocks done (zero between launches: the
-// last block of a launch resets them)
-__device__ unsigned int stream_fwd_sched[2];
-
 template <bool MULTI>
 __global__ void __launch_bounds__(flashw::threads(MULTI), 1)
 flash_stream_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -66,7 +62,8 @@ extern "C" int flash_stream_fwd(const void* q, const void* k, const void* v,
                                 int max_feats, long long qsb, long long qss,
                                 long long qsh, long long ksb, long long kss,
                                 long long ksh, long long osb, long long oss,
-                                long long osh, float scale, void* stream) {
+                                long long osh, float scale, void* sched,
+                                void* stream) {
   // every LLaMA preset of the repo has Dh = 128; TMA takes 16-byte strides
   if (B <= 0 || S_q <= 0 || S_k <= 0 || H <= 0 || q_offset < 0 ||
       Dh != flashw::DH || qsb % 8 != 0 || qss % 8 != 0 || qsh % 8 != 0 ||
@@ -80,10 +77,6 @@ extern "C" int flash_stream_fwd(const void* q, const void* k, const void* v,
     err = hopper::make_map_4d_bf16(&maps[i], i == 1 ? k : v, Dh, H, S_k, B,
                                    ksh, kss, ksb, flashw::BOX, flashw::BKV);
   }
-  void* sched = nullptr;
-  if (err == cudaSuccess) {
-    err = cudaGetSymbolAddress(&sched, stream_fwd_sched);
-  }
   if (err != cudaSuccess) return static_cast<int>(err);
   const flashw::Args a{static_cast<const float*>(gate2),
                        static_cast<const int*>(video_start),
@@ -92,13 +85,10 @@ extern "C" int flash_stream_fwd(const void* q, const void* k, const void* v,
                        static_cast<unsigned int*>(sched),
                        B, S_q, S_k, q_offset, H, max_feats, osb, oss, osh,
                        scale};
-  static bool attr_set[2] = {false, false};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t launched =
       flashw::multi_tile(a)
-          ? flashw::launch<true>(flash_stream_fwd_kernel<true>, maps, a,
-                                 attr_set[1], st)
-          : flashw::launch<false>(flash_stream_fwd_kernel<false>, maps, a,
-                                  attr_set[0], st);
+          ? flashw::launch<true>(flash_stream_fwd_kernel<true>, maps, a, st)
+          : flashw::launch<false>(flash_stream_fwd_kernel<false>, maps, a, st);
   return static_cast<int>(launched);
 }

@@ -48,9 +48,8 @@
 //             K/V buffers and two q stages (dkv_body<2, 2>; K6 has one and
 //             four), so that the next item's K and V load while this one's
 //             few steps run.
-// The two loops take their items from counters of their own
-// (`text_dq_sched`, `text_dkv_sched` below, not K6's), in groups of a few
-// heads.
+// The two loops take their items, in groups of a few heads, from the
+// counter `sched` of the caller's stream, one after the other.
 // No atomics on the outputs: every output element and every dgate2 partial
 // has one writer, so the result is the same from run to run. Rows past S
 // come in as zeros by TMA and keys past S are masked out of P.
@@ -61,11 +60,6 @@
 #include "flash_bwd_wgmma.cuh"
 
 namespace {
-
-// each loop's shared item counter and count of blocks done (zero between
-// launches: the last block of a launch resets them)
-__device__ unsigned int text_dq_sched[2];
-__device__ unsigned int text_dkv_sched[2];
 
 __global__ void __launch_bounds__(flashbw::THREADS, 1)
 flash_text_dq_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -89,21 +83,21 @@ flash_text_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
 }  // namespace
 
 // delta (B, H, S) f32 is scratch: the dq pass writes D there for the dk/dv
-// pass.
+// pass. `sched` is the item counter of the caller's stream (two uint32,
+// zero between launches: each pass's last block resets them).
 extern "C" int flash_text_bwd(const void* q, const void* k, const void* v,
                               const void* out, const void* dout,
                               const void* lse, const void* gate2,
                               const void* video_start, void* dq, void* dk,
                               void* dv, void* delta, void* dg2_part, int B,
                               int S, int H, int Dh, int max_feats, float scale,
-                              void* stream) {
+                              void* sched, void* stream) {
   // every LLaMA preset of the repo has Dh = 128
   if (B <= 0 || S <= 0 || H <= 0 || Dh != flashbw::DH) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   CUtensorMap maps[4], o_map;
-  void* sched = nullptr;
   cudaError_t err = flashbw::make_maps(maps, q, dout, k, v, B, S, S, H,
                                        flashbw::DQ_BQ, flashbw::DQ_BKV);
   if (err == cudaSuccess) {
@@ -113,9 +107,7 @@ extern "C" int flash_text_bwd(const void* q, const void* k, const void* v,
         static_cast<uint64_t>(S) * H * flashbw::DH, flashbw::BOX,
         flashbw::DQ_BQ);
   }
-  if (err == cudaSuccess) err = cudaGetSymbolAddress(&sched, text_dq_sched);
   if (err != cudaSuccess) return static_cast<int>(err);
-  static bool dq_attr = false;
   err = flashbw::launch(
       flash_text_dq_kernel,
       flashbw::make_args(lse, delta, gate2, video_start, dq, dg2_part,
@@ -123,22 +115,20 @@ extern "C" int flash_text_bwd(const void* q, const void* k, const void* v,
                          scale),
       static_cast<long long>((S + flashbw::DQ_BQ - 1) / flashbw::DQ_BQ) * H *
           B,
-      flashbw::DQ_SMEM_OWN_D, dq_attr, st, maps[0], maps[1], maps[2],
+      flashbw::DQ_SMEM_OWN_D, st, maps[0], maps[1], maps[2],
       maps[3], o_map);
 
   if (err == cudaSuccess) {
     err = flashbw::make_maps(maps, q, dout, k, v, B, S, S, H, flashbw::DKV_BQ,
                              flashbw::DKV_BK);
   }
-  if (err == cudaSuccess) err = cudaGetSymbolAddress(&sched, text_dkv_sched);
   if (err != cudaSuccess) return static_cast<int>(err);
-  static bool dkv_attr = false;
   return static_cast<int>(flashbw::launch(
       flash_text_dkv_kernel,
       flashbw::make_args(lse, delta, gate2, video_start, nullptr, nullptr, dk,
                          dv, sched, B, S, S, H, 0, max_feats, scale),
       static_cast<long long>((S + flashbw::DKV_BK - 1) / flashbw::DKV_BK) *
           H * B,
-      flashbw::Dkv<2, 2>::SMEM, dkv_attr, st, maps[0], maps[1], maps[2],
+      flashbw::Dkv<2, 2>::SMEM, st, maps[0], maps[1], maps[2],
       maps[3]));
 }

@@ -39,10 +39,6 @@
 
 namespace {
 
-// the item counter and count of blocks done (zero between launches: the
-// last block of a launch resets them)
-__device__ unsigned int fwd_sched[2];
-
 template <bool MULTI>
 __global__ void __launch_bounds__(flashw::threads(MULTI), 1)
 flash_text_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -60,7 +56,7 @@ extern "C" int flash_text_fwd(const void* q, const void* k, const void* v,
                               int Dh, int max_feats, long long sb,
                               long long ss, long long sh, long long osb,
                               long long oss, long long osh, float scale,
-                              void* stream) {
+                              void* sched, void* stream) {
   // every LLaMA preset of the repo has Dh = 128; TMA takes 16-byte strides
   if (B <= 0 || S <= 0 || H <= 0 || Dh != flashw::DH || sb % 8 != 0 ||
       ss % 8 != 0 || sh % 8 != 0) {
@@ -74,23 +70,17 @@ extern "C" int flash_text_fwd(const void* q, const void* k, const void* v,
         flashw::BQ);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  void* sched = nullptr;
-  const cudaError_t err = cudaGetSymbolAddress(&sched, fwd_sched);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const flashw::Args a{static_cast<const float*>(gate2),
                        static_cast<const int*>(video_start),
                        static_cast<flashw::bf16*>(out),
                        static_cast<float*>(lse),
                        static_cast<unsigned int*>(sched),
                        B, S, S, 0, H, max_feats, osb, oss, osh, scale};
-  static bool attr_set[2] = {false, false};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t launched =
       flashw::multi_tile(a)
-          ? flashw::launch<true>(flash_text_fwd_kernel<true>, maps, a,
-                                 attr_set[1], st)
-          : flashw::launch<false>(flash_text_fwd_kernel<false>, maps, a,
-                                  attr_set[0], st);
+          ? flashw::launch<true>(flash_text_fwd_kernel<true>, maps, a, st)
+          : flashw::launch<false>(flash_text_fwd_kernel<false>, maps, a, st);
   return static_cast<int>(launched);
 }
 

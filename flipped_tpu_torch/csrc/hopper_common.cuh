@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the TMA-fed wgmma kernels (K3 in
-// int8_fwd.cu, K8 weight-only in int4_fwd.cu, K10's GEMM in wgmma_int8.cuh,
-// K4 and K9 in dx_wgmma.cuh, K1 and K5 in flash_fwd_wgmma.cuh, K2, K6a
-// and K6b in flash_bwd_wgmma.cuh): mbarriers, TMA tile loads, shared-memory
-// matrix descriptors, the wgmma forms and fences, the int4 dequantize into
-// register operands, and the host-side tensor-map encoders.
+// int8_fwd.cu, K7 in int8_grouped_fwd.cu, K8 in int4_fwd.cu, K10's GEMM in
+// wgmma_int8.cuh, K4 and K9 in dx_wgmma.cuh, K1 and K5 in
+// flash_fwd_wgmma.cuh, K2, K6a and K6b in flash_bwd_wgmma.cuh): mbarriers,
+// TMA tile loads, shared-memory matrix descriptors, the wgmma forms and
+// fences, the int4 dequantize into register operands, the host-side
+// tensor-map encoders and the shared-memory opt-in.
 //
 // The tensor maps are built on the host per call with
 // cuTensorMapEncodeTiled, looked up at run time through
@@ -16,6 +17,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <set>
+#include <utility>
 
 namespace hopper {
 
@@ -119,6 +124,16 @@ __device__ __forceinline__ uint64_t desc_sw128_mn(const void* tile,
   return ((addr & 0x3FFFFull) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) | (64ull << 32) |
          (1ull << 62);
+}
+
+// The 4 bytes at (row r, byte c, c % 4 == 0) of a 128-byte-row tile written
+// by TMA with the 128-byte swizzle (16-byte chunk j of row r sits at
+// j ^ (r % 8); the tile is 1024-byte aligned): K10's and K8 w4a8's loads of
+// their weight tiles into register operands.
+__device__ __forceinline__ uint32_t sw128_u32(const uint8_t* tile, int r,
+                                              int c) {
+  return *reinterpret_cast<const uint32_t*>(
+      tile + r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15));
 }
 
 // Warp specialisation: the producer warpgroup gives registers back, the
@@ -384,6 +399,121 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8_rs(int (&d)[64],
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// The same with scale-d 0 (K8 w4a8, int4_fwd.cu): d is written, not read,
+// so a group's first wgmma defines its accumulator registers.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_rs_zero(
+    int (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]),
+        "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]),
+        "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15]),
+        "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]),
+        "=r"(d[24]), "=r"(d[25]), "=r"(d[26]), "=r"(d[27]),
+        "=r"(d[28]), "=r"(d[29]), "=r"(d[30]), "=r"(d[31]),
+        "=r"(d[32]), "=r"(d[33]), "=r"(d[34]), "=r"(d[35]),
+        "=r"(d[36]), "=r"(d[37]), "=r"(d[38]), "=r"(d[39]),
+        "=r"(d[40]), "=r"(d[41]), "=r"(d[42]), "=r"(d[43]),
+        "=r"(d[44]), "=r"(d[45]), "=r"(d[46]), "=r"(d[47]),
+        "=r"(d[48]), "=r"(d[49]), "=r"(d[50]), "=r"(d[51]),
+        "=r"(d[52]), "=r"(d[53]), "=r"(d[54]), "=r"(d[55]),
+        "=r"(d[56]), "=r"(d[57]), "=r"(d[58]), "=r"(d[59]),
+        "=r"(d[60]), "=r"(d[61]), "=r"(d[62]), "=r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0));
+}
+
+// SS int8 wgmma with N 128 (K7, int8_grouped_fwd.cu): A and B both K-major
+// tiles in shared memory (`desc_a`, `desc_b`), 32 contraction bytes a step;
+// D as the m64n128 forms (d[4i + e] at row 16w + g, column 8i + 2t + e;
+// d[4i + 2 + e] at row 16w + g + 8). The _zero form writes d (scale-d 0),
+// the other adds to it.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss_zero(
+    int (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]),
+        "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]),
+        "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15]),
+        "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]),
+        "=r"(d[24]), "=r"(d[25]), "=r"(d[26]), "=r"(d[27]),
+        "=r"(d[28]), "=r"(d[29]), "=r"(d[30]), "=r"(d[31]),
+        "=r"(d[32]), "=r"(d[33]), "=r"(d[34]), "=r"(d[35]),
+        "=r"(d[36]), "=r"(d[37]), "=r"(d[38]), "=r"(d[39]),
+        "=r"(d[40]), "=r"(d[41]), "=r"(d[42]), "=r"(d[43]),
+        "=r"(d[44]), "=r"(d[45]), "=r"(d[46]), "=r"(d[47]),
+        "=r"(d[48]), "=r"(d[49]), "=r"(d[50]), "=r"(d[51]),
+        "=r"(d[52]), "=r"(d[53]), "=r"(d[54]), "=r"(d[55]),
+        "=r"(d[56]), "=r"(d[57]), "=r"(d[58]), "=r"(d[59]),
+        "=r"(d[60]), "=r"(d[61]), "=r"(d[62]), "=r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(
+    int (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // SS int8 wgmma (K3): A and B both K-major tiles in shared memory
@@ -836,6 +966,30 @@ inline cudaError_t make_map_4d_bf16(CUtensorMap* map, const void* base,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The opt-in of `kernel` to `bytes` of dynamic shared memory above 48 KB,
+// made once per (kernel, device): the attribute belongs to the current
+// device's context, so a flag per kernel (made on the first device a
+// process launches on) would leave a second device's launches refused.
+inline cudaError_t smem_opt_in_fn(const void* kernel, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> done;
+  const std::lock_guard<std::mutex> lock(mu);
+  if (done.count({kernel, dev}) != 0) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.insert({kernel, dev});
+  return err;
+}
+
+template <typename Kernel>
+inline cudaError_t smem_opt_in(Kernel kernel, int bytes) {
+  return smem_opt_in_fn(reinterpret_cast<const void*>(kernel), bytes);
 }
 
 }  // namespace hopper

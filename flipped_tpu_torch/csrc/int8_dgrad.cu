@@ -162,6 +162,9 @@ int8_dgrad_quantize_kernel(const bf16* __restrict__ g,
   }
 }
 
+// the rows a call takes: 65535 tiles of 128 rows
+constexpr long long MAX_ROWS = 128LL * 65535;
+
 }  // namespace
 
 // gq (M, N) int8 and gsc (M,) f32 are scratch the wrapper allocates.
@@ -169,7 +172,7 @@ extern "C" int int8_dgrad(const void* g, const void* kq, const void* scale,
                           void* gq, void* gsc, void* out, int M, int N, int K,
                           int s_mod, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || N % 16 != 0 || K % 16 != 0 ||
-      s_mod <= 0 || (M + quant::BM - 1) / quant::BM > 65535) {
+      s_mod <= 0 || M > MAX_ROWS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -336,12 +336,8 @@ extern "C" int int8_fwd(const void* x, const void* kq, const void* scale,
     err = hopper::make_map_2d(&b_map, kq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
                               N, K, BN, BK, CU_TENSOR_MAP_SWIZZLE_128B);
   }
-  static bool attr_set = false;
-  if (err == cudaSuccess && !attr_set) {
-    err = cudaFuncSetAttribute(int8_fwd_wgmma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM);
-    attr_set = err == cudaSuccess;
+  if (err == cudaSuccess) {
+    err = hopper::smem_opt_in(int8_fwd_wgmma_kernel, SMEM);
   }
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);

@@ -2,9 +2,9 @@
 // ring: out (M, Nout) bf16 = (a (M, C) int8 . b (C, Nout) int8) * row scale,
 // with b contiguous along Nout, i.e. MN-major for the product. K10
 // (int8_dgrad.cu) runs it with a = the quantized cotangent gq (M, N), b =
-// kq (N, K) and the row scales gsc; quant_common.cuh's mma.sync tile stays
-// for K7 and K8 w4a8. (K3's operands are both K-major and need no swap:
-// int8_fwd.cu reads them with the SS form.)
+// kq (N, K) and the row scales gsc. (K3's and K7's operands are both
+// K-major and need no swap: int8_fwd.cu and int8_grouped_fwd.cu read them
+// with the SS form.)
 //
 // The constraint: for 8-bit types wgmma reads shared-memory operands
 // K-major only (its transpose bits are for 16-bit types), b is MN-major,
@@ -51,15 +51,6 @@ constexpr int B_BYTES = BC * BN;  // 16 KB: b rows, 128B swizzle
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int THREADS = 3 * 128;
 constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
-
-// the 4 bytes at (row r, byte c, c % 4 == 0) of a 128-byte-row tile written
-// by TMA with the 128-byte swizzle (16-byte chunk j of row r sits at
-// j ^ (r % 8); the tile is 1024-byte aligned)
-__device__ __forceinline__ uint32_t sw128_u32(const uint8_t* tile, int r,
-                                              int c) {
-  return *reinterpret_cast<const uint32_t*>(
-      tile + r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15));
-}
 
 // T[c] = byte c of w[0..3], w[j]'s in byte j
 __device__ __forceinline__ void transpose4x4(const uint32_t w[4],
@@ -109,8 +100,8 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full,
       uint32_t wlo[4], whi[4], T[4], U[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        wlo[j] = sw128_u32(bt, 32 * ks + 4 * t + j, kk);
-        whi[j] = sw128_u32(bt, 32 * ks + 16 + 4 * t + j, kk);
+        wlo[j] = hopper::sw128_u32(bt, 32 * ks + 4 * t + j, kk);
+        whi[j] = hopper::sw128_u32(bt, 32 * ks + 16 + 4 * t + j, kk);
       }
       transpose4x4(wlo, T);
       transpose4x4(whi, U);
@@ -228,13 +219,7 @@ inline cudaError_t launch_kn_gemm_row(const void* a, const void* b,
     err = hopper::make_map_2d(&b_map, b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, C,
                               Nout, BC, BN, CU_TENSOR_MAP_SWIZZLE_128B);
   }
-  static bool attr_set = false;
-  if (err == cudaSuccess && !attr_set) {
-    err = cudaFuncSetAttribute(kn_gemm_row_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM);
-    attr_set = err == cudaSuccess;
-  }
+  if (err == cudaSuccess) err = hopper::smem_opt_in(kn_gemm_row_kernel, SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((M + BM - 1) / BM, (Nout + BN - 1) / BN);
   kn_gemm_row_kernel<<<grid, THREADS, SMEM, stream>>>(a_map, b_map, row_scale,

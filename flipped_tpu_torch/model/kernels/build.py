@@ -17,6 +17,9 @@ through `ctypes` with pointers from `Tensor.data_ptr()` and the stream from
 
 A missing `nvcc` or a failed build raises `KernelBuildError` with the
 compiler's output: no wrapper falls back to a plain path on a CUDA tensor.
+The log heads each source's output with a line `# nvcc <source>`, so that
+`wgmma_serialisation_warnings` can name the source of a ptxas warning that
+it serialised a kernel's wgmmas.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -52,30 +56,35 @@ class KernelLibrary:
             + [ctypes.c_int] * 5                       # B S H Dh max_feats
             + [ctypes.c_longlong] * 3                  # q/k/v strides b s h
             + [ctypes.c_longlong] * 3                  # out strides b s h
-            + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
+            + [ctypes.c_float]                         # scale
+            + [ctypes.c_void_p] * 2)   # the stream's item counter, stream
         self.lib.flash_text_fwd.restype = ctypes.c_int
         self.lib.flash_text_bwd.argtypes = (
             [ctypes.c_void_p] * 13    # q k v out dout lse gate2 vs dq dk dv
                                       # delta dg2_part
             + [ctypes.c_int] * 5      # B S H Dh max_feats
-            + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
+            + [ctypes.c_float]                         # scale
+            + [ctypes.c_void_p] * 2)   # the stream's item counter, stream
         self.lib.flash_text_bwd.restype = ctypes.c_int
         self.lib.flash_stream_fwd.argtypes = (
             [ctypes.c_void_p] * 7                      # q k v gate2 vs out lse
             + [ctypes.c_int] * 7      # B S_q S_k H Dh q_offset max_feats
             + [ctypes.c_longlong] * 9                  # q, k/v, out strides
-            + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
+            + [ctypes.c_float]                         # scale
+            + [ctypes.c_void_p] * 2)   # the stream's item counter, stream
         self.lib.flash_stream_fwd.restype = ctypes.c_int
         self.lib.flash_stream_dq.argtypes = (
             [ctypes.c_void_p] * 10    # q k v dout lse delta gate2 vs dq
                                       # dg2_part
             + [ctypes.c_int] * 7      # B S_q S_k H Dh q_offset max_feats
-            + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
+            + [ctypes.c_float]                         # scale
+            + [ctypes.c_void_p] * 2)   # the stream's item counter, stream
         self.lib.flash_stream_dq.restype = ctypes.c_int
         self.lib.flash_stream_dkv.argtypes = (
             [ctypes.c_void_p] * 10    # q k v dout lse delta gate2 vs dk dv
             + [ctypes.c_int] * 7      # B S_q S_k H Dh q_offset max_feats
-            + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
+            + [ctypes.c_float]                         # scale
+            + [ctypes.c_void_p] * 2)   # the stream's item counter, stream
         self.lib.flash_stream_dkv.restype = ctypes.c_int
         for fn in ("int8_fwd", "int8_grouped_fwd"):
             getattr(self.lib, fn).argtypes = (
@@ -143,11 +152,12 @@ def source_hash() -> str:
 
 def _run(procs) -> str:
     """Wait for every (cmd, Popen); raise with the log of the first that
-    failed, after all have ended (no compiler is left running)."""
+    failed, after all have ended (no compiler is left running). Each
+    command's output is headed by `# nvcc <its last argument's name>`."""
     log, failed = "", None
     for cmd, proc in procs:
         out, _ = proc.communicate()
-        log += out
+        log += f"# nvcc {Path(cmd[-1]).name}\n" + out
         if proc.returncode != 0 and failed is None:
             failed = (cmd, proc.returncode, out)
     if failed is not None:
@@ -184,6 +194,25 @@ def _compile_and_link(nvcc: str, out_dir: Path, lib_path: Path) -> str:
         raise
     os.replace(tmp, lib_path)
     return log
+
+
+# ptxas's warnings that it serialised a kernel's wgmmas, "(C75xx) Potential
+# Performance Loss: wgmma.mma_async instructions are serialized due to
+# ...", with codes from C7510 to C7520 (C7519, an injected
+# warpgroup.arrive, serialises nothing)
+_SERIALISED = re.compile(r"\(C75(1[0-9]|20)\).*\bserialized\b")
+
+
+def wgmma_serialisation_warnings(log: str) -> list:
+    """(source, line) for every ptxas line of a build log that reports
+    serialised wgmmas, the source named by the `# nvcc` line above it."""
+    source, found = "?", []
+    for line in log.splitlines():
+        if line.startswith("# nvcc "):
+            source = line[len("# nvcc "):].strip()
+        elif _SERIALISED.search(line):
+            found.append((source, line.strip()))
+    return found
 
 
 def build(force: bool = False) -> KernelLibrary:

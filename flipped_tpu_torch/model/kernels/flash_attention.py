@@ -42,6 +42,12 @@ wrapper:
 - A CPU tensor takes the plain version (`<wrapper>_ref`).
 - `<wrapper>.launches` counts kernel launches; only the CUDA branch adds
   to it.
+
+The kernels' persistent grids take their work items from a counter in
+device memory that the launch's last block resets. Each launch gets the
+counter of the stream it runs on (`_item_counter`): launches on one
+stream run in order, and two in flight on two streams each take all of
+their own items.
 """
 from __future__ import annotations
 
@@ -161,6 +167,44 @@ def _check_cuda_inputs(q, k, v, gate2, video_start, streaming=False):
                          f"{tuple(video_start.shape)} {video_start.dtype}")
 
 
+# (device index, stream handle) -> the stream's item counter: two uint32
+# (the next shared item, the blocks done), zero between launches
+_COUNTERS: dict = {}
+# device index -> counters zeroed outside any CUDA-graph capture, kept for
+# streams that are first seen while being captured
+_SPARE: dict = {}
+SPARE_COUNTERS = 16
+
+
+def _item_counter(device, stream) -> int:
+    """The address of `stream`'s item counter on `device`. A stream first
+    seen outside a CUDA-graph capture gets a counter zeroed on it; the
+    device's first such counter comes with SPARE_COUNTERS more, zeroed
+    before the call returns. A stream first seen while it is captured (its
+    launches become a graph's) takes a spare: a counter made inside the
+    capture would be zeroed by a fill captured into the graph, one more
+    node before every launch. Graphs captured on one stream share its
+    counter, so they replay one at a time, as launches on one stream do.
+    With no spare left, each captured launch takes a counter of its own
+    from the graph's memory, zeroed by a captured fill."""
+    key = (device.index, stream.cuda_stream)
+    counter = _COUNTERS.get(key)
+    if counter is not None:
+        return counter.data_ptr()
+    if not torch.cuda.is_current_stream_capturing():
+        counter = torch.zeros(2, dtype=torch.int32, device=device)
+        if device.index not in _SPARE:
+            _SPARE[device.index] = list(torch.zeros(
+                SPARE_COUNTERS, 2, dtype=torch.int32, device=device))
+            stream.synchronize()
+    elif _SPARE.get(device.index):
+        counter = _SPARE[device.index].pop()
+    else:
+        return torch.zeros(2, dtype=torch.int32, device=device).data_ptr()
+    _COUNTERS[key] = counter
+    return counter.data_ptr()
+
+
 def _raise_on(err: int, lib, name: str):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {lib.error_string(err)} "
@@ -192,14 +236,15 @@ def flash_text_attention(q, k, v, gate2, video_start, max_feats: int):
     b, s, h, dh = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = torch.cuda.current_stream(q.device)
     with torch.cuda.device(q.device):
         err = lib.lib.flash_text_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gate2.data_ptr(),
             video_start.data_ptr(), out.data_ptr(), lse.data_ptr(),
             b, s, h, dh, int(max_feats),
             *q.stride()[:3], *out.stride()[:3],
-            1.0 / math.sqrt(dh), stream)
+            1.0 / math.sqrt(dh), _item_counter(q.device, stream),
+            stream.cuda_stream)
     _raise_on(err, lib, "flash_text_fwd")
     flash_text_attention.launches += 1
     return out, lse
@@ -276,14 +321,15 @@ def flash_text_attention_bwd(q, k, v, gate2, video_start, max_feats: int, do,
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     dg2_part = torch.empty((b, h, -(-s // DQ_TILE)), dtype=torch.float32,
                            device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = torch.cuda.current_stream(q.device)
     with torch.cuda.device(q.device):
         err = lib.lib.flash_text_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             do.data_ptr(), lse.data_ptr(), gate2.data_ptr(),
             video_start.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), dg2_part.data_ptr(),
-            b, s, h, dh, int(max_feats), 1.0 / math.sqrt(dh), stream)
+            b, s, h, dh, int(max_feats), 1.0 / math.sqrt(dh),
+            _item_counter(q.device, stream), stream.cuda_stream)
     _raise_on(err, lib, "flash_text_bwd")
     flash_text_attention_bwd.launches += 1
     # per-(b, h, q tile) partials, summed here: no atomics in the kernel,
@@ -341,14 +387,15 @@ def flash_streaming_fwd(q, k, v, gate2, video_start, max_feats: int,
     b, s_q, h, dh = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = torch.cuda.current_stream(q.device)
     with torch.cuda.device(q.device):
         err = lib.lib.flash_stream_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gate2.data_ptr(),
             video_start.data_ptr(), out.data_ptr(), lse.data_ptr(),
             b, s_q, k.shape[1], h, dh, int(q_offset), int(max_feats),
             *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
-            1.0 / math.sqrt(dh), stream)
+            1.0 / math.sqrt(dh), _item_counter(q.device, stream),
+            stream.cuda_stream)
     _raise_on(err, lib, "flash_stream_fwd")
     flash_streaming_fwd.launches += 1
     return out, lse
@@ -430,14 +477,15 @@ def _stream_bwd_launch(fn_name: str, q, k, v, gate2, video_start,
 
     lib = build()
     b, s_q, h, dh = q.shape
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = torch.cuda.current_stream(q.device)
     with torch.cuda.device(q.device):
         err = getattr(lib.lib, fn_name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), gate2.data_ptr(),
             video_start.data_ptr(), *(o.data_ptr() for o in outs),
             b, s_q, k.shape[1], h, dh, int(q_offset), int(max_feats),
-            1.0 / math.sqrt(dh), stream)
+            1.0 / math.sqrt(dh), _item_counter(q.device, stream),
+            stream.cuda_stream)
     _raise_on(err, lib, fn_name)
 
 

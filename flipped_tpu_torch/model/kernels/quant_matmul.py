@@ -258,9 +258,19 @@ def _check_common(name, a, kq, scale, a_dim, scale_shape):
 
 
 def _tma_aligned(scale_g):
-    """K4 and K9 load their scales by TMA: a 16-byte aligned source."""
+    """K4, K7, K8 w4a8 and K9 load their scales by TMA: a 16-byte aligned
+    source."""
     return (scale_g.data_ptr() % 16 == 0,
             "scale_g must be 16-byte aligned (the kernel loads it by TMA)")
+
+
+def _row_scales(m, groups, device):
+    """K7's and K8 w4a8's scratch for the row scales, which their quantize
+    pass writes transposed: (groups, M rounded up to 4) f32, so that one
+    group's scales of a tile are one contiguous TMA box (csrc/quant_common.cuh
+    `xs_pitch`)."""
+    return torch.empty((groups, -(-m // 4) * 4), dtype=torch.float32,
+                       device=device)
 
 
 def _launch(fn, *args):
@@ -313,11 +323,12 @@ def grouped_matmul(x, kq, scale_g):
     n, k = _check_common("grouped_matmul", x, kq, scale_g, "K",
                          lambda n, k: (k // GROUP, n))
     _check("grouped_matmul", [(k % GROUP == 0,
-                               f"needs K % {GROUP} == 0, got {k}")])
+                               f"needs K % {GROUP} == 0, got {k}"),
+                              _tma_aligned(scale_g)])
     lead, x2 = _lead(x)
     m = x2.shape[0]
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    xs = torch.empty((m, k // GROUP), dtype=torch.float32, device=x.device)
+    xs = _row_scales(m, k // GROUP, x.device)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         _launch("int8_grouped_fwd", x2.data_ptr(), kq.data_ptr(),
@@ -396,9 +407,9 @@ def int4_matmul(x, kq4, scale_g, act_quant: bool):
     lead, x2 = _lead(x)
     m = x2.shape[0]
     if act_quant:
+        _check("int4_matmul", [_tma_aligned(scale_g)])
         xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-        xs = torch.empty((m, k // group), dtype=torch.float32,
-                         device=x.device)
+        xs = _row_scales(m, k // group, x.device)
     else:
         xq = xs = x2                  # unused by the weight-only branch
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)

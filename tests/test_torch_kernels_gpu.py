@@ -839,3 +839,125 @@ def test_flash_text_fwd_lengths_and_strided_views(cuda, s, strided):
     torch.cuda.synchronize()
     assert fa.flash_text_attention.launches == before + 1
     _k1_hold(q, k, v, g2, video_start, out, lse)
+
+
+# --- edge tiles of K7 (int8_grouped_fwd.cu) and K8 w4a8 (int4_fwd.cu) -------
+# K7 tiles 128 rows by 128 columns over 128-deep stages, one group a stage,
+# its accumulators alternating between groups; K8's w4a8 branch tiles 128 x
+# rows by 64 packed rows (output columns j0 + p and N/2 + j0 + p). M of one
+# row, short of and past a 64-row warpgroup (63, 65), past a 128- and a
+# 256-row tile (129, 257); N past and short of a tile (K7 N 136 and 264;
+# K8 N/2 72 and 200); a contraction of one group (128), an odd group count
+# (1152: 9 groups; K8 at group 256: 2304) and 86 groups (11008), whose
+# even count takes the kernels' other instantiation. Bit for bit their
+# plain versions (chip_smoke.py states why).
+GROUPED_EDGE_M = (1, 63, 65, 129, 257)
+
+
+def _edge_rows(x, m):
+    """x with a random first row where `_quant_inputs` / `_grouped_int4`
+    zeroed the only one."""
+    if m == 1:
+        x = torch.randn(1, x.shape[1], device=x.device).to(torch.bfloat16)
+    return x
+
+
+@pytest.mark.parametrize("m", GROUPED_EDGE_M)
+@pytest.mark.parametrize("n,k", [(136, 128), (264, 1152), (136, 11008)])
+def test_grouped_fwd_edge_tiles_bitwise(cuda, m, n, k):
+    x, kq, _, sg, _ = _quant_inputs(cuda, m, k, n, 21)
+    x = _edge_rows(x, m)
+    before = qm.grouped_matmul.launches
+    out = qm.grouped_matmul(x, kq, sg)
+    torch.cuda.synchronize()
+    assert qm.grouped_matmul.launches == before + 1
+    assert torch.equal(_bits(out), _bits(qm.grouped_matmul_ref(x, kq, sg)))
+
+
+def _grouped_int4(cuda, m, k, n, group, seed):
+    """x as `_int4_inputs`, int4 codes packed to (N/2, K), scales (K /
+    group, N)."""
+    from flipped_tpu_torch.model.int4 import pack_int4
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, device=cuda, generator=g)
+    x[:, 1] *= 30.0
+    x[m // 2] = 0.0
+    codes = torch.randint(-8, 8, (n, k), device=cuda, generator=g,
+                          dtype=torch.int8)
+    sg = (torch.rand(k // group, n, device=cuda, generator=g) + 0.5) \
+        / (7.0 * k ** 0.5)
+    return x.to(torch.bfloat16), pack_int4(codes), sg
+
+
+@pytest.mark.parametrize("m", GROUPED_EDGE_M)
+@pytest.mark.parametrize("nh,k,group", [(72, 128, 128), (200, 1152, 128),
+                                        (72, 11008, 128), (200, 2304, 256)])
+def test_int4_w4a8_edge_tiles_bitwise(cuda, m, nh, k, group):
+    x, kq4, sg = _grouped_int4(cuda, m, k, 2 * nh, group, 22)
+    x = _edge_rows(x, m)
+    before = qm.int4_matmul.launches
+    out = qm.int4_matmul(x, kq4, sg, True)
+    torch.cuda.synchronize()
+    assert qm.int4_matmul.launches == before + 1
+    assert torch.equal(_bits(out),
+                       _bits(qm.int4_matmul_ref(x, kq4, sg, True)))
+
+
+@pytest.mark.parametrize("m,k,group", [(65, 8192, 8192), (130, 16384, 8192)])
+def test_int4_w4a8_wide_groups_bitwise(cuda, m, k, group):
+    """Groups of 8192, 64 stages each (the fold once every 64 stages, the
+    int32 dots up to 2^23), still bit for bit."""
+    x, kq4, sg = _grouped_int4(cuda, m, k, 144, group, 23)
+    out = qm.int4_matmul(x, kq4, sg, True)
+    assert torch.equal(_bits(out),
+                       _bits(qm.int4_matmul_ref(x, kq4, sg, True)))
+
+
+def test_flash_stream_fwd_two_streams_at_once(cuda):
+    """K5 launched on two streams at once, the two joined by events, at the
+    long training shape: both outputs bit for bit one single-stream call's.
+    The persistent grid takes its items from a counter; each stream has its
+    own (model/kernels/flash_attention.py `_item_counter`), so neither
+    launch takes the other's items and leaves rows unwritten."""
+    q, k, v, _, g2, vs = _stream_inputs(cuda, 3, 4096, 4096, 32, (7, 3, -1),
+                                        24)
+    ref, ref_lse = fa.flash_streaming_fwd(q, k, v, g2, vs, 10)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for _ in range(3):
+        start = torch.cuda.Event()
+        start.record()
+        outs = []
+        for s in streams:
+            s.wait_event(start)
+            with torch.cuda.stream(s):
+                outs.append(fa.flash_streaming_fwd(q, k, v, g2, vs, 10))
+        for s in streams:
+            done = torch.cuda.Event()
+            done.record(s)
+            torch.cuda.current_stream().wait_event(done)
+        torch.cuda.synchronize()
+        for out, lse in outs:
+            assert torch.equal(_bits(out), _bits(ref))
+            assert torch.equal(lse, ref_lse)
+
+
+def test_grouped_forwards_refuse_unaligned_scales(cuda):
+    """K7 and K8's w4a8 branch bring each group's scales into shared memory
+    by TMA, which needs a 16-byte aligned source: the wrappers refuse other
+    views; K8's weight-only branch, which reads them directly, takes them."""
+    x, kq, _, sg, _ = _quant_inputs(cuda, 16, 256, 128, 25)
+    flat = torch.empty(sg.numel() + 1, device=cuda)
+    off = flat[1:].view(sg.shape)
+    off.copy_(sg)
+    assert off.data_ptr() % 16 != 0
+    with pytest.raises(ValueError):
+        qm.grouped_matmul(x, kq, off)
+    x4, _, kq4, sg4, _ = _int4_inputs(cuda, 16, 256, 256, 25)
+    flat = torch.empty(sg4.numel() + 1, device=cuda)
+    off4 = flat[1:].view(sg4.shape)
+    off4.copy_(sg4)
+    with pytest.raises(ValueError):
+        qm.int4_matmul(x4, kq4, off4, True)
+    out = qm.int4_matmul(x4, kq4, off4, False)
+    assert torch.equal(out, qm.int4_matmul(x4, kq4, sg4, False))

@@ -505,7 +505,8 @@ def test_train_cli_subprocess_w8a8(synth_root):
 
 def test_profile_classes_the_int8_kernels():
     assert tprofile.kernel_class(
-        "void quant::int8_gemm_kernel<false>(signed char const*, ...)") \
+        "void (anonymous namespace)::int8_grouped_wgmma_kernel<false>("
+        "CUtensorMap_st, ...)") \
         == "int8 GEMM (K3/K7)"
     assert tprofile.kernel_class(
         "void quant::quantize_rows_kernel<true>(__nv_bfloat16 const*, ...)") \

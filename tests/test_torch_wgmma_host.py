@@ -1,11 +1,13 @@
-"""Host-side facts of the TMA + wgmma kernels (K3, K1, K5, K2, K6a, K6b,
-K8 weight-only, K10's GEMM, K4 and K9) that hold without a card: the
+"""Host-side facts of the TMA + wgmma kernels (K3, K7, K1, K5, K2, K6a,
+K6b, K8 both branches, K10's GEMM, K4 and K9) that hold without a card: the
 profiler files their kernels under their classes, their main loops are
-wgmma fed by TMA through an mbarrier ring, with no mma.sync left in them or
-in any flash source, the forward's item order groups heads, and the integer
-tricks by which K4 and K9 dequantize into wgmma's register operand are
-exact (the CUDA sources themselves run only on the card:
-tests/test_torch_kernels_gpu.py)."""
+wgmma fed by TMA through an mbarrier ring, with no mma.sync left in any
+source, the forward's item order groups heads, K7's and K8's group folds
+keep the plain versions' order, the integer tricks by which K4, K8 and K9
+feed wgmma's register operand and K7 and K8 convert their group dots are
+exact, the shared-memory opt-in is made per device and the build log's
+wgmma-serialisation warnings are found (the CUDA sources themselves run
+only on the card: tests/test_torch_kernels_gpu.py)."""
 import re
 from pathlib import Path
 
@@ -45,8 +47,12 @@ def _function(src: str, name: str) -> str:
      "int)", "int8 GEMM (K3/K7)"),
     ("void (anonymous namespace)::int8_fwd_quantize_kernel("
      "__nv_bfloat16 const*, signed char*, float*, int)", "int8 GEMM (K3/K7)"),
-    ("void quant::int8_gemm_kernel(signed char const*, ...)",
-     "int8 GEMM (K3/K7)"),
+    ("void (anonymous namespace)::int8_grouped_wgmma_kernel<true>("
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, "
+     "__nv_bfloat16*, int, int, int)", "int8 GEMM (K3/K7)"),
+    ("void (anonymous namespace)::int4_w4a8_wgmma_kernel<false, true>("
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, "
+     "__nv_bfloat16*, int, int, int, int)", "int4 GEMM (K8)"),
     ("void (anonymous namespace)::flash_text_fwd_kernel(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, flashw::Args)", "flash (K1/K2)"),
     ("void (anonymous namespace)::flash_stream_dq_kernel(CUtensorMap_st, "
@@ -220,19 +226,22 @@ def test_fwd_item_order_groups_heads(b, s, h):
                    for i in range(0, len(heads) - 132, 7)) <= 2 * group
 
 
-@pytest.mark.parametrize("source", [
-    "flash_common.cuh", "flash_fwd_wgmma.cuh", "flash_bwd_wgmma.cuh",
-    "flash_text_fwd.cu", "flash_text_bwd.cu", "flash_stream_fwd.cu",
-    "flash_stream_bwd.cu"])
-@pytest.mark.parametrize("word", ["mma_16816", "mma.sync"])
+# every CUDA source of the port
+SOURCES = sorted(p.name for p in CSRC.glob("*.cu*"))
+
+
+@pytest.mark.parametrize("source", SOURCES)
+@pytest.mark.parametrize("word", ["mma_16816", "mma.sync", "mma_s8_16832",
+                                  "gemm_tile"])
 def test_no_flash_source_has_mma_sync(source, word):
-    """The whole attention family (K1, K2, K5, K6a, K6b) is on TMA + wgmma:
-    no flash source names the mma.sync product, and the list above is every
-    flash source there is."""
+    """Every kernel is on TMA + wgmma: no source names the mma.sync product
+    or the int8 mma.sync tile quant_common.cuh had, and the flash sources
+    are the seven the attention family has."""
     assert sorted(p.name for p in CSRC.glob("flash_*")) == sorted(
         ["flash_common.cuh", "flash_fwd_wgmma.cuh", "flash_bwd_wgmma.cuh",
          "flash_text_fwd.cu", "flash_text_bwd.cu", "flash_stream_fwd.cu",
          "flash_stream_bwd.cu"])
+    assert len(SOURCES) >= 17
     assert word not in (CSRC / source).read_text()
 
 
@@ -299,8 +308,9 @@ def test_k6_every_consumer_warp_releases_a_stage():
 
 def test_k6_runs_the_new_loops_and_k2_keeps_flash_bwd():
     """flash_stream_bwd.cu (K6a, K6b) and flash_text_bwd.cu (K2) both run
-    flash_bwd_wgmma.cuh's loops, each with item counters of its own (K2's
-    dq pass also sums D, which K6 gets from its caller), and
+    flash_bwd_wgmma.cuh's loops, each launch with the item counter of the
+    caller's stream (K2's dq pass also sums D, which K6 gets from its
+    caller), and
     flash_bwd.cuh's mma.sync loops are gone; the __global__ names keep
     "flash_stream" (K6) and "flash_text" (K2), by which the profiler files
     them."""
@@ -319,10 +329,10 @@ def test_k6_runs_the_new_loops_and_k2_keeps_flash_bwd():
     for text in (k6, k2):
         assert '#include "flash_bwd.cuh"' not in text
         assert "flash::dq_tile" not in text and "flash::dkdv_tile" not in text
-    counters = [set(re.findall(r"__device__ unsigned int (\w+)\[2\];", t))
-                for t in (k6, k2)]
-    assert len(counters[0]) == len(counters[1]) == 2
-    assert not counters[0] & counters[1]
+    # the item counters are the caller's stream's (`sched`), no globals
+    for text in (k6, k2):
+        assert "__device__ unsigned int" not in text
+        assert "cudaGetSymbolAddress" not in text
     assert not (CSRC / "flash_bwd.cuh").exists()
 
 
@@ -437,3 +447,190 @@ def test_dx_dequantize_is_one_bf16_product():
     exact = (codes.double().view(64, 2, 128)
              * sg.to(torch.bfloat16).double().t()[:, :, None]).view(64, 256)
     assert torch.equal(ref, exact.to(torch.bfloat16))
+
+
+
+@pytest.mark.parametrize("source,loop,stage,form", [
+    ("int8_grouped_fwd.cu", "consume", "issue", "wgmma_m64n128k32_s8_ss"),
+    ("int4_fwd.cu", "a8_consume", "a8_stage", "wgmma_m64n128k32_s8_rs")])
+def test_grouped_forwards_are_tma_fed_wgmma(source, loop, stage, form):
+    """K7 (SS: xq and kq both K-major from shared memory) and K8's w4a8
+    branch (RS: the packed weight's nibbles in registers, xq from shared
+    memory) wait on a TMA ring's full barriers, issue a group's first wgmma
+    with scale-d 0 (the _zero form) and the rest adding, and take the
+    producer warpgroup's registers (setmaxnreg 40 / 232); the producer
+    brings the fold's scales by TMA too, and every consumer warp releases
+    a stage."""
+    src = (CSRC / source).read_text()
+    st = _function(src, stage)
+    assert "mbar_wait(&ring.full[" in st
+    assert f"hopper::{form}_zero(d" in st and f"hopper::{form}(d" in st
+    assert "hopper::wgmma_commit()" in st
+    assert src.count("hopper::tma_load_2d(") >= 4
+    assert "regs_alloc<232>" in src and "regs_dealloc<40>" in src
+    assert re.search(r"mbar_init\(&empty\[s\], (A8_)?CONSUMER_WARPS\)", src)
+    assert "float acc[64];" in _with_callees(src, loop)
+    common = (CSRC / "hopper_common.cuh").read_text()
+    for f in (form, form + "_zero"):
+        assert re.search(rf"void {f}\(", common), f
+    assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8" in common
+
+
+def test_k7_alternates_two_accumulators():
+    """K7 alternates two int32 accumulators between groups, each group
+    folded while the next group's wgmmas run (issued once its own are
+    done: wgmma_wait<0>, then the issue, then the fold); the kernel is
+    instantiated for even and odd group counts, so no branch picks an
+    accumulator at run time."""
+    src = (CSRC / "int8_grouped_fwd.cu").read_text()
+    body = _with_callees(src, "consume")
+    assert "int d0[64], d1[64];" in body
+    pair = body[body.index("for (; gi + 1 < groups; gi += 2)"):]
+    pair = pair[pair.index("{") + 1:pair.index("}")]
+    first, second = (re.search(r"\(ring, p, (d[01]), (d[01]),", c).groups()
+                     for c in pair.split(";")[:2])
+    assert first == ("d1", "d0") and second == ("d0", "d1")
+    step = " ".join(_function(src, "step").split())
+    assert step.index("wgmma_wait<0>()") < step.index("issue(") \
+        < step.index("fold(")
+    assert "if constexpr (EVEN)" in body
+    assert "int8_grouped_wgmma_kernel<true>" in src
+    assert "int8_grouped_wgmma_kernel<false>" in src
+
+
+def _fold_terms(src: str, fold: str):
+    """The accumulate statement of a group fold, whitespace squeezed."""
+    body = " ".join(_function(src, fold).split())
+    return re.findall(r"acc\[r\] = (__fadd_rn\(.*?\));", body)
+
+
+@pytest.mark.parametrize("source,fold,xv,sv", [
+    ("int8_grouped_fwd.cu", "fold", "xv[e >> 1]", "sv[e & 1]"),
+    ("int4_fwd.cu", "a8_fold", "xv[e & 1]", "sv[e >> 1]")])
+def test_group_fold_keeps_the_plain_order(source, fold, xv, sv):
+    """K7's and K8 w4a8's fold is acc + ((float(d_g) * xs[m]) * s_g[n]),
+    each step rounded (__int2float_rn, __fmul_rn, __fmul_rn, __fadd_rn),
+    the groups in order into one f32 sum: grouped_matmul_ref's order, so the
+    result is the plain version's bit for bit. (K7's accumulator rows are
+    output rows, K8's output columns: the row scale and the column scale
+    take the other index bits.)"""
+    src = (CSRC / source).read_text()
+    assert _fold_terms(src, fold) == [
+        f"__fadd_rn( acc[r], __fmul_rn(__fmul_rn(__int2float_rn(d[r]), "
+        f"{xv}), {sv}))"]
+
+
+def _nibbles_np(p, hi):
+    """quant_common.cuh's nibbles_lo / nibbles_hi on uint32 words p."""
+    p = np.asarray(p, dtype=np.uint32)
+    if hi:
+        p = p >> np.uint32(4)
+    x = (p & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808)
+    return (x + np.uint32(0x78787878)) ^ np.uint32(0x80808080)
+
+
+def test_nibbles_equal_jax_sign_extending_shifts():
+    """quant_common.cuh's nibbles_lo / nibbles_hi, emulated in numpy on
+    every byte value in each byte of a word, equal the JAX kernel's
+    sign-extending shifts (quant_matmul.py:172-174, run by jax.numpy on the
+    same bytes) and unpack_int4."""
+    import jax.numpy as jnp
+
+    from flipped_tpu_torch.model.kernels import quant_matmul as qm
+
+    src = (CSRC / "quant_common.cuh").read_text()
+    assert ("(((p & 0x0F0F0F0Fu) ^ 0x08080808u) + 0x78787878u) ^ "
+            "0x80808080u" in " ".join(_function(src, "nibbles_lo").split()))
+    assert "return nibbles_lo(p >> 4);" in _function(src, "nibbles_hi")
+    b = np.arange(256, dtype=np.uint32)
+    p32 = jnp.asarray(b.astype(np.int8)).astype(jnp.int32)
+    jax_lo = np.asarray(jnp.right_shift(jnp.left_shift(p32, 28), 28)
+                        .astype(jnp.int8))
+    jax_hi = np.asarray(jnp.right_shift(jnp.left_shift(p32, 24), 28)
+                        .astype(jnp.int8))
+    port = qm.unpack_int4(torch.from_numpy(b.astype(np.int8)[None, :]))
+    assert np.array_equal(port[0].numpy(), jax_lo)
+    assert np.array_equal(port[1].numpy(), jax_hi)
+    for shift in (0, 8, 16, 24):                 # each byte of the word
+        words = (b << np.uint32(shift)) | (np.uint32(0x5A) << np.uint32(
+            (shift + 8) % 32))
+        for hi, ref in ((False, jax_lo), (True, jax_hi)):
+            got = ((_nibbles_np(words, hi) >> np.uint32(shift))
+                   & np.uint32(0xFF)).astype(np.uint8).view(np.int8)
+            assert np.array_equal(got, ref), (shift, hi)
+
+
+def test_shared_memory_opt_in_is_per_device():
+    """No source keeps a `static bool attr_set`: every kernel's opt-in to
+    more than 48 KB of shared memory goes through hopper_common.cuh's
+    smem_opt_in, which keeps one flag per (kernel, device) by
+    cudaGetDevice."""
+    for p in sorted(CSRC.glob("*.cu*")):
+        text = p.read_text()
+        assert "static bool attr_set" not in text, p.name
+        assert "attr_set" not in text, p.name
+        if p.name != "hopper_common.cuh":
+            assert "cudaFuncSetAttribute" not in text, p.name
+    common = (CSRC / "hopper_common.cuh").read_text()
+    body = _function(common, "smem_opt_in_fn")
+    assert "cudaGetDevice(&dev)" in body and "{kernel, dev}" in body
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in body
+    users = [p.name for p in sorted(CSRC.glob("*.cu*"))
+             if "hopper::smem_opt_in(" in p.read_text()]
+    assert users == ["dx_wgmma.cuh", "flash_bwd_wgmma.cuh",
+                     "flash_fwd_wgmma.cuh", "int4_fwd.cu", "int8_fwd.cu",
+                     "int8_grouped_fwd.cu", "wgmma_int8.cuh"], users
+
+
+@pytest.mark.parametrize("source,fn", [
+    ("flash_text_fwd.cu", "flash_text_fwd"),
+    ("flash_stream_fwd.cu", "flash_stream_fwd"),
+    ("flash_text_bwd.cu", "flash_text_bwd"),
+    ("flash_stream_bwd.cu", "flash_stream_dq"),
+    ("flash_stream_bwd.cu", "flash_stream_dkv")])
+def test_flash_item_counters_are_the_callers(source, fn):
+    """Each flash entry point takes its item counter (`sched`) from the
+    caller, which hands it the counter of the stream it launches on
+    (flash_attention.py `_item_counter`, in the argument list the library
+    declares): no `__device__` counter is left for launches on two streams
+    to share."""
+    text = (CSRC / source).read_text()
+    assert "__device__ unsigned int" not in text
+    sig = text[text.index(f'extern "C" int {fn}('):]
+    sig = " ".join(sig[:sig.index("{")].split())
+    assert sig.endswith("void* sched, void* stream)"), sig
+    lib = (Path(build.__file__)).read_text()
+    decl = lib[lib.index(f"self.lib.{fn}.argtypes"):]
+    decl = decl[:decl.index("restype")]
+    assert "[ctypes.c_void_p] * 2)" in decl
+    from flipped_tpu_torch.model.kernels import flash_attention as fa_mod
+    wrappers = Path(fa_mod.__file__).read_text()
+    assert wrappers.count("_item_counter(q.device, stream)") == 4
+
+
+@pytest.mark.parametrize("line,found", [
+    ("ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
+     "instructions are serialized due to non wgmma instructions defining "
+     "accumulator registers of a wgmma between start and end of the "
+     "pipeline stage in the function '_Z1kv'", True),
+    ("ptxas info    : (C7510) Potential Performance Loss: wgmma.mma_async "
+     "instructions are serialized due to wgmma pipeline crossing function "
+     "boundary at a function call in the function '_Z1kv'", True),
+    ("ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async "
+     "instructions are serialized due to ...", True),
+    ("ptxas info    : Used 168 registers, used 1 barriers, 16 bytes "
+     "cumulative stack size", False),
+    ("ptxas info    : (C7519) warpgroup.arrive is injected in around line "
+     "998 by compiler to allow use of registers in GMMA", False)])
+def test_build_log_scan_names_the_source(line, found):
+    """build.wgmma_serialisation_warnings finds ptxas's C7510-C7520 lines
+    that report serialised wgmmas in a build log (not the injected
+    warpgroup.arrive of C7519, which serialises nothing) and names the
+    source whose `# nvcc` line heads them; chip_smoke.py's build phase fails
+    on any."""
+    log = ("# nvcc int8_fwd.cu\nptxas info    : Used 168 registers\n"
+           f"# nvcc int4_fwd.cu\n{line}\n# nvcc quant_dx.cu\n")
+    hits = build.wgmma_serialisation_warnings(log)
+    assert hits == ([("int4_fwd.cu", line)] if found else [])
+    smoke = (Path(build.__file__).parents[3] / "chip_smoke.py").read_text()
+    assert "wgmma_serialisation_warnings(lib.log)" in smoke
