@@ -82,11 +82,31 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               update timed with remat; then `cli.evaluate.main` at
               --max_seq_len 8192 (32 K5 per batch) and one batch through
               the cached and the dense scorers (32 K5 each), which agree
- 12. paths    every quant kernel against its plain version (as in 7) at
+ 12. ckpt     the checkpoint path at LLaMA-7B width: the bf16 backbone of
+              seed 0 (as phase 9 builds it) exported as two fp16 Meta
+              shards (`ckpt.convert.export_meta_checkpoint`, with Meta's 7B
+              params.json but vocab_size 32000) under build/; loaded at
+              --quantize none, every frozen leaf bit for bit
+              bf16(fp16(original)); `cli.train.main --quantize w8a8
+              --epochs 1 --debug` from it with an --output_dir: K1, K2 and
+              K3 launched, the build's peak allocated memory within the
+              parameters' bytes plus 2 GiB, the codes and scales of
+              CKPT_HELD bit for bit `quantize_kernel` on the CPU,
+              checkpoint_last (and checkpoint_best when the val accuracy
+              rose), their sidecars and one log.txt line written; then
+              `--resume checkpoint_last --epochs 2`: epoch 1 only, the
+              restored trainables, AdamW moments and count bit for bit the
+              saved ones, two log.txt lines; `cli.evaluate.main --resume`
+              of the best (else the last) checkpoint: its acc the logged
+              val_acc; a build at w4a8r (rotate, then int4) scoring one
+              val batch: scores finite, K8 launched, qav_rot symmetric.
+              Each build's seconds and peak memory are printed; the shards
+              are deleted at the end
+ 13. paths    every quant kernel against its plain version (as in 7) at
               every (M, K, N) that phases 9-11 handed it, on the first
               inputs each path gave at that shape
-Each main path (9, 10, 11) runs with the launch counts set to 0 just before
-it and read just after. The last lines of stdout are the nvidia-smi line, a
+Each main path (9, 10, 11, and each run of 12) runs with the launch counts
+set to 0 just before it and read just after. The last lines of stdout are the nvidia-smi line, a
 JSON line of the kernels and the contract line {"ok": true, "device": ...}.
 """
 import contextlib
@@ -1984,6 +2004,306 @@ def compare_cached_dense(torch, fa, args, caught):
                              f"{SCORE_RTOL} relative")
 
 
+# the checkpoint phase: Meta's 7B params.json, but a vocabulary of 32000
+# where Meta writes -1 (the tokenizer's): the smoke has no tokenizer.model
+META_7B = {"dim": 4096, "multiple_of": 256, "n_heads": 32, "n_layers": 32,
+           "norm_eps": 1e-06, "vocab_size": 32000}
+CKPT_SHARDS = 2
+CKPT_HELD = ("layers.0.attention.wq", "layers.31.feed_forward.w2", "output")
+LOAD_SLACK = 2 * 2**30        # build + load at w8a8: parameters + 2 GiB
+
+
+def param_bytes(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def timed_build(torch, build):
+    """→ (build's result, seconds, {'peak': torch.cuda.max_memory_allocated
+    over the build, 'before': what was allocated before it, 'added': the
+    peak less that, the build's own})."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = build()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return out, time.perf_counter() - t0, {"peak": peak, "before": base,
+                                           "added": peak - base}
+
+
+def memory_line(mem, model):
+    return (f"max_memory_allocated {mem['peak'] / 2**30:.3f} GiB, "
+            f"{mem['before'] / 2**30:.3f} GiB allocated before the build, "
+            f"{mem['added'] / 2**30:.3f} GiB added by it, for "
+            f"{param_bytes(model) / 2**30:.3f} GiB of parameters")
+
+
+def export_checkpoint(torch, data_root, ckpt_dir):
+    """The bf16 7B backbone from seed 0, as the train phases build it,
+    written as fp16 Meta shards (one at a time through the host); → the
+    fp16 state, kept on the card."""
+    from flipped_tpu_torch.ckpt.convert import export_meta_checkpoint
+    from flipped_tpu_torch.core.config import run_config_from_args
+    from flipped_tpu_torch.train.builder import build_eval_state
+
+    model, _, _ = build_eval_state(run_config_from_args(cli_args(data_root)),
+                                   torch.device("cuda"))
+    half = {n: p.detach().to(torch.float16)
+            for n, p in model.named_parameters() if not p.requires_grad}
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    export_meta_checkpoint(half, CKPT_SHARDS, ckpt_dir, META_7B)
+    secs = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(ckpt_dir, f))
+               for f in os.listdir(ckpt_dir))
+    print(f"export: {len(half)} frozen leaves as {CKPT_SHARDS} fp16 shards, "
+          f"{size / 2**30:.3f} GiB, in {secs:.3f} s", flush=True)
+    return half
+
+
+def check_loaded_none(torch, data_root, ckpt_root, half):
+    """Build at --quantize none from the shards: every frozen leaf is
+    bf16(fp16(original)) bit for bit."""
+    from flipped_tpu_torch.core.config import run_config_from_args
+    from flipped_tpu_torch.train.builder import build_eval_state
+
+    args = cli_args(data_root, "--llama_model_path", ckpt_root)
+    (model, _, _), secs, mem = timed_build(torch, lambda: build_eval_state(
+        run_config_from_args(args), torch.device("cuda")))
+    frozen = {n: p for n, p in model.named_parameters()
+              if not p.requires_grad}
+    if set(frozen) != set(half):
+        raise AssertionError(f"loaded leaves {sorted(set(frozen) ^ set(half))}"
+                             f" differ from the exported ones")
+    for n, p in frozen.items():
+        if not torch.equal(p, half[n].to(torch.bfloat16)):
+            raise AssertionError(f"loaded {n} is not bf16(fp16(original))")
+    print(f"load --quantize none: {secs:.3f} s (init included), "
+          f"{memory_line(mem, model)} (the exported fp16 state stays on "
+          f"the card beside it); {len(frozen)} frozen leaves bit for bit "
+          f"bf16(fp16(original))", flush=True)
+
+
+def held_codes(torch, model, ckpt_dir):
+    """The card's codes and scales of CKPT_HELD against quantize_kernel on
+    the CPU, from the same shards, bit for bit (w8a8: per channel)."""
+    from flipped_tpu_torch.ckpt.convert import load_meta_checkpoint
+    from flipped_tpu_torch.ckpt.quantize import quantize_kernel
+
+    src = dict(load_meta_checkpoint(ckpt_dir, [f"{b}.weight"
+                                               for b in CKPT_HELD]))
+    for base in CKPT_HELD:
+        linear = model.get_submodule(base)
+        want = quantize_kernel(src[f"{base}.weight"])
+        for leaf in ("kernel_q", "scale"):
+            if not torch.equal(getattr(linear, leaf).cpu(), want[leaf]):
+                raise AssertionError(f"{base}.{leaf}: the card's quantize "
+                                     f"differs from the CPU's")
+    print(f"  codes and scales of {', '.join(CKPT_HELD)} bit for bit "
+          f"quantize_kernel's on the CPU", flush=True)
+
+
+def adapter_state(model, optimizer):
+    """Trainables and optimizer state, copied to the CPU."""
+    st = optimizer.state_dict()
+    return {"trainable": {n: p.detach().to("cpu", copy=True) for n, p in
+                          model.named_parameters() if p.requires_grad},
+            "count": st["count"],
+            "moments": {n: {k: v.to("cpu", copy=True) for k, v in m.items()}
+                        for n, m in st["params"].items()}}
+
+
+def same_adapter(torch, a, b):
+    return (a["count"] == b["count"]
+            and a["trainable"].keys() == b["trainable"].keys()
+            and all(torch.equal(t, b["trainable"][n])
+                    for n, t in a["trainable"].items())
+            and a["moments"].keys() == b["moments"].keys()
+            and all(torch.equal(v, b["moments"][n][k])
+                    for n, m in a["moments"].items() for k, v in m.items()))
+
+
+def saved_adapter(torch, out, name):
+    st = torch.load(os.path.join(out, name, "state.pt"), weights_only=True)
+    return {"trainable": st["trainable"], "count": st["optimizer"]["count"],
+            "moments": st["optimizer"]["params"]}, st["meta"]
+
+
+def run_ckpt_train(torch, fa, qm, args):
+    """cli.train.main with its build and optimizer watched: → (history,
+    {'model', 'optimizer', 'build_s', 'build_mem', 'resumed' (the adapter
+    when the step is made, after any restore)}, launches)."""
+    from flipped_tpu_torch.cli import train as train_cli
+
+    watch = {}
+    orig = (train_cli.build_train_state, train_cli.make_optimizer,
+            train_cli.make_train_step)
+
+    def build(*a, **kw):
+        out, watch["build_s"], watch["build_mem"] = timed_build(
+            torch, lambda: orig[0](*a, **kw))
+        watch["model"] = out[0]
+        return out
+
+    def make_optimizer(*a, **kw):
+        watch["optimizer"] = orig[1](*a, **kw)
+        return watch["optimizer"]
+
+    def make_step(*a, **kw):
+        watch["resumed"] = adapter_state(watch["model"], watch["optimizer"])
+        return orig[2](*a, **kw)
+
+    train_cli.build_train_state, train_cli.make_optimizer, \
+        train_cli.make_train_step = build, make_optimizer, make_step
+    try:
+        zero_counts(fa, qm)
+        _, history = train_cli.main(args)
+        torch.cuda.synchronize()
+        launches = read_counts(fa, qm)
+    finally:
+        train_cli.build_train_state, train_cli.make_optimizer, \
+            train_cli.make_train_step = orig
+    return history, watch, launches
+
+
+def log_lines(out):
+    with open(os.path.join(out, "log.txt")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_checkpoints(torch, fa, qm, data_root):
+    """The checkpoint path at 7B (phase 12 of the module docstring); the
+    shards and the runs' output are deleted at its end."""
+    import shutil
+
+    from flipped_tpu_torch.cli import evaluate
+    from flipped_tpu_torch.core.config import run_config_from_args
+    from flipped_tpu_torch.data.datasets import build_dataset
+    from flipped_tpu_torch.data.pipeline import Loader
+    from flipped_tpu_torch.cli.evaluate import batch_to_device
+    from flipped_tpu_torch.train.builder import build_eval_state
+    from flipped_tpu_torch.train.step import make_eval_step
+
+    ckpt_root = os.path.join(WORK, "ckpt")
+    ckpt_dir = os.path.join(ckpt_root, "llama7B")
+    out = os.path.join(WORK, "ckpt_out")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        half = export_checkpoint(torch, data_root, ckpt_dir)
+        check_loaded_none(torch, data_root, ckpt_root, half)
+        del half
+        torch.cuda.empty_cache()
+
+        base = ("--vaq", "--qav", "--quantize", "w8a8", "--debug",
+                "--llama_model_path", ckpt_root, "--output_dir", out)
+        history, watch, launches = run_ckpt_train(
+            torch, fa, qm, cli_args(data_root, *base, "--epochs", "1"))
+        model = watch["model"]
+        print(f"train --quantize w8a8 from the checkpoint: load+quantize "
+              f"{watch['build_s']:.3f} s (init included), "
+              f"{memory_line(watch['build_mem'], model)}; launches "
+              f"{launches}; history {json.dumps(history)}", flush=True)
+        # the build's own peak: earlier phases' allocations are not its
+        if watch["build_mem"]["added"] > param_bytes(model) + LOAD_SLACK:
+            raise AssertionError("the w8a8 build held more than its "
+                                 "parameters and 2 GiB")
+        if any(launches[k] == 0 for k in ("k1", "k2", "k3")):
+            raise AssertionError("the w8a8 train path did not launch K1, "
+                                 "K2 and K3")
+        held_codes(torch, model, ckpt_dir)
+        # checkpoint_best is written when the val accuracy rises above 0
+        for name, want in (("checkpoint_last", True),
+                           ("checkpoint_best", history[0]["val_acc"] > 0)):
+            there = (os.path.isfile(os.path.join(out, name, "state.pt"))
+                     and os.path.isfile(os.path.join(out,
+                                                     f"{name}.meta.json")))
+            if there != want:
+                raise AssertionError(f"{name} and its sidecar: written "
+                                     f"{there}, want {want}")
+        saved, meta = saved_adapter(torch, out, "checkpoint_last")
+        if not same_adapter(torch, saved, adapter_state(
+                model, watch["optimizer"])) or meta["epoch"] != 0:
+            raise AssertionError("checkpoint_last is not the run's state")
+        if len(log_lines(out)) != 1:
+            raise AssertionError("log.txt should have one line")
+        del model, watch
+        torch.cuda.empty_cache()
+
+        history, watch, launches = run_ckpt_train(
+            torch, fa, qm, cli_args(data_root, *base, "--epochs", "2",
+                                    "--resume", "checkpoint_last"))
+        print(f"train --resume checkpoint_last --epochs 2: load+quantize "
+              f"{watch['build_s']:.3f} s, launches {launches}; history "
+              f"{json.dumps(history)}", flush=True)
+        if [h["epoch"] for h in history] != [1]:
+            raise AssertionError("the resumed run should run epoch 1 only")
+        if not same_adapter(torch, watch["resumed"], saved):
+            raise AssertionError("the resumed trainables, moments or count "
+                                 "differ from the saved ones")
+        lines = log_lines(out)
+        if [line["epoch"] for line in lines] != [0, 1]:
+            raise AssertionError(f"log.txt epochs {[x['epoch'] for x in lines]}")
+        print(f"  resumed at epoch 1 with the saved trainables, AdamW "
+              f"moments and count {saved['count']} bit for bit; log.txt "
+              f"has 2 lines", flush=True)
+        del watch
+        torch.cuda.empty_cache()
+
+        # no epoch scored above 0: no checkpoint_best, so the last
+        name = ("checkpoint_best" if max(x["val_acc"] for x in lines) > 0
+                else "checkpoint_last")
+        with open(os.path.join(out, f"{name}.meta.json")) as f:
+            best = json.load(f)
+        logged = next(x for x in lines if x["epoch"] == best["epoch"])
+        zero_counts(fa, qm)
+        stats = evaluate.main(cli_args(
+            data_root, "--quantize", "w8a8", "--debug", "--llama_model_path",
+            ckpt_root, "--output_dir", out, "--resume", name))
+        print(f"evaluate --resume {name} (epoch {best['epoch']}): "
+              f"acc {stats['acc']}, logged val_acc {logged['val_acc']}; "
+              f"launches {read_counts(fa, qm)}", flush=True)
+        if stats["acc"] != logged["val_acc"]:
+            raise AssertionError("evaluate's acc differs from the logged "
+                                 "val_acc")
+        torch.cuda.empty_cache()
+
+        args = cli_args(data_root, "--quantize", "w4a8r",
+                        "--llama_model_path", ckpt_root)
+        run_cfg = run_config_from_args(args)
+        (model, _, tokenizer), secs, mem = timed_build(
+            torch, lambda: build_eval_state(run_cfg, torch.device("cuda")))
+        print(f"load --quantize w4a8r (rotate, then int4): {secs:.3f} s "
+              f"(init included), {memory_line(mem, model)}", flush=True)
+        if not torch.equal(model.qav_rot, model.qav_rot.t()):
+            raise AssertionError("qav_rot is not symmetric")
+        loader = Loader(build_dataset(run_cfg.data, tokenizer, "val"),
+                        run_cfg.data.batch_size, shuffle=False, split="val",
+                        prefetch=0)
+        it = iter(loader)
+        batch = next(it)
+        it.close()
+        zero_counts(fa, qm)
+        with torch.no_grad():
+            scores = make_eval_step(model, cached=True)(
+                batch_to_device(batch, "cuda"),
+                span_info=(int(batch["span_need"]),
+                           bool(batch["span_exact"])))["scores"]
+        torch.cuda.synchronize()
+        launches = read_counts(fa, qm)
+        print(f"  one val batch: scores {tuple(scores.shape)}, launches "
+              f"{launches}; qav_rot symmetric", flush=True)
+        if not bool(torch.isfinite(scores).all()) or launches["k8"] == 0:
+            raise AssertionError("w4a8r scores not finite, or K8 idle")
+        del model, scores
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2077,6 +2397,9 @@ def main() -> int:
         compare_cached_dense(torch, fa, run_eval_slice(
             torch, fa, qm, data_root, caught, quantize), caught)
         torch.cuda.empty_cache()
+
+    phase("checkpoints: 7B Meta shards, load, train, resume, evaluate")
+    check_checkpoints(torch, fa, qm, data_root)
 
     for quantize, extra, debug in LONG_RUNS:
         phase(f"train, long context: --quantize {quantize} {' '.join(extra)}"

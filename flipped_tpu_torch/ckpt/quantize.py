@@ -16,9 +16,10 @@ transposed like every Flax `kernel` leaf (ckpt/convert.py):
                                       (G, N); the LM head stays int8
 
 `quantize_kernel` and `quantize_frozen` run the JAX package's numpy
-arithmetic on the transposed weight, so both packages give the same codes
-and scales. `randomize_quantized` fills a model's int8 leaves on its
-device from a `torch.Generator`, with the laws of the JAX
+arithmetic in torch, on the weight's device, so both packages give the
+same codes and scales; `train.builder` quantizes each leaf of a loaded
+checkpoint with it, on the card. `randomize_quantized` fills a model's
+int8 leaves on its device from a `torch.Generator`, with the laws of the JAX
 `randomize_quantized` (codes uniform in [-127, 127], scale
 1/(127·√fan_in), random outlier rows zero in kernel_q, out_w =
 randn/√fan_in; packed int4 codes uniform in [-7, 7], scale 1/(7·√fan_in))
@@ -40,50 +41,75 @@ QUANT_MODULES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "output")
 EPS = 1e-8
 
 
-def quantize_kernel(weight, group: int = 0, outliers: int = 0,
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d in f32, correctly rounded as numpy's: a tensor divisor, since a
+    Python scalar may be taken as a multiply by its reciprocal (CUDA)."""
+    return x.div_(torch.full_like(x, d))
+
+
+def _absmax_scale(amax: torch.Tensor, levels: float) -> torch.Tensor:
+    """max(amax / levels, 1e-8), the JAX arithmetic in f32."""
+    return torch.maximum(_div(amax, levels), torch.full_like(amax, EPS))
+
+
+def _codes(w: torch.Tensor, scale: torch.Tensor, levels: int) -> torch.Tensor:
+    """clip(round(w / scale), ±levels) as int8, in place on the f32 `w`;
+    `scale` broadcasts against it. torch.round, as np.round, rounds half
+    to even."""
+    return w.div_(scale).round_().clamp_(-levels, levels).to(torch.int8)
+
+
+@torch.no_grad()
+def quantize_kernel(weight: torch.Tensor, group: int = 0, outliers: int = 0,
                     bits: int = 8) -> Dict[str, torch.Tensor]:
     """(N, K) float weight → {'kernel_q', 'scale'} (+ 'out_idx', 'out_w'
-    when outliers > 0), absmax round-to-nearest-even, in the port's layout.
+    when outliers > 0), absmax round-to-nearest-even, in the port's layout,
+    computed in torch on the weight's own device.
 
     group=0, or a group that does not divide K: per-channel scale (N,);
     else grouped scale (K/group, N). outliers > 0: the `outliers` input rows
     of largest absmax go to a bf16 passthrough and are zeroed before
     quantization (JAX: ckpt/quantize.py:35-93). bits=4: {'kernel_q4'
     (N/2, K) packed, 'scale' (G, N)} with ±7 levels, the group 128 when 0,
-    one group when it does not divide K; no outliers (JAX: :55-71)."""
-    k = np.asarray(torch.as_tensor(weight).detach().float().cpu(),
-                   np.float32).T.copy()                        # (K, N)
+    one group when it does not divide K; no outliers (JAX: :55-71).
+
+    The arithmetic is the JAX package's, so codes and scales are bit for
+    bit its own: f32 absmax, an f32 division by 127 (7 for int4), a floor
+    of 1e-8, an f32 division of the weight by its scale, round half to
+    even, clip. The outlier rows are chosen by numpy's `argpartition` on
+    the host from the (K,) row absmax, then sorted, as JAX does: with ties
+    at the boundary `torch.topk` could pick another set of equal rows."""
+    n, k_dim = weight.shape
+    w = weight.to(torch.float32, copy=True)                     # (N, K)
     if bits == 4:
         if outliers:
             raise ValueError("int4 + outlier passthrough is unsupported — "
                              "use --quantize int4r|w4a8r instead")
-        k_dim, n = k.shape
         group = group or 128
         g = group if k_dim % group == 0 else k_dim
-        kg = k.reshape(k_dim // g, g, n)
-        scale = np.maximum(np.abs(kg).max(axis=1) / 7.0, EPS)   # (G, N)
-        q = np.clip(np.round(kg / scale[:, None, :]), -7,
-                    7).astype(np.int8).reshape(k_dim, n)
-        return {"kernel_q4": pack_int4(torch.from_numpy(
-                    np.ascontiguousarray(q.T))),
-                "scale": torch.from_numpy(scale.astype(np.float32))}
+        wg = w.view(n, k_dim // g, g)
+        scale = _absmax_scale(wg.abs().amax(dim=2), 7.0)       # (N, G)
+        q = _codes(wg, scale[:, :, None], 7).view(n, k_dim)
+        return {"kernel_q4": pack_int4(q),
+                "scale": scale.t().contiguous()}
     extra = {}
     if outliers > 0:
-        row_amax = np.abs(k).max(axis=1)
-        idx = np.sort(np.argpartition(row_amax, -outliers)[-outliers:])
-        extra = {"out_idx": torch.from_numpy(idx.astype(np.int32)),
-                 "out_w": torch.from_numpy(k[idx]).to(torch.bfloat16)}
-        k[idx] = 0.0
-    if group > 0 and k.shape[0] % group == 0:
-        kg = k.reshape(k.shape[0] // group, group, k.shape[1])
-        scale = np.maximum(np.abs(kg).max(axis=1) / 127.0, EPS)  # (G, N)
-        q = np.clip(np.round(kg / scale[:, None, :]), -127,
-                    127).astype(np.int8).reshape(k.shape)
+        row_amax = w.abs().amax(dim=0).cpu().numpy()            # (K,)
+        idx = torch.from_numpy(np.sort(np.argpartition(
+            row_amax, -outliers)[-outliers:]).astype(np.int32))
+        cols = idx.to(w.device).long()
+        extra = {"out_idx": idx.to(w.device),
+                 "out_w": w[:, cols].t().to(torch.bfloat16).contiguous()}
+        w[:, cols] = 0.0
+    if group > 0 and k_dim % group == 0:
+        wg = w.view(n, k_dim // group, group)
+        scale = _absmax_scale(wg.abs().amax(dim=2), 127.0)     # (N, G)
+        q = _codes(wg, scale[:, :, None], 127).view(n, k_dim)
+        scale = scale.t().contiguous()                          # (G, N)
     else:
-        scale = np.maximum(np.abs(k).max(axis=0) / 127.0, EPS)   # (N,)
-        q = np.clip(np.round(k / scale[None, :]), -127, 127).astype(np.int8)
-    return {"kernel_q": torch.from_numpy(np.ascontiguousarray(q.T)),
-            "scale": torch.from_numpy(scale.astype(np.float32)), **extra}
+        scale = _absmax_scale(w.abs().amax(dim=1), 127.0)      # (N,)
+        q = _codes(w, scale[:, None], 127)
+    return {"kernel_q": q, "scale": scale, **extra}
 
 
 def dequantize_kernel(node: Dict[str, torch.Tensor]) -> torch.Tensor:

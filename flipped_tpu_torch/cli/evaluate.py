@@ -1,7 +1,8 @@
 """Classification-eval CLI: score a split with the adapter-gated LLaMA.
 
     python -m flipped_tpu_torch.cli.evaluate --model llama7B --dataset nextqa \
-        --data_root ./data --device cuda
+        --llama_model_path ./pretrained/llama/ --data_root ./data \
+        --resume checkpoint_best --output_dir ./output_dir/nextqa --device cuda
 
 The port of flipped_tpu/cli/evaluate.py plus the classification half of
 `val_one_epoch` (flipped_tpu/cli/train.py:134-221): the deploy/serve use of
@@ -10,11 +11,14 @@ the argmin. Batches come from the port's copies of the JAX package's
 numpy readers and loader (`flipped_tpu_torch.data`), which the tests hold
 equal to the originals.
 
---quantize runs every frozen-backbone mode. Long context runs as it is
-asked for: at --max_seq_len above 4096 the prefill (and the dense scorer)
-take K5 instead of K1, e.g. `--max_seq_len 8192 --batch_size 1`. Not ported
-yet, and raising rather than ignored: --resume (adapter checkpoints),
---is_generation_task (generation eval) and audio merges.
+The backbone loads as the train CLI's does (train/builder.py);
+`--resume NAME` then restores the trainables that a train run saved as
+NAME under `--output_dir` (ckpt/manager.py), and a name that is not there
+raises. --quantize runs every frozen-backbone mode. Long context runs as it
+is asked for: at --max_seq_len above 4096 the prefill (and the dense
+scorer) take K5 instead of K1, e.g. `--max_seq_len 8192 --batch_size 1`.
+Not ported yet, and raising rather than ignored: --is_generation_task
+(generation eval) and audio merges.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..ckpt.manager import CheckpointManager
 from ..core.config import get_args_parser, run_config_from_args
 from ..data.datasets import build_dataset
 from ..data.pipeline import Loader
@@ -74,15 +79,20 @@ def val_one_epoch(eval_step, loader, dataset_name: str, device,
 
 def main(args) -> Dict[str, float]:
     run_cfg = run_config_from_args(args)
-    if run_cfg.train.resume:
-        raise NotImplementedError(
-            "--resume: adapter checkpoints are not ported yet")
     if run_cfg.train.is_generation_task:
         raise NotImplementedError(
             "--is_generation_task: generation eval is not ported yet")
     device = torch.device(run_cfg.device)
     model, cfg, tokenizer = build_eval_state(run_cfg, device,
                                              seed=run_cfg.train.seed)
+    if run_cfg.train.resume:
+        mgr = CheckpointManager(run_cfg.train.output_dir)
+        if not mgr.exists(run_cfg.train.resume):
+            raise FileNotFoundError(f"no checkpoint {run_cfg.train.resume} "
+                                    f"under {mgr.output_dir}")
+        meta = mgr.restore(run_cfg.train.resume, model)
+        print(f"loaded {run_cfg.train.resume} (epoch {meta['epoch']}, "
+              f"best_acc {meta['best_acc']:.4f})")
     dataset = build_dataset(run_cfg.data, tokenizer, "val")
     loader = Loader(dataset, run_cfg.data.batch_size, shuffle=False,
                     seed=run_cfg.data.seed, split="val")

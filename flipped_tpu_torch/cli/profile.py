@@ -2,7 +2,7 @@
 
     python -m flipped_tpu_torch.cli.profile --mode train --model llama7B \
         --data_root ./data --batch_size 8 --max_seq_len 128 --vaq --qav \
-        --no_remat --output_dir '' --quantize w8a8 --device cuda
+        --no_remat --quantize w8a8 --device cuda
 
 The long-context step takes the same flags as the train CLI, e.g.
 `--batch_size 1 --max_seq_len 4096 --lm_head_chunk 512` (with remat, and

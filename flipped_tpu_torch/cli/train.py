@@ -1,8 +1,9 @@
 """Training CLI: fine-tune the adapter of the frozen LLaMA on one card.
 
     python -m flipped_tpu_torch.cli.train --model llama7B --dataset nextqa \
-        --data_root ./data --batch_size 8 --max_seq_len 128 --vaq --qav \
-        --output_dir '' --device cuda
+        --llama_model_path ./pretrained/llama/ --data_root ./data \
+        --batch_size 8 --max_seq_len 128 --vaq --qav \
+        --output_dir ./output_dir/nextqa --device cuda
 
 The port of flipped_tpu/cli/train.py (reference train.py + engine.py), in
 one process with no mesh: loaders → model build → optimizer → epoch loop
@@ -15,12 +16,20 @@ or int4 (K3, K7, K4, K8, K9, K10 by mode). The long-context options run:
 checkpoints N blocks as one unit, e.g.
 
     python -m flipped_tpu_torch.cli.train --model llama7B --max_seq_len 4096 \
-        --batch_size 1 --vaq --qav --lm_head_chunk 512 --output_dir '' ...
+        --batch_size 1 --vaq --qav --lm_head_chunk 512 ...
 
-Not ported yet, and raising rather than ignored: checkpoint saving and the
-JSON-lines log (a non-empty --output_dir; ROADMAP Queue 1, checkpoints),
---resume, --is_generation_task, --loader grain, and the options that
-`check_train_ported` names.
+The frozen backbone is Meta's `consolidated.*.pth` shards under
+`--llama_model_path`/`--model` when they are there (train/builder.py:
+merged, bf16, rotated and quantized on the card as --quantize says), else
+random. With an `--output_dir` (the default is ./output_dir; '' writes
+nothing) each epoch appends a JSON line to log.txt and saves the adapter
+as `checkpoint_last`, and as `checkpoint_best` when the val accuracy rises
+(ckpt/manager.py); `--resume checkpoint_last` continues a run from the
+epoch after the saved one, with the optimizer's moments and schedule
+(a name that does not exist starts afresh).
+
+Not ported yet, and raising rather than ignored: --is_generation_task,
+--loader grain, and the options that `check_train_ported` names.
 """
 from __future__ import annotations
 
@@ -33,12 +42,14 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..ckpt.manager import CheckpointManager
 from ..core.config import (check_train_ported, get_args_parser,
                            run_config_from_args)
 from ..data.pipeline import load_data
 from ..train.builder import build_train_state
 from ..train.optim import make_optimizer
 from ..train.step import make_eval_step, make_train_step
+from ..utils.logging import write_log_line
 from ..utils.metrics import MetricLogger
 from .evaluate import batch_to_device, val_one_epoch
 
@@ -73,14 +84,13 @@ def main(args):
     """→ (model, per-epoch stats), the model as trained."""
     run_cfg = run_config_from_args(args)
     check_train_ported(run_cfg.train)
-    if run_cfg.train.output_dir:
-        raise NotImplementedError(
-            f"--output_dir {run_cfg.train.output_dir!r}: checkpoint saving "
-            f"and the JSON-lines log are not ported yet (ROADMAP Queue 1, "
-            f"checkpoints); pass --output_dir ''")
     if run_cfg.train.is_generation_task:
         raise NotImplementedError(
             "--is_generation_task: generation eval is not ported yet")
+    output_dir = run_cfg.train.output_dir
+    if run_cfg.train.resume and not output_dir:
+        raise ValueError("--resume reads its checkpoint from --output_dir, "
+                         "which is empty")
     device = torch.device(run_cfg.device)
     np.random.seed(run_cfg.train.seed)
     model, cfg, tokenizer = build_train_state(run_cfg, device,
@@ -98,6 +108,20 @@ def main(args):
     steps_per_epoch = max(len(loader_train) * run_cfg.train.accum_iter, 1)
     optimizer = make_optimizer(model, run_cfg.train, steps_per_epoch,
                                world_batch)
+
+    mgr = CheckpointManager(output_dir) if output_dir else None
+    start_epoch, best_acc = run_cfg.train.start_epoch, 0.0
+    if run_cfg.train.resume:
+        if mgr.exists(run_cfg.train.resume):
+            meta = mgr.restore(run_cfg.train.resume, model, optimizer)
+            start_epoch = meta["epoch"] + 1
+            best_acc = meta["best_acc"]
+            print(f"resumed from {run_cfg.train.resume} at epoch "
+                  f"{start_epoch}")
+        else:
+            print(f"no checkpoint {run_cfg.train.resume} under "
+                  f"{mgr.output_dir}: starting afresh")
+
     train_step = make_train_step(model, optimizer, vaq=run_cfg.train.vaq,
                                  qav=run_cfg.train.qav,
                                  lm_chunk=run_cfg.train.lm_head_chunk)
@@ -106,17 +130,25 @@ def main(args):
     eval_step = make_eval_step(model, cached=True)
 
     print(f"Start training for {run_cfg.train.epochs} epochs")
-    history, best_acc = [], 0.0
+    history = []
     t_start = time.time()
-    for epoch in range(run_cfg.train.start_epoch, run_cfg.train.epochs):
+    for epoch in range(start_epoch, run_cfg.train.epochs):
         train_stats = train_one_epoch(train_step, loader_train, epoch, device,
                                       debug=run_cfg.debug)
         val_stats = val_one_epoch(eval_step, loader_val, run_cfg.data.dataset,
                                   device, debug=run_cfg.debug)
-        best_acc = max(best_acc, val_stats.get("acc", 0.0))
+        if best_acc < val_stats.get("acc", 0.0):
+            best_acc = val_stats["acc"]
+            if mgr is not None:
+                mgr.save("checkpoint_best", model, optimizer, epoch, best_acc)
+                print(f"saved checkpoint_best (acc={best_acc:.4f})")
+        if mgr is not None:
+            # the rolling checkpoint a preempted run resumes from
+            mgr.save("checkpoint_last", model, optimizer, epoch, best_acc)
         log_stats = {**{f"train_{k}": v for k, v in train_stats.items()},
                      "epoch": epoch,
                      **{f"val_{k}": v for k, v in val_stats.items()}}
+        write_log_line(output_dir, log_stats)
         print(json.dumps(log_stats))
         history.append(log_stats)
         if run_cfg.debug:

@@ -13,8 +13,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Optional
+
+from ..text import load_tokenizer
 
 
 @dataclass(frozen=True)
@@ -49,11 +52,26 @@ class ModelConfig:
                                    // self.multiple_of)
 
     @classmethod
-    def from_params_json(cls, path: str, **overrides) -> "ModelConfig":
+    def from_params_json(cls, path: str, tokenizer_path: str = "",
+                         **overrides) -> "ModelConfig":
+        """Meta's params.json, as the reference builds ModelArgs
+        (llama_vqa.py:8-9, 61-62): a `vocab_size` of -1, which Meta's
+        published files carry, is the vocabulary of the tokenizer at
+        `tokenizer_path`, and without one it raises. The JAX
+        `from_params_json` passes the -1 through (a divergence, ROADMAP
+        Queue 3)."""
         with open(path) as f:
             params = json.load(f)
         known = {f.name for f in dataclasses.fields(cls)}
         merged = {k: v for k, v in params.items() if k in known}
+        if merged.get("vocab_size", 0) < 0:
+            if not (tokenizer_path and os.path.exists(tokenizer_path)):
+                raise ValueError(
+                    f"{path} has vocab_size {merged['vocab_size']}, which "
+                    f"means the tokenizer's vocabulary, but there is no "
+                    f"tokenizer at {tokenizer_path!r}: pass --tokenizer_path "
+                    f"or put tokenizer.model under --llama_model_path")
+            merged["vocab_size"] = load_tokenizer(tokenizer_path).n_words
         merged.update(overrides)
         return cls(**merged)
 
@@ -169,10 +187,6 @@ def check_train_ported(train: "TrainConfig") -> None:
         raise NotImplementedError(
             f"--remat_policy {train.remat_policy}: not ported yet (ROADMAP "
             f"Queue 1, rest of training: the qkv remat policy)")
-    if train.resume:
-        raise NotImplementedError(
-            "--resume: adapter checkpoints are not ported yet (ROADMAP "
-            "Queue 1, checkpoints)")
 
 
 @dataclass

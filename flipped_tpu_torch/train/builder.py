@@ -5,10 +5,21 @@ device (quantized as --quantize says) and marks the trainables
 requires_grad; `init_params` fills every parameter the way the Flax
 initialisers do, and the int8 leaves as the JAX `randomize_quantized` does,
 from a `torch.Generator` on that device; `build_train_state` and
-`build_eval_state` add the tokenizer.
-Loading a Meta or safetensors checkpoint is not ported yet: a run without
-one keeps the frozen backbone at random init, with the same warning as the
-JAX builder, and a run that finds one raises rather than ignore it.
+`build_eval_state` add the tokenizer and the backbone.
+
+The backbone comes from Meta's `consolidated.*.pth` shards under
+`--llama_model_path`/`--model` (with its params.json) when they are there,
+as the JAX `build_train_state` takes them (builder.py:100-196): each leaf
+is merged from the memory-mapped shards, cast to bf16 and moved to the
+model's device, one at a time (`ckpt.convert.load_meta_checkpoint`);
+under an `*r` mode the rotation is folded into it (`ckpt.rotate`); a
+quantized Linear is quantized from it there (`ckpt.quantize.
+quantize_kernel`), so a quantized run never holds the bf16 backbone on the
+card. A frozen leaf the checkpoint lacks keeps its random init, with a
+warning; extra checkpoint keys are ignored. A directory with only the JAX
+converter's `model.flax.safetensors` raises: the port reads the .pth
+shards (the card's image has no safetensors package). With no checkpoint
+the backbone stays at random init, with the JAX builder's warning.
 """
 from __future__ import annotations
 
@@ -16,13 +27,16 @@ import dataclasses
 import math
 import os
 from pathlib import Path
+from typing import List, Optional
 
 import torch
 
-from ..ckpt.quantize import randomize_quantized
+from ..ckpt.convert import checkpoint_shards, load_meta_checkpoint
+from ..ckpt.quantize import quantize_kernel, randomize_quantized
+from ..ckpt.rotate import Rotation, fold_leaf
 from ..core.config import (MODEL_PRESETS, ModelConfig, RunConfig,
                            check_train_ported, model_quant_kwargs)
-from ..model.llama import FlippedVQAModel
+from ..model.llama import FlippedVQAModel, Linear
 from ..text import load_tokenizer
 from .optim import is_trainable, trainable_parameters
 
@@ -34,19 +48,30 @@ QUANT_LEAVES = {"kernel_q": torch.int8, "kernel_q4": torch.int8,
                 "qav_rot": torch.float32}
 
 
+def model_dir(run_cfg: RunConfig) -> Path:
+    return Path(run_cfg.llama_model_path) / run_cfg.model_name
+
+
+def tokenizer_path(run_cfg: RunConfig) -> str:
+    return run_cfg.tokenizer_path or os.path.join(run_cfg.llama_model_path,
+                                                  "tokenizer.model")
+
+
 def resolve_model_config(run_cfg: RunConfig) -> ModelConfig:
-    """params.json under llama_model_path/model_name, else the preset; the
-    adapter window is clamped to the model depth (JAX: builder.py:24-46)."""
+    """params.json under llama_model_path/model_name (its vocab_size -1 is
+    the tokenizer's), else the preset; the adapter window is clamped to the
+    model depth (JAX: builder.py:24-46)."""
     name = run_cfg.model_name.replace("_adapter", "")
-    model_dir = Path(run_cfg.llama_model_path) / run_cfg.model_name
+    params_json = model_dir(run_cfg) / "params.json"
     overrides = dict(
         max_seq_len=run_cfg.data.max_seq_len,
         adapter_len=run_cfg.model.adapter_len,
         adapter_layer=run_cfg.model.adapter_layer,
         max_feats=run_cfg.model.max_feats, bias=run_cfg.model.bias,
         tau=run_cfg.model.tau, audio_merge=run_cfg.model.audio_merge)
-    if (model_dir / "params.json").exists():
-        cfg = ModelConfig.from_params_json(str(model_dir / "params.json"),
+    if params_json.exists():
+        cfg = ModelConfig.from_params_json(str(params_json),
+                                           tokenizer_path(run_cfg),
                                            **overrides)
     elif (preset := MODEL_PRESETS.get(name)) is not None:
         cfg = ModelConfig(**{**preset, **overrides})
@@ -114,18 +139,95 @@ def check_dtype_policy(model: FlippedVQAModel, frozen_dtype) -> None:
             raise TypeError(f"{name} is {p.dtype}, the policy wants {want}")
 
 
-def _checkpoint_files(run_cfg: RunConfig):
-    model_dir = Path(run_cfg.llama_model_path) / run_cfg.model_name
-    return (sorted(model_dir.glob("*.pth"))
-            + sorted(model_dir.glob("*.safetensors")))
+def find_checkpoint(run_cfg: RunConfig) -> Optional[Path]:
+    """The directory of Meta shards to load, or None (synthetic run)."""
+    path = model_dir(run_cfg)
+    if checkpoint_shards(path):
+        return path
+    if list(path.glob("*.safetensors")):
+        raise ValueError(
+            f"{path} holds safetensors but no consolidated.*.pth: the port "
+            f"reads Meta's .pth shards with torch.load (the card's image "
+            f"has no safetensors package); point --llama_model_path at the "
+            f"directory of the .pth shards and their params.json")
+    return None
+
+
+def _quantize_args(linear: Linear) -> dict:
+    """quantize_kernel's arguments for a quantized Linear, read off its
+    leaves' shapes as the JAX graft does (builder.py:160-170): the group
+    is K over the scale's rows (the port's kernel_q/kernel_q4 are (N, K)
+    and (N/2, K))."""
+    if linear.weight_bits == 4:
+        return {"group": linear.kernel_q4.shape[1] // linear.scale.shape[0],
+                "bits": 4}
+    return {"group": (linear.kernel_q.shape[1] // linear.scale.shape[0]
+                      if linear.scale.dim() == 2 else 0),
+            "outliers": (linear.out_w.shape[0] if linear.quant_outliers
+                         else 0)}
+
+
+def _put(param: torch.Tensor, name: str, value: torch.Tensor) -> None:
+    if param.shape != value.shape:
+        raise ValueError(f"checkpoint leaf {name} is {tuple(value.shape)}, "
+                         f"the model's {tuple(param.shape)}")
+    param.copy_(value)
+
+
+@torch.no_grad()
+def load_checkpoint(model: FlippedVQAModel, path) -> List[str]:
+    """Graft the Meta checkpoint under `path` into the frozen leaves of
+    `model`, leaf by leaf on its device: rotated first under an `*r` mode,
+    quantized into a quantized Linear's leaves. → the frozen leaves it did
+    not fill, which keep their values."""
+    cfg = model.cfg
+    params = dict(model.named_parameters())
+    modules = dict(model.named_modules())
+    frozen = {n for n, p in params.items() if not p.requires_grad}
+    device = model.device
+    rot = gammas = None
+    if model.rotated:
+        print("folding residual-stream rotation into the checkpoint "
+              "(--quantize *r)")
+        norms = [f"layers.{i}.{k}.weight" for i in range(cfg.n_layers)
+                 for k in ("attention_norm", "ffn_norm")]
+        gammas = dict(load_meta_checkpoint(path, norms + ["norm.weight"],
+                                           device))
+        if "norm.weight" not in gammas:
+            raise ValueError("final norm.weight missing — needed for the "
+                             "output head fold and qav_rot")
+        rot = Rotation(cfg.dim, device=device)
+    filled = set()
+    for name, t in load_meta_checkpoint(path, device=device):
+        base = name[:-len(".weight")]
+        linear = modules.get(base)
+        quantized = isinstance(linear, Linear) and linear.quantized
+        if name not in params and not quantized:
+            continue                         # not a leaf of this model
+        if rot is not None:
+            t = fold_leaf(rot, name, t, gammas, cfg.n_layers,
+                          cfg.adapter_layer)
+        if quantized:
+            for leaf, v in quantize_kernel(t, **_quantize_args(
+                    linear)).items():
+                _put(getattr(linear, leaf), f"{base}.{leaf}", v)
+                filled.add(f"{base}.{leaf}")
+        else:
+            _put(params[name], name, t)
+            filled.add(name)
+        del t
+    if rot is not None:
+        model.qav_rot.copy_(rot.conjugate_diag(gammas["norm.weight"]))
+        filled.add("qav_rot")
+    return sorted(frozen - filled)
 
 
 def build_eval_state(run_cfg: RunConfig, device, seed: int = 0,
                      dtype=torch.bfloat16):
-    """→ (model, cfg, tokenizer) with the model's parameters initialised."""
+    """→ (model, cfg, tokenizer) with the model's parameters initialised
+    and, where there is a checkpoint, its frozen backbone loaded."""
     model, cfg = build_model(run_cfg, device, dtype)
-    tok_path = run_cfg.tokenizer_path or os.path.join(
-        run_cfg.llama_model_path, "tokenizer.model")
+    tok_path = tokenizer_path(run_cfg)
     tokenizer = load_tokenizer(tok_path if os.path.exists(tok_path) else "",
                                n_words=cfg.vocab_size)
     if tokenizer.n_words != cfg.vocab_size:
@@ -133,14 +235,19 @@ def build_eval_state(run_cfg: RunConfig, device, seed: int = 0,
             f"tokenizer vocab ({tokenizer.n_words}, from {tok_path}) != model "
             f"vocab_size ({cfg.vocab_size}): embedding lookups would go out "
             f"of bounds. Use a matching --model preset or --tokenizer_path.")
-    if _checkpoint_files(run_cfg):
-        raise NotImplementedError(
-            f"found a LLaMA checkpoint under {run_cfg.llama_model_path}: "
-            f"loading Meta/safetensors checkpoints is not ported yet")
+    path = find_checkpoint(run_cfg)
     init_params(model, seed)
+    if path is None:
+        print("WARNING: no LLaMA checkpoint found — frozen backbone stays "
+              "randomly initialized (synthetic mode)")
+    else:
+        print(f"loading the Meta checkpoint under {path}")
+        missing = load_checkpoint(model, path)
+        if missing:
+            print(f"WARNING: checkpoint is missing {len(missing)} frozen "
+                  f"leaves — they stay RANDOMLY initialized (first few: "
+                  f"{missing[:5]}). The checkpoint is likely incomplete.")
     check_dtype_policy(model, dtype)
-    print("WARNING: no LLaMA checkpoint found — frozen backbone stays "
-          "randomly initialized (synthetic mode)")
     return model, cfg, tokenizer
 
 

@@ -12,11 +12,14 @@
   (reference: util/lr_sched.py:9-21). Optional global-norm clipping is
   optax's `clip_by_global_norm`: grads scale by clip / norm when the norm
   is at least `clip`.
+- `Optimizer.state_dict()` keys AdamW's state by parameter name, with the
+  update count that drives the schedule, so a resumed run continues the
+  schedule (ckpt/manager.py).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -73,6 +76,7 @@ class Optimizer:
     def __init__(self, model, cfg: TrainConfig, steps_per_epoch: int,
                  world_batch: int):
         named = trainable_parameters(model)
+        self.named = dict(named)
         self.params = [p for _, p in named]
         groups = [
             {"params": [p for n, p in named if wd_mask(n, p)],
@@ -104,6 +108,30 @@ class Optimizer:
         self.adamw.step()
         self.count += 1
         return lr
+
+    def state_dict(self) -> Dict:
+        """{'count': updates so far, 'params': {name: AdamW's state of that
+        trainable (exp_avg, exp_avg_sq, step)}}; a trainable that has not
+        been updated yet has no entry. The tensors are the live ones."""
+        return {"count": self.count,
+                "params": {n: dict(self.adamw.state[p])
+                           for n, p in self.named.items()
+                           if p in self.adamw.state}}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore `state_dict()`'s output, each moment onto its
+        parameter's device; a name that is not a trainable of the model
+        raises."""
+        extra = sorted(set(state["params"]) - set(self.named))
+        if extra:
+            raise KeyError(f"optimizer state for unknown trainables {extra}")
+        self.count = int(state["count"])
+        self.adamw.state.clear()
+        for name, st in state["params"].items():
+            p = self.named[name]
+            self.adamw.state[p] = {
+                k: (v.to(p.device) if k != "step" else v.to(torch.float32))
+                for k, v in st.items()}
 
 
 def make_optimizer(model, cfg: TrainConfig, steps_per_epoch: int,

@@ -158,8 +158,7 @@ def test_evaluate_cli_cpu(synth_root):
     assert 0.0 <= stats["acc"] <= 1.0 and "Total" in stats
 
 
-@pytest.mark.parametrize("extra", [["--resume", "checkpoint_best"],
-                                   ["--is_generation_task"],
+@pytest.mark.parametrize("extra", [["--is_generation_task"],
                                    ["--audio", "--audio_merge", "sum"]])
 def test_evaluate_cli_refuses_unported(synth_root, extra):
     with pytest.raises(NotImplementedError):

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (K1-K10) on the card, against their plain
-versions.
+versions; and the checkpoint loader's arithmetic on the card (quantize and
+rotate on load) against the same on the CPU.
 
 Marked `gpu`: each test skips without a CUDA device (the kernels have no CPU
 mode). This file imports torch and the port only, so it also runs on a
@@ -14,6 +15,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from flipped_tpu_torch.ckpt.quantize import quantize_kernel
+from flipped_tpu_torch.ckpt.rotate import Rotation
 from flipped_tpu_torch.model.kernels import flash_attention as fa
 from flipped_tpu_torch.model.kernels import quant_matmul as qm
 
@@ -961,3 +964,38 @@ def test_grouped_forwards_refuse_unaligned_scales(cuda):
         qm.int4_matmul(x4, kq4, off4, True)
     out = qm.int4_matmul(x4, kq4, off4, False)
     assert torch.equal(out, qm.int4_matmul(x4, kq4, sg4, False))
+
+
+@pytest.mark.parametrize("bits,group,outliers", [(8, 0, 0), (8, 128, 0),
+                                                 (8, 128, 32), (4, 128, 0)])
+def test_card_quantize_equals_cpu(cuda, bits, group, outliers):
+    """quantize_kernel on the card gives the CPU's codes and scales bit for
+    bit (the JAX arithmetic, tests/test_torch_ckpt.py), at w1's 7B shape."""
+    torch.manual_seed(0)
+    w = (torch.randn(11008, 4096) / 64).to(torch.bfloat16)
+    cpu = quantize_kernel(w, group, outliers, bits)
+    card = quantize_kernel(w.to(cuda), group, outliers, bits)
+    assert set(card) == set(cpu)
+    for leaf, t in cpu.items():
+        assert torch.equal(card[leaf].cpu(), t), leaf
+
+
+def test_card_rotation_within_bound_of_cpu(cuda):
+    """The rotation fold of w1 at 7B on the card against the CPU's: the
+    same butterfly, so bit for bit is expected; the bound held is the one
+    tests/test_torch_ckpt.py holds the port to against JAX (at most 0.1%
+    of the bf16 elements differ, each by one ulp). qav_rot is exactly
+    symmetric."""
+    torch.manual_seed(0)
+    w = (torch.randn(11008, 4096) / 64).to(torch.bfloat16)
+    gamma = (torch.rand(4096) + 0.5).to(torch.bfloat16)
+    cpu = Rotation(4096).rotate(w, -1, gamma).to(torch.bfloat16)
+    card = Rotation(4096, device=cuda).rotate(
+        w.to(cuda), -1, gamma.to(cuda)).to(torch.bfloat16).cpu()
+    diff = card != cpu
+    assert float(diff.float().mean()) <= 1e-3
+    mag = torch.maximum(card.abs(), cpu.abs()).float().clamp_min(2.0 ** -126)
+    ulp = 2.0 ** (torch.floor(torch.log2(mag)) - 7)
+    assert float(((card.float() - cpu.float()).abs() / ulp).max()) <= 1.0
+    q = Rotation(4096, device=cuda).conjugate_diag(gamma.to(cuda))
+    assert torch.equal(q, q.t())

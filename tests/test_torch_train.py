@@ -225,9 +225,9 @@ def test_train_cli_runs_in_process(synth_root):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--output_dir", "out"], ["--remat_policy", "qkv"],
+    ["--remat_policy", "qkv"],
     ["--audio", "--audio_only"], ["--audio", "--audio_merge", "concat"],
-    ["--resume", "checkpoint_best"], ["--audio", "--audio_merge", "sum"],
+    ["--audio", "--audio_merge", "sum"],
     ["--loader", "grain"], ["--is_generation_task"]])
 def test_train_cli_refuses_unported(synth_root, extra):
     with pytest.raises(NotImplementedError):
