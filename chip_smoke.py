@@ -51,10 +51,12 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               and operations. K3, K7, K4, K8 (both branches), K9 and K10 the
               same way at the three 3072-row shapes, and K3 and K8 w4a8 at
               the eval's prefill and extend shapes, with the yardsticks
-              `time_quant` names. K5, K6a and K6b at the long training shape (B 3, S
-              4096), against SDPA's forward (K5) and its backward alone on
-              a saved forward (K6a + K6b), with SDPA without the mask as an
-              aside
+              `time_quant` names; K3, K7 and K8's two branches at the
+              decode shapes (M 32, DECODE_SHAPES) beside a bf16 `F.linear`
+              on the dequantized weight. K5, K6a and K6b at the long
+              training shape (B 3, S 4096), against SDPA's forward (K5) and
+              its backward alone on a saved forward (K6a + K6b), with SDPA
+              without the mask as an aside
   9. train    `flipped_tpu_torch.cli.train.main` at LLaMA-7B width (dim
               4096, 32 layers, random frozen weights from a seed), --vaq
               --qav, batch 8, S 128, one epoch over 64 synthetic NExT-QA
@@ -73,7 +75,22 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               and w4a8: 32 K1 (and 576 K3 under w8a8, 576 K8 under w4a8)
               launches per scored batch, every score finite; one batch
               through the cached and the dense eval steps, which must agree
- 11. long     the long-context paths at 7B width: `cli.train.main` at
+ 11. gen      generation eval on the MUSIC-AVQA recipe at 7B width (batch
+              32, S 128, --is_generation_task; 128 synthetic items, one val
+              batch of 32): `cli.train.main --debug` (one update, then the
+              val loop generates: 32 val rows with unique qids in
+              extracted_answers_epoch0.json, val_counting in log.txt), then
+              `cli.evaluate.main` at --quantize none, w8a8 and w4a8: the
+              launches per batch `gen_per_batch` derives from the code (32
+              K1 in the prefill; 9 K3 or K8 per block in the prefill and in
+              each of the 30 decode steps), similarities finite; s per
+              batch, prefill ms and decode ms per token (CUDA events), peak
+              memory and the decode step's bytes bound; the cached decode's
+              logits against a re-forward of prompt and generated tokens,
+              and K1's prefill against the plain attention's, within
+              GEN_LOGIT_REL. After phase 12's eval, one batch at S 8192,
+              batch 1, bf16: 32 K5 in the prefill, timed the same way
+ 12. long     the long-context paths at 7B width: `cli.train.main` at
               --batch_size 1 --max_seq_len 4096 --vaq --qav with
               --lm_head_chunk 512 (LONG_RUNS: 4 updates, then one with
               --remat_group 2 and one at --quantize w8a8), 64 K5, 32 K6a,
@@ -82,7 +99,7 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               update timed with remat; then `cli.evaluate.main` at
               --max_seq_len 8192 (32 K5 per batch) and one batch through
               the cached and the dense scorers (32 K5 each), which agree
- 12. ckpt     the checkpoint path at LLaMA-7B width: the bf16 backbone of
+ 13. ckpt     the checkpoint path at LLaMA-7B width: the bf16 backbone of
               seed 0 (as phase 9 builds it) exported as two fp16 Meta
               shards (`ckpt.convert.export_meta_checkpoint`, with Meta's 7B
               params.json but vocab_size 32000) under build/; loaded at
@@ -102,10 +119,11 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               val batch: scores finite, K8 launched, qav_rot symmetric.
               Each build's seconds and peak memory are printed; the shards
               are deleted at the end
- 13. paths    every quant kernel against its plain version (as in 7) at
-              every (M, K, N) that phases 9-11 handed it, on the first
-              inputs each path gave at that shape
-Each main path (9, 10, 11, and each run of 12) runs with the launch counts
+ 14. paths    every quant kernel against its plain version (as in 7) at
+              every (M, K, N) that phases 9-12 handed it (the decode steps'
+              M 32 included), on the first inputs each path gave at that
+              shape
+Each main path (9, 10, 11, 12, and each run of 13) runs with the launch counts
 set to 0 just before it and read just after. The last lines of stdout are the nvidia-smi line, a
 JSON line of the kernels and the contract line {"ok": true, "device": ...}.
 """
@@ -113,6 +131,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -181,10 +200,11 @@ K1_LONG_CASES = [(1, 2049, 32, 128, (6,), False),
 
 K2_SOURCE = "flipped_tpu_torch/csrc/flash_text_bwd.cu"
 K2_REPLACES = "flipped_tpu/model/pallas/flash_attention.py:174"
-# K1 timing shapes: the training encode, the cached eval prefill (batch 8)
-# and the dense eval encode (8 examples x 5 options)
+# K1 timing shapes: the training encode, the cached eval prefill (batch 8),
+# the dense eval encode (8 examples x 5 options) and the generation
+# prefill (the MUSIC-AVQA recipe's batch 32)
 K1_SHAPES = {"train": TRAIN_SHAPE, "prefill": (8, 128, 32, 128),
-             "dense": (40, 128, 32, 128)}
+             "dense": (40, 128, 32, 128), "gen prefill": (32, 128, 32, 128)}
 ADAPTER_LEN = 10
 N_TRAIN_ITEMS = 64                  # 8 updates at batch 8; 16 val examples
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, dense bf16
@@ -240,6 +260,24 @@ LONG_VS = (7, 3, -1)                # VQA, VAQ, QAV rows of one example
 LONG_SHAPE = (3 * LONG_B, LONG_S, 32, 128)
 LM_CHUNK = "512"
 N_LONG_ITEMS = 4                    # 4 updates at batch 1; 2 val examples
+# The generation eval on the MUSIC-AVQA recipe (scripts/recipes.sh:38-42):
+# 7B, batch 32, S 128, --is_generation_task; 128 fixture items give 32 val
+# rows, one batch; at --quantize none, w8a8 and w4a8
+GEN_B, GEN_S = 32, 128
+N_GEN_ITEMS = 128
+GEN_RUNS = ("none", "w8a8", "w4a8")
+# Tolerance of the generation checks at 7B in bf16, as a share of each
+# row's largest |logit|. The cached decode and the re-forward (or K1's
+# prefill and the plain attention's) compute the same function and round
+# at other places: the plain decode attention rounds the normalised P to
+# bf16 where K1 rounds the unnormalised one (2^-7 relative, K1_REL), and a
+# GEMM at M 32 rows may sum in another order than at M 5088 and round to
+# the other bf16 neighbour (2^-8 relative). About 10 such roundings a block
+# differ, by half an ulp on average and of random sign, so over 32 blocks
+# the residual stream's relative difference grows as sqrt(320) 2^-9 =
+# 2^-4.8, and the logits, a projection of it, by as much of their scale:
+# held at 2^-4 of the row's largest |logit|.
+GEN_LOGIT_REL = 2.0 ** -4
 # (B, S_q, S_k, H, q_offset, video_start, with the backward): the training
 # length at B 1, the long train path's encode (LONG_SHAPE: K5, K6a and K6b),
 # a ragged S, and the S 8192 eval's forward-only shapes, the cached prefill
@@ -349,6 +387,14 @@ K3_EVAL = {"eval prefill w1/w3": (TRAIN_B * TRAIN_S, 4096, 11008),
            "eval extend w1/w3": (320, 4096, 11008)}
 # the shape of each kernel's row in the kernels line: the largest per call
 QUANT_ROW_SHAPE = "w1/w3"
+# The generation eval's decode steps hand K3, K7 and K8 one row per
+# example: M = the batch's 32 rows at the three block shapes. Timed in the
+# timing phase beside a bf16 `F.linear` on the dequantized weight
+# (`time_decode_shape`); the paths' own inputs at these shapes are held
+# against the plain versions in the last phase.
+DECODE_SHAPES = {"decode wq/wk/wv/wo": (32, 4096, 4096),
+                 "decode w1/w3": (32, 4096, 11008),
+                 "decode w2": (32, 11008, 4096)}
 # K3 and K7 against their plain versions: bitwise. Both compute the same
 # IEEE operations in the same order (explicit __fmul_rn/__fadd_rn/__fdiv_rn
 # in the kernels, one op per tensor pass in the plain versions, exact integer
@@ -1634,19 +1680,52 @@ def time_quant(torch, qm):
             times["k8a"][name] = time_k8a(torch, qm, m, k, n)
             rows.append(("K8A", times["k8a"][name]))
         for kern, t in rows:
-            lib = ("none" if t["library_ms"] is None
-                   else f"{t['library_ms']:.5f} ms")
-            extra = (f" (row-major B {t['int_mm_row_major_ms']:.5f} ms)"
-                     if "int_mm_row_major_ms" in t else "")
-            extra += (f", bf16 F.linear {t['linear_ms']:.5f} ms"
-                      if kern == "K3" else "")
-            print(f"{kern} timing {name} (M {m}, K {k}, N {n}): device kernel "
-                  f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, library "
-                  f"{lib}{extra}, bound {t['bound_ms']:.5f} ms "
-                  f"({t['bound_by']}); runs {t['runs']}; host per eager "
-                  f"call: kernel {t['host_us']:.1f} us, plain "
-                  f"{t['plain_host_us']:.1f} us", flush=True)
+            print_quant_time(kern, name, m, k, n, t)
+    for name, (m, k, n) in DECODE_SHAPES.items():
+        for kern, t in time_decode_shape(torch, qm, m, k, n).items():
+            times[kern][name] = t
+            print_quant_time(kern.upper(), name, m, k, n, t)
     return times
+
+
+def print_quant_time(kern, name, m, k, n, t):
+    lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.5f} ms"
+    extra = (f" (row-major B {t['int_mm_row_major_ms']:.5f} ms)"
+             if "int_mm_row_major_ms" in t else "")
+    extra += (f", bf16 F.linear {t['linear_ms']:.5f} ms"
+              if "linear_ms" in t else "")
+    print(f"{kern} timing {name} (M {m}, K {k}, N {n}): device kernel "
+          f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, library "
+          f"{lib}{extra}, bound {t['bound_ms']:.5f} ms "
+          f"({t['bound_by']}); runs {t['runs']}; host per eager "
+          f"call: kernel {t['host_us']:.1f} us, plain "
+          f"{t['plain_host_us']:.1f} us", flush=True)
+
+
+def time_decode_shape(torch, qm, m, k, n):
+    """K3, K7 and K8's two branches at one decode shape (M = the batch's
+    rows): kernel and plain version (`timed`), the bound (at M 32 the
+    weight's bytes), and as the library yardstick a bf16 `F.linear` on the
+    weight dequantized beforehand; K3 also `torch._int_mm` (`time_k3`)."""
+    import torch.nn.functional as F
+
+    t3 = time_k3(torch, qm, m, k, n)
+    x, kq, _, sg, _ = quant_inputs(torch, m, k, n, 400)
+    t7 = timed(torch, lambda: qm.grouped_matmul(x, kq, sg),
+               lambda: qm.grouped_matmul_ref(x, kq, sg))
+    w7 = qm.dequant(kq, sg, torch.bfloat16)
+    t7["library_ms"] = device_ms(torch, lambda: F.linear(x, w7))
+    t7["bound_ms"], t7["bound_by"] = quant_bound(m, k, n, sg.numel())
+    x4, kq4, sg4, _ = int4_inputs(torch, m, k, n, 410)
+    w4 = qm.dequant(qm.unpack_int4(kq4), sg4, torch.bfloat16)
+    t8a = time_k8a(torch, qm, m, k, n)
+    t8a["library_ms"] = device_ms(torch, lambda: F.linear(x4, w4))
+    t8w = timed(torch, lambda: qm.int4_matmul(x4, kq4, sg4, False),
+                lambda: qm.int4_matmul_ref(x4, kq4, sg4, False))
+    t8w["library_ms"] = device_ms(torch, lambda: F.linear(x4, w4))
+    t8w["bound_ms"], t8w["bound_by"] = quant_bound(
+        m, k, n, sg4.numel(), bf16=True, weight_bytes=n * k // 2)
+    return {"k3": t3, "k7": t7, "k8a": t8a, "k8w": t8w}
 
 
 def write_fixtures(root, n):
@@ -1655,6 +1734,14 @@ def write_fixtures(root, n):
     from flipped_tpu_torch.data.synthetic import make_nextqa
 
     make_nextqa(root, n, np.random.RandomState(0))
+
+
+def write_gen_fixtures(root, n):
+    import numpy as np
+
+    from flipped_tpu_torch.data.synthetic import make_musicavqa
+
+    make_musicavqa(root, n, np.random.RandomState(0))
 
 
 def cli_args(data_root, *extra, seq=TRAIN_S, batch=TRAIN_B):
@@ -2002,6 +2089,308 @@ def compare_cached_dense(torch, fa, args, caught):
     if bool((delta > SCORE_RTOL * d.abs()).any()):
         raise AssertionError("cached and dense scores disagree beyond "
                              f"{SCORE_RTOL} relative")
+
+
+def gen_per_batch(quantize, blocks, long=False):
+    """Launches per generated batch, from the code: the prefill runs every
+    block once over the prompt (K1, or K5 above MAX_SEQ_FWD = 4096: `long`)
+    and each of the MAX_NEW_TOKENS - 1 decode steps every block once on one
+    token a row (plain decode attention, no attention kernel); each of
+    those passes has 9 quantized matmuls a block (wq, wk, wv, wo, w1, w3,
+    w2 and the adapter rows' wk, wv: K3 under w8a8, K8 under w4a8); the LM
+    head is weight-only."""
+    from flipped_tpu_torch.train.generation import MAX_NEW_TOKENS
+
+    counts = {k: 0 for k in ("k2", "k6a", "k6b", "k3", "k7", "k4", "k8",
+                             "k9", "k10")}
+    if quantize != "none":
+        counts[forward_kernel(quantize)] = 9 * blocks * MAX_NEW_TOKENS
+    return {"k1": 0 if long else blocks, "k5": blocks if long else 0,
+            **counts}
+
+
+def gen_args(data_root, quantize, out, *extra, **shape):
+    """The MUSIC-AVQA recipe's flags (scripts/recipes.sh:38-42) at 7B:
+    --is_generation_task, batch 32, S 128, max_feats 10, bias 3, tau 100."""
+    return cli_args(data_root, "--dataset", "musicavqa",
+                    "--is_generation_task", "--max_feats", str(MAX_FEATS),
+                    "--bias", "3", "--tau", "100", "--quantize", quantize,
+                    "--output_dir", out, *extra,
+                    **({"seq": GEN_S, "batch": GEN_B} | shape))
+
+
+def read_answers(out, n_rows):
+    """The extracted-answers file of epoch 0: `n_rows` rows, unique qids,
+    string answers."""
+    path = os.path.join(out, "extracted_answers",
+                        "extracted_answers_epoch0.json")
+    with open(path) as f:
+        rows = json.load(f)
+    qids = [r["qid"] for r in rows]
+    if (len(rows) != n_rows or len(set(qids)) != n_rows
+            or not all(isinstance(r["generated_answer"], str)
+                       for r in rows)):
+        raise AssertionError(f"{path}: {len(rows)} rows, {len(set(qids))} "
+                             f"unique qids, want {n_rows} string answers")
+    return rows
+
+
+def run_gen_train(torch, fa, qm, data_root, caught):
+    """`cli.train.main` on the MUSIC-AVQA recipe at 7B, --debug: one update
+    (VQA only: the recipe has no --vaq/--qav), then generation eval on one
+    val batch of 32; launches as `per_update` and `gen_per_batch` derive
+    them, the extracted answers and log.txt's `val_counting` checked."""
+    from flipped_tpu_torch.cli import train as train_cli
+
+    out = os.path.join(WORK, "gen_train_out")
+    shutil.rmtree(out, ignore_errors=True)
+    args = gen_args(data_root, "none", out, "--epochs", "1", "--debug")
+    zero_counts(fa, qm)
+    t0 = time.perf_counter()
+    with catch_quant_inputs(caught):
+        model, history = train_cli.main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(fa, qm)
+    blocks = len(model.layers)
+    want = {k: v + gen_per_batch("none", blocks)[k]
+            for k, v in per_update("none", blocks).items()}
+    rows = read_answers(out, GEN_B)
+    with open(os.path.join(out, "log.txt")) as f:
+        logged = json.loads(f.readline())
+    print(f"train --dataset musicavqa --is_generation_task (batch "
+          f"{args.batch_size}, S {args.max_seq_len}): main took "
+          f"{seconds:.3f} s (7B init included), launches {launches}; val "
+          f"acc {logged['val_acc']}; first answer "
+          f"{rows[0]['generated_answer'][:60]!r}", flush=True)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    if "val_counting" not in logged or history[0]["val_batches"] != 1:
+        raise AssertionError(f"log.txt line {logged}")
+    del model
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def run_gen_eval(torch, fa, qm, data_root, caught, quantize="none",
+                 long=False):
+    """`cli.evaluate.main --is_generation_task` (`long`: NExT-QA prompts at
+    batch 1, S 8192, --debug: one batch) with launches as `gen_per_batch`
+    derives them, the quant kernels' inputs to `caught`. → (args, the
+    model the CLI built, its tokenizer)."""
+    from flipped_tpu_torch.cli import evaluate
+
+    built = {}
+    orig = evaluate.build_eval_state
+
+    def build(*a, **kw):
+        built["model"], cfg, built["tok"] = orig(*a, **kw)
+        return built["model"], cfg, built["tok"]
+
+    out = os.path.join(WORK, "gen_eval_out")
+    shutil.rmtree(out, ignore_errors=True)
+    args = (gen_args(data_root, quantize, out, "--dataset", "nextqa",
+                     "--debug", seq=LONG_EVAL_S, batch=LONG_B)
+            if long else gen_args(data_root, quantize, out))
+    evaluate.build_eval_state = build
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(fa, qm)
+        t0 = time.perf_counter()
+        with catch_quant_inputs(caught):
+            stats = evaluate.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        evaluate.build_eval_state = orig
+    launches = read_counts(fa, qm)
+    peak = torch.cuda.max_memory_allocated()
+    read_answers(out, args.batch_size)
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"generation eval --quantize {quantize} (batch {args.batch_size}, "
+          f"S {args.max_seq_len}): evaluate.main took {seconds:.3f} s (7B "
+          f"init included), {stats['batches']} batch, acc {stats['acc']}, "
+          f"launches {launches}, peak allocated {peak / 2**30:.3f} GiB",
+          flush=True)
+    want = gen_per_batch(quantize, len(built["model"].layers), long)
+    if stats["batches"] != 1 or launches != want:
+        raise AssertionError(f"{stats['batches']} batches, launches "
+                             f"{launches}, want 1 and {want}")
+    return args, built["model"], built["tok"]
+
+
+def gen_batch(torch, args, tokenizer, device="cuda"):
+    """The first val batch of `args`' dataset on the card."""
+    from flipped_tpu_torch.cli.evaluate import batch_to_device
+    from flipped_tpu_torch.core.config import run_config_from_args
+    from flipped_tpu_torch.data.datasets import build_dataset
+    from flipped_tpu_torch.data.pipeline import Loader
+
+    run_cfg = run_config_from_args(args)
+    loader = Loader(build_dataset(run_cfg.data, tokenizer, "val"),
+                    run_cfg.data.batch_size, shuffle=False, split="val",
+                    prefetch=0)
+    it = iter(loader)
+    batch = next(it)
+    it.close()
+    return batch_to_device(batch, device)
+
+
+@contextlib.contextmanager
+def recording(torch, model, names, record):
+    """Wrap the model's `names` methods for the duration: each call's
+    output goes to record[name] with a pair of CUDA events around it."""
+    def wrap(name, fn):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            record.setdefault(name, []).append((start, end, out))
+            return out
+        return call
+    for name in names:
+        setattr(model, name, wrap(name, getattr(model, name)))
+    try:
+        yield record
+    finally:
+        for name in names:
+            delattr(model, name)
+
+
+def decode_bytes(model, prefix, steps):
+    """The least bytes a decode step must move, averaged over the steps:
+    every weight a step reads once (the blocks', the LM head's, the final
+    norm's and the adapter rows': all but the token and video embeddings)
+    and the live KV cache (columns <= pos of every row, K and V, every
+    layer) read once; step i decodes at pos = prefix + i."""
+    weights = sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters()
+                  if not n.startswith(("tok_embeddings", "temporal_emb",
+                                       "visual_proj")))
+    cfg = model.cfg
+    row = len(model.layers) * cfg.n_heads * cfg.head_dim * 2 * 2
+    live = sum(float((prefix + i + 1).sum()) for i in range(steps)) / steps
+    return weights + live * row, weights
+
+
+def time_gen(torch, model, tokenizer, tb, label):
+    """One batch through `make_generation_step`: s per batch (median of 3
+    after one warm-up, each ending in torch.cuda.synchronize()), the
+    prefill's ms and the decode ms per token by CUDA events around each
+    call, the peak allocated memory over the timed runs, and the decode
+    step's bytes bound at 3.35 TB/s."""
+    from flipped_tpu_torch.train.generation import (MAX_NEW_TOKENS,
+                                                    make_generation_step)
+
+    gen_step = make_generation_step(model, tokenizer.eos_id)
+    gen_step(tb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, prefill, decode = [], [], []
+    for _ in range(3):
+        record = {}
+        with recording(torch, model, ("prefill", "decode_step"), record):
+            t0 = time.perf_counter()
+            out = gen_step(tb)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        prefill.append(sum(a.elapsed_time(b) for a, b, _ in
+                           record["prefill"]))
+        decode.append(sum(a.elapsed_time(b) for a, b, _ in
+                          record["decode_step"]) / (MAX_NEW_TOKENS - 1))
+        del record
+    peak = torch.cuda.max_memory_allocated()
+    med = lambda x: sorted(x)[1]
+    s = tb["vqa_tokens"].shape[-1]
+    need, weights = decode_bytes(model, tb["prefix"].long(),
+                                 MAX_NEW_TOKENS - 1)
+    b = tb["vqa_tokens"].shape[0]
+    print(f"generation {label} (batch {b}, S {s}, {MAX_NEW_TOKENS} tokens): "
+          f"{med(secs):.5f} s/batch (median of 3: "
+          f"{', '.join(f'{x:.5f}' for x in secs)}), {b / med(secs):.3f} ex/s; "
+          f"prefill {med(prefill):.4f} ms, decode {med(decode):.4f} ms per "
+          f"token (CUDA events), bytes bound per decode step "
+          f"{need / HBM_BYTES_PER_S * 1e3:.4f} ms ({need / 2**30:.3f} GiB: "
+          f"weights {weights / 2**30:.3f} GiB, live cache "
+          f"{(need - weights) / 2**30:.3f} GiB); peak allocated "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    if not bool(torch.isfinite(out["similarity"]).all()):
+        raise AssertionError("non-finite similarities")
+    return {"s_per_batch": med(secs), "prefill_ms": med(prefill),
+            "decode_ms_per_token": med(decode), "peak_gib": peak / 2**30,
+            "decode_bound_ms": need / HBM_BYTES_PER_S * 1e3}
+
+
+def check_gen_consistency(torch, model, tokenizer, tb, label):
+    """At 7B through the kernels, on one batch. (a) The cached decode
+    against a re-forward: the prompt with the generated tokens written at
+    prefix.. runs once through `encode` and `lm_logits`; at each of the 31
+    decoded positions the cached logits lie within GEN_LOGIT_REL of the
+    row's largest |logit| of the re-forward's, and the re-forward's logit
+    of the chosen token within as much of the row's maximum. (b) The
+    prefill with use_flash off (plain attention) against K1's: the first
+    token's logits within GEN_LOGIT_REL, and the first token equal wherever
+    the plain top-2 margin exceeds that bound."""
+    from flipped_tpu_torch.train.generation import make_generation_step
+
+    gen_step = make_generation_step(model, tokenizer.eos_id)
+    record = {}
+    with recording(torch, model, ("lm_logits", "decode_step"), record):
+        out = gen_step(tb)
+    cached = torch.stack([record["lm_logits"][0][2][:, 0]]
+                         + [o[0] for _, _, o in record["decode_step"]],
+                         dim=1).float()                   # (B, T, V)
+    del record
+    gen = out["generated"]
+    b, t = gen.shape
+    tokens = tb["vqa_tokens"][:, 0]
+    s, dev = tokens.shape[1], tokens.device
+    prefix = tb["prefix"].long()
+    cols = torch.arange(s + t, device=dev)[None]
+    seq = torch.zeros(b, s + t, dtype=tokens.dtype, device=dev)
+    seq[:, :s] = tokens
+    seq = torch.where(cols < prefix[:, None], seq, torch.zeros_like(seq))
+    rows = torch.arange(b, device=dev)[:, None]
+    at = prefix[:, None] + torch.arange(t, device=dev)[None]      # (B, T)
+    seq[rows, at] = gen.to(seq.dtype)
+    with torch.inference_mode():
+        vf = model.fuse(tb["video"])
+        h = model.encode(seq, vf, tb["vqa_video_start"], tb["vqa_splice"])
+        ref = model.lm_logits(h[rows, at - 1]).float()            # (B, T, V)
+        scale = ref.abs().amax(-1)
+        err = ((cached - ref).abs().amax(-1) / scale).max().item()
+        chosen = ref.gather(-1, gen[..., None])[..., 0]
+        gap = ((ref.amax(-1) - chosen) / scale).max().item()
+        blocks = [blk.attention for blk in model.layers.values()]
+        for att in blocks:
+            att.use_flash = False
+        try:
+            hp, _, _ = model.prefill(tokens, vf, tb["vqa_video_start"],
+                                     tb["vqa_splice"], s + t + 1)
+        finally:
+            for att in blocks:
+                att.use_flash = True
+        plain = model.lm_logits(hp[rows[:, 0], prefix - 1]).float()  # (B, V)
+    pscale = plain.abs().amax(-1)
+    err_b = ((cached[:, 0] - plain).abs().amax(-1) / pscale).max().item()
+    top2 = plain.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > GEN_LOGIT_REL * pscale
+    same = plain.argmax(-1) == gen[:, 0]
+    print(f"generation {label} consistency: (a) cached vs re-forward max "
+          f"|d logit| {err:.5f} of the row's max |logit| (bound "
+          f"{GEN_LOGIT_REL}), chosen token at most {gap:.5f} below the "
+          f"re-forward's max; tokens equal to the re-forward's argmax "
+          f"{float((ref.argmax(-1) == gen).float().mean()):.4f}; (b) K1 vs "
+          f"plain prefill, first token: max |d logit| {err_b:.5f} of the "
+          f"row's max, {int(clear.sum())} of {b} rows with a clear top-2 "
+          f"margin, first token equal in {int(same.sum())} of {b} rows "
+          f"({int((same | ~clear).sum())} of {b} where it must)", flush=True)
+    if err > GEN_LOGIT_REL or gap > GEN_LOGIT_REL:
+        raise AssertionError(f"cached decode off the re-forward: {err:.5f}, "
+                             f"chosen token {gap:.5f} below the max")
+    if err_b > GEN_LOGIT_REL or not bool((same | ~clear).all()):
+        raise AssertionError("K1's prefill off the plain attention's")
 
 
 # the checkpoint phase: Meta's 7B params.json, but a vocabulary of 32000
@@ -2398,6 +2787,21 @@ def main() -> int:
             torch, fa, qm, data_root, caught, quantize), caught)
         torch.cuda.empty_cache()
 
+    gen_root = os.path.join(WORK, "data_gen")
+    write_gen_fixtures(gen_root, N_GEN_ITEMS)
+    phase("generation: cli.train on the MUSIC-AVQA recipe")
+    run_gen_train(torch, fa, qm, gen_root, caught)
+    torch.cuda.empty_cache()
+    for quantize in GEN_RUNS:
+        phase(f"generation eval --quantize {quantize}")
+        args, model, tok = run_gen_eval(torch, fa, qm, gen_root, caught,
+                                        quantize)
+        tb = gen_batch(torch, args, tok)
+        time_gen(torch, model, tok, tb, f"--quantize {quantize}")
+        check_gen_consistency(torch, model, tok, tb, f"--quantize {quantize}")
+        del model, tb
+        torch.cuda.empty_cache()
+
     phase("checkpoints: 7B Meta shards, load, train, resume, evaluate")
     check_checkpoints(torch, fa, qm, data_root)
 
@@ -2415,6 +2819,14 @@ def main() -> int:
     phase(f"eval, long context: S {LONG_EVAL_S}")
     compare_cached_dense(torch, fa, run_eval_slice(
         torch, fa, qm, long_root, caught, long=True), caught)
+    torch.cuda.empty_cache()
+
+    phase(f"generation eval, long context: S {LONG_EVAL_S}")
+    args, model, tok = run_gen_eval(torch, fa, qm, long_root, caught,
+                                    long=True)
+    time_gen(torch, model, tok, gen_batch(torch, args, tok),
+             f"bf16, S {LONG_EVAL_S}")
+    del model
     torch.cuda.empty_cache()
 
     phase("quant kernels vs plain at the main paths' shapes")

@@ -6,7 +6,10 @@
 
 The long-context step takes the same flags as the train CLI, e.g.
 `--batch_size 1 --max_seq_len 4096 --lm_head_chunk 512` (with remat, and
-`--remat_group N`).
+`--remat_group N`). `--mode generation` profiles one `gen_step` a step
+(the prefill and 30 decode steps of train/generation.py) on a val batch,
+e.g. the MUSIC-AVQA recipe's `--dataset musicavqa --is_generation_task
+--batch_size 32 --max_seq_len 128`.
 
 The card's name and power limit come from nvidia-smi. Builds the model the
 CLIs build (random weights from the seed), takes one batch from the loader,
@@ -36,6 +39,7 @@ import torch
 from ..core.config import get_args_parser, run_config_from_args
 from ..data.pipeline import load_data
 from ..train.builder import build_eval_state, build_train_state
+from ..train.generation import make_generation_step
 from ..train.optim import make_optimizer
 from ..train.step import make_eval_step, make_train_step
 from .evaluate import batch_to_device
@@ -107,7 +111,8 @@ def summarize(prof, steps: int, wall: float, wall_plain: float) -> dict:
 
 def main(argv=None) -> dict:
     extra = argparse.ArgumentParser(add_help=False)
-    extra.add_argument("--mode", choices=["train", "eval"], default="train")
+    extra.add_argument("--mode", choices=["train", "eval", "generation"],
+                       default="train")
     opts, rest = extra.parse_known_args(argv)
     args = get_args_parser().parse_args(rest)
     run_cfg = run_config_from_args(args)
@@ -130,10 +135,13 @@ def main(argv=None) -> dict:
             vaq=run_cfg.train.vaq, qav=run_cfg.train.qav,
             lm_chunk=run_cfg.train.lm_head_chunk)
         run = lambda: step(batch)
-    else:
+    elif opts.mode == "eval":
         step = make_eval_step(model, cached=True)
         span = (int(host_batch["span_need"]), bool(host_batch["span_exact"]))
         run = lambda: step(batch, span_info=span)
+    else:
+        step = make_generation_step(model, tokenizer.eos_id)
+        run = lambda: step(batch)
     for _ in range(2):
         run()
     torch.cuda.synchronize()

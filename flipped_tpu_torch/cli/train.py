@@ -7,7 +7,7 @@
 
 The port of flipped_tpu/cli/train.py (reference train.py + engine.py), in
 one process with no mesh: loaders → model build → optimizer → epoch loop
-{train_one_epoch, the classification `val_one_epoch`}. Each train step runs
+{train_one_epoch, `val_one_epoch`}. Each train step runs
 the three objectives stacked in one encode, K1 forward and K2 backward in
 every block (above S = 2048 K5 forward and K6a + K6b backward), and one
 AdamW update on the adapter. `--quantize` runs the frozen backbone in int8
@@ -26,10 +26,18 @@ nothing) each epoch appends a JSON line to log.txt and saves the adapter
 as `checkpoint_last`, and as `checkpoint_best` when the val accuracy rises
 (ckpt/manager.py); `--resume checkpoint_last` continues a run from the
 epoch after the saved one, with the optimizer's moments and schedule
-(a name that does not exist starts afresh).
+(a name that does not exist starts afresh). `--is_generation_task` runs
+the val loop as generation eval (cli/evaluate.py), the MUSIC-AVQA recipe:
 
-Not ported yet, and raising rather than ignored: --is_generation_task,
---loader grain, and the options that `check_train_ported` names.
+    python -m flipped_tpu_torch.cli.train --model llama7B --dataset musicavqa \
+        --is_generation_task --max_seq_len 128 --batch_size 32 --bias 3 \
+        --tau 100 --max_feats 10 --output_dir ./output_dir/musicavqa ...
+
+and writes each epoch's answers to
+`{output_dir}/extracted_answers/extracted_answers_epoch{N}.json`.
+
+Not ported yet, and raising rather than ignored: --loader grain, and the
+options that `check_train_ported` names.
 """
 from __future__ import annotations
 
@@ -48,10 +56,10 @@ from ..core.config import (check_train_ported, get_args_parser,
 from ..data.pipeline import load_data
 from ..train.builder import build_train_state
 from ..train.optim import make_optimizer
-from ..train.step import make_eval_step, make_train_step
+from ..train.step import make_train_step
 from ..utils.logging import write_log_line
 from ..utils.metrics import MetricLogger
-from .evaluate import batch_to_device, val_one_epoch
+from .evaluate import batch_to_device, make_val_steps, val_one_epoch
 
 
 def train_one_epoch(train_step, loader, epoch: int, device,
@@ -84,9 +92,6 @@ def main(args):
     """→ (model, per-epoch stats), the model as trained."""
     run_cfg = run_config_from_args(args)
     check_train_ported(run_cfg.train)
-    if run_cfg.train.is_generation_task:
-        raise NotImplementedError(
-            "--is_generation_task: generation eval is not ported yet")
     output_dir = run_cfg.train.output_dir
     if run_cfg.train.resume and not output_dir:
         raise ValueError("--resume reads its checkpoint from --output_dir, "
@@ -127,7 +132,7 @@ def main(args):
                                  lm_chunk=run_cfg.train.lm_head_chunk)
     # one process: no eval span is pinned (data.pipeline.pinned_eval_span),
     # each batch carries its pack-time span
-    eval_step = make_eval_step(model, cached=True)
+    eval_step, gen_step = make_val_steps(model, run_cfg, tokenizer)
 
     print(f"Start training for {run_cfg.train.epochs} epochs")
     history = []
@@ -136,7 +141,9 @@ def main(args):
         train_stats = train_one_epoch(train_step, loader_train, epoch, device,
                                       debug=run_cfg.debug)
         val_stats = val_one_epoch(eval_step, loader_val, run_cfg.data.dataset,
-                                  device, debug=run_cfg.debug)
+                                  device, debug=run_cfg.debug,
+                                  gen_step=gen_step, tokenizer=tokenizer,
+                                  output_dir=output_dir, epoch=epoch)
         if best_acc < val_stats.get("acc", 0.0):
             best_acc = val_stats["acc"]
             if mgr is not None:

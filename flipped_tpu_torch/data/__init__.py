@@ -1,5 +1,6 @@
 """Host-side data layer: the port's own copies of flipped_tpu.data's numpy
-modules, plus a synthetic NExT-QA fixture writer (`synthetic.py`)."""
+modules, plus a synthetic NExT-QA and MUSIC-AVQA fixture writer
+(`synthetic.py`)."""
 from .batching import (Item, add_accum_axis, eval_span, make_synthetic_items,
                        mask_tail_rows, pack_eval_batch, pack_train_batch)
 from .feature_store import FeatureStore, uniform_downsample

@@ -1,16 +1,20 @@
-"""Synthetic NExT-QA fixtures, shaped like the reference's artifacts.
+"""Synthetic NExT-QA and MUSIC-AVQA fixtures, shaped like the reference's
+artifacts.
 
 The port's own writer of what `scripts/make_synthetic_data.py` writes for
-NExT-QA (train/val CSVs and the `clipvitl14.pth` feature dict; audio is
-not ported, so its feature files are not written), from the port's own
-vocabulary (`data.batching._WORDS`), so runs and tests of the port need
-nothing of the JAX package:
+NExT-QA (train/val CSVs) and MUSIC-AVQA (`avqa-{train,val}.json`), each
+with its `clipvitl14.pth` feature dict, from the port's own vocabulary
+(`data.batching._WORDS`), so runs and tests of the port need nothing of
+the JAX package. Audio is not ported, so the audio feature files are not
+written. `main` draws NExT-QA, then MUSIC-AVQA, from one RandomState, in
+the script's order, so the files equal the script's:
 
     python -m flipped_tpu_torch.data.synthetic --root ./data --n 32
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 import numpy as np
@@ -46,14 +50,37 @@ def make_nextqa(root, n, rs: np.random.RandomState):
     _features(os.path.join(d, "clipvitl14.pth"), vids)
 
 
+def make_musicavqa(root, n, rs: np.random.RandomState):
+    """`n` train rows over `n` videos and max(n // 4, 2) val rows under
+    root/musicavqa, drawn from `rs` as the script's `make_musicavqa` draws
+    them (its audio feature files left out)."""
+    d = os.path.join(root, "musicavqa")
+    os.makedirs(d, exist_ok=True)
+    types = [["Audio", "Counting"], ["Visual", "Temporal"],
+             ["Audio-Visual", "Existential"]]
+    for split, count in (("train", n), ("val", max(n // 4, 2))):
+        data = [dict(video_id=f"mv{i % n}",
+                     question_content="How many <Object> are there",
+                     anser=str(rs.choice(_WORDS)),
+                     templ_values=f"['{rs.choice(_WORDS)}s']",
+                     type=str(types[i % 3]).replace('"', "'"))
+                for i in range(count)]
+        with open(os.path.join(d, f"avqa-{split}.json"), "w") as f:
+            json.dump(data, f)
+    _features(os.path.join(d, "clipvitl14.pth"),
+              [f"mv{i}" for i in range(n)])
+
+
 def main(argv=None):
-    ap = argparse.ArgumentParser("synthetic NExT-QA fixtures")
+    ap = argparse.ArgumentParser("synthetic NExT-QA and MUSIC-AVQA fixtures")
     ap.add_argument("--root", default="./data")
     ap.add_argument("--n", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    make_nextqa(args.root, args.n, np.random.RandomState(args.seed))
-    print(f"synthetic NExT-QA written under {args.root}/nextqa")
+    rs = np.random.RandomState(args.seed)
+    make_nextqa(args.root, args.n, rs)
+    make_musicavqa(args.root, args.n, rs)
+    print(f"synthetic NExT-QA and MUSIC-AVQA written under {args.root}")
 
 
 if __name__ == "__main__":

@@ -14,6 +14,8 @@ Masked scores are -1e30, never -inf.
 Segment B of the dense forward runs through the K1 kernel wrapper
 (model/kernels/flash_attention.py); `adapter_gated_attention` here is its
 all-plain formulation, kept as the oracle the CPU tests hold the port to.
+The single-token `decode_attention` of generation is plain torch, as in
+JAX (einsums there, no Pallas kernel).
 """
 from __future__ import annotations
 
@@ -127,3 +129,33 @@ def chunk_extend_attention(q, k_chunk, v_chunk, cache_k, cache_v, adapter_k,
     out = out + adapter_prefix_attention(q, adapter_k, adapter_v,
                                          gate1).float()
     return out.to(cd).reshape(b, nl, h * dh)
+
+
+def decode_attention(q, cache_k, cache_v, adapter_k, adapter_v, gate1, gate2,
+                     video_start, pos, max_feats: int) -> torch.Tensor:
+    """One query token against a KV cache (JAX: attention.py:162-196).
+
+    q: (B, 1, H, Dh), roped at `pos`; cache_k/v: (B, Smax, H, Dh), live at
+    columns <= pos; video_start: (B,) int, -1 → no gate2 block; pos: (B,)
+    int, the query's absolute position. Returns (B, 1, H*Dh).
+    """
+    b, _, h, dh = q.shape
+    cd = q.dtype
+    s_max = cache_k.shape[1]
+    scores = torch.einsum("bohd,bthd->bhot", q.float(),
+                          cache_k.float()) * _scale(dh, cd)
+    cols = torch.arange(s_max, device=q.device)[None, None, None, :]
+    p = pos.long()[:, None, None, None]
+    vs = video_start.long()[:, None, None, None]
+    # the gate2 video block: a decoded row sits past vs + max_feats, so this
+    # is the whole block once the prompt holds video (JAX guards it too)
+    block = ((p >= vs + max_feats) & (cols >= vs) & (cols < vs + max_feats)
+             & (vs >= 0))
+    scores = scores + block.float() * gate2.float()[None, :, None, None]
+    scores = torch.where(cols <= p, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhot,bthd->bohd", probs.to(cd).float(),
+                       cache_v.float())
+    out = out + adapter_prefix_attention(q, adapter_k, adapter_v,
+                                         gate1).float()
+    return out.to(cd).reshape(b, 1, h * dh)

@@ -37,7 +37,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import ModelConfig
-from .attention import adapter_gated_attention, chunk_extend_attention
+from .attention import (adapter_gated_attention, chunk_extend_attention,
+                        decode_attention)
 from .int4 import int4_matmul, int4_matmul_grouped
 from .int8 import (int8_matmul, int8_matmul_dgrad, int8_matmul_grouped,
                    outlier_count)
@@ -162,8 +163,8 @@ class Attention(nn.Module):
     """Adapter-gated attention (JAX: llama.py:180-326). The dense forward and
     `prefill` send segment B through K1 (and its backward through K2), or,
     with use_flash False (--no_flash), through the einsum
-    `adapter_gated_attention` (JAX: llama.py:262-263); `extend` runs the
-    plain chunk attention."""
+    `adapter_gated_attention` (JAX: llama.py:262-263); `extend` and
+    `decode` run the plain chunk and single-token attention."""
 
     def __init__(self, cfg: ModelConfig, dtype, frozen_dtype, trainable_dtype,
                  device=None, quant=None, use_flash: bool = True):
@@ -227,6 +228,30 @@ class Attention(nn.Module):
                                      prefix, n_opt, self.cfg.max_feats)
         return self.wo(out)
 
+    def decode(self, x, rope_cos, rope_sin, adapter, video_start, cache_k,
+               cache_v, pos):
+        """One token a row (JAX: llama.py:306-327): x (B, 1, D) at the
+        absolute positions pos (B,). The new K/V go into cache_k/v (B, Smax,
+        H, Dh) at pos in place: JAX's functional `.at[].set` would copy the
+        whole cache every token."""
+        b = x.shape[0]
+        h, dh = self.cfg.n_heads, self.cfg.head_dim
+        q = self.wq(x).view(b, 1, h, dh)
+        k = self.wk(x).view(b, 1, h, dh)
+        v = self.wv(x).view(b, 1, h, dh)
+        pos = pos.long()
+        cos, sin = rope_cos[pos][:, None], rope_sin[pos][:, None]
+        q = apply_rope_at(q, cos, sin)
+        k = apply_rope_at(k, cos, sin)
+        rows = torch.arange(b, device=x.device)
+        cache_k[rows, pos] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, pos] = v[:, 0].to(cache_v.dtype)
+        ak, av = self._adapter_kv(adapter)
+        out = decode_attention(q, cache_k, cache_v, ak, av, self.gate1,
+                               self.gate2, video_start, pos,
+                               self.cfg.max_feats)
+        return self.wo(out)
+
 
 class FeedForward(nn.Module):
     """SwiGLU FFN (JAX: llama.py:330-359)."""
@@ -268,6 +293,13 @@ class TransformerBlock(nn.Module):
                                             rope_sin, adapter, video_start)
         h = x + attn
         return h + self.feed_forward(self.ffn_norm(h)), k, v
+
+    def decode(self, x, rope_cos, rope_sin, adapter, video_start, cache_k,
+               cache_v, pos):
+        h = x + self.attention.decode(self.attention_norm(x), rope_cos,
+                                      rope_sin, adapter, video_start,
+                                      cache_k, cache_v, pos)
+        return h + self.feed_forward(self.ffn_norm(h))
 
     def extend(self, x, rope_cos, rope_sin, adapter, video_start, cache_k,
                cache_v, prefix, n_opt: int):
@@ -412,19 +444,22 @@ class FlippedVQAModel(nn.Module):
     def prefill(self, tokens, video_feature, video_start, splice_index,
                 cache_len: int):
         """Run the prompt once, filling a KV cache of length cache_len →
-        (h_normed (B,S,D), cache_k (L,B,cache_len,H,Dh), cache_v)
-        (JAX: llama.py:699-716)."""
-        s = tokens.shape[1]
+        (h_normed (B,S,D), cache_k (L,B,cache_len,H,Dh), cache_v), zero
+        past S (JAX: llama.py:699-716). Each layer's K/V is written into
+        the one cache tensor, never held twice."""
+        b, s = tokens.shape
+        cfg = self.cfg
         h = self._embed_and_splice(tokens, video_feature, splice_index)
         rope_cos, rope_sin = self._rope(cache_len)
-        pad = cache_len - s
-        ck_all, cv_all = [], []
-        for block, adapter in self._active_blocks():
+        shape = (len(self.layers), b, cache_len, cfg.n_heads, cfg.head_dim)
+        cache_k = torch.zeros(shape, dtype=self.dtype, device=tokens.device)
+        cache_v = torch.zeros_like(cache_k)
+        for i, (block, adapter) in enumerate(self._active_blocks()):
             h, k, v = block.prefill(h, rope_cos, rope_sin, adapter,
                                     video_start)
-            ck_all.append(F.pad(k, (0, 0, 0, 0, 0, pad)))
-            cv_all.append(F.pad(v, (0, 0, 0, 0, 0, pad)))
-        return self.norm(h), torch.stack(ck_all), torch.stack(cv_all)
+            cache_k[i, :, :s] = k
+            cache_v[i, :, :s] = v
+        return self.norm(h), cache_k, cache_v
 
     def extend_logits(self, tokens, cache_k, cache_v, prefix, video_start):
         """Score n_opt continuations against the shared prompt cache.
@@ -439,6 +474,18 @@ class FlippedVQAModel(nn.Module):
                              cache_k[i], cache_v[i], prefix, n_opt)
         logits = self.output(self.norm(h))
         return logits.view(b, n_opt, chunk_len, self.cfg.vocab_size)
+
+    def decode_step(self, token, cache_k, cache_v, pos, video_start):
+        """One greedy-decode step (JAX: llama.py:742-763): token (B,) is the
+        token AT positions pos (B,) → logits (B, V) predicting pos + 1. Each
+        layer writes its K/V into cache_k/v (L, B, cache_len, H, Dh) in
+        place; the same tensors are returned."""
+        h = self.tok_embeddings(token[:, None]).to(self.dtype)
+        rope_cos, rope_sin = self._rope(cache_k.shape[2])
+        for i, (block, adapter) in enumerate(self._active_blocks()):
+            h = block.decode(h, rope_cos, rope_sin, adapter, video_start,
+                             cache_k[i], cache_v[i], pos)
+        return self.output(self.norm(h))[:, 0], cache_k, cache_v
 
     def forward(self, tokens, video, video_start, splice_index):
         """fuse → encode → (lm logits, qav logits)."""

@@ -1,5 +1,7 @@
 from .builder import (build_eval_state, build_model, build_train_state,
                       check_dtype_policy, init_params, resolve_model_config)
+from .generation import (MAX_NEW_TOKENS, decode_generated,
+                         make_generation_step, pool_option_embeddings)
 from .objectives import (Losses, ce_ignore_index, compute_objective_losses,
                          fused_forward, option_scores, option_scores_cached,
                          token_ce_unreduced)
@@ -10,7 +12,9 @@ from .step import (TrainMetrics, bucket_span, make_eval_step, make_train_step,
 
 __all__ = [
     "build_eval_state", "build_model", "build_train_state",
-    "check_dtype_policy", "init_params", "resolve_model_config", "Losses",
+    "check_dtype_policy", "init_params", "resolve_model_config",
+    "MAX_NEW_TOKENS", "decode_generated", "make_generation_step",
+    "pool_option_embeddings", "Losses",
     "ce_ignore_index", "compute_objective_losses", "fused_forward",
     "option_scores", "option_scores_cached", "token_ce_unreduced",
     "TRAINABLE_MARKERS", "Optimizer", "wd_mask", "is_trainable",

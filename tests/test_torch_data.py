@@ -27,7 +27,7 @@ from flipped_tpu_torch.data import (Loader, build_dataset, dataset_eval_span,
                                     load_data, make_synthetic_items,
                                     pack_eval_batch, pack_train_batch,
                                     pinned_eval_span)
-from flipped_tpu_torch.data.synthetic import make_nextqa
+from flipped_tpu_torch.data.synthetic import make_musicavqa, make_nextqa
 from flipped_tpu_torch.text import MockTokenizer, load_tokenizer
 from flipped_tpu_torch.utils.metrics import MetricLogger, log_qtype
 
@@ -65,12 +65,17 @@ def _load_script(name):
 
 @pytest.fixture(scope="module")
 def fixtures(tmp_path_factory):
-    """NExT-QA fixtures from the port's writer, beside the script's."""
+    """NExT-QA, then MUSIC-AVQA fixtures from the port's writer, beside the
+    script's, each pair from one RandomState in the script's order."""
     ours = tmp_path_factory.mktemp("port_fixtures")
-    make_nextqa(str(ours), 12, np.random.RandomState(3))
+    rs = np.random.RandomState(3)
+    make_nextqa(str(ours), 12, rs)
+    make_musicavqa(str(ours), 12, rs)
     ref = tmp_path_factory.mktemp("script_fixtures")
-    _load_script("make_synthetic_data").make_nextqa(
-        str(ref), 12, np.random.RandomState(3))
+    script = _load_script("make_synthetic_data")
+    rs = np.random.RandomState(3)
+    script.make_nextqa(str(ref), 12, rs)
+    script.make_musicavqa(str(ref), 12, rs)
     return str(ours), str(ref)
 
 
@@ -84,6 +89,36 @@ def test_fixture_writer_matches_script(fixtures):
     fb = torch.load(os.path.join(ref, "nextqa", "clipvitl14.pth"))
     assert sorted(fa) == sorted(fb)
     assert all(torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def test_musicavqa_fixture_writer_matches_script(fixtures):
+    """The JSON files and the feature dict equal the script's; the script's
+    audio feature files are not written (audio is not ported)."""
+    ours, ref = fixtures
+    for name in ("avqa-train.json", "avqa-val.json"):
+        with open(os.path.join(ours, "musicavqa", name)) as a, \
+                open(os.path.join(ref, "musicavqa", name)) as b:
+            assert a.read() == b.read(), name
+    fa = torch.load(os.path.join(ours, "musicavqa", "clipvitl14.pth"))
+    fb = torch.load(os.path.join(ref, "musicavqa", "clipvitl14.pth"))
+    assert sorted(fa) == sorted(fb)
+    assert all(torch.equal(fa[k], fb[k]) for k in fa)
+    assert sorted(os.listdir(os.path.join(ours, "musicavqa"))) == [
+        "avqa-train.json", "avqa-val.json", "clipvitl14.pth"]
+
+
+def test_musicavqa_generation_batches_equal_jax(fixtures):
+    """The generation-task val batches (prefix, qid, gt_answer) of the port's
+    MUSIC-AVQA reader and loader equal JAX's."""
+    kw = dict(dataset="musicavqa", data_root=fixtures[0], batch_size=2,
+              max_seq_len=128, max_feats=10, is_generation_task=True, seed=1)
+    ours = build_dataset(DataConfig(**kw), MockTokenizer(32000), "val")
+    ref = jbuild_dataset(JDataConfig(**kw), JMockTokenizer(32000), "val")
+    a = Loader(ours, 2, shuffle=False, split="val", prefetch=0)
+    b = JLoader(ref, 2, shuffle=False, split="val", prefetch=0)
+    assert len(a) == len(b) == 2
+    for x, y in zip(a, b):
+        assert_batches_equal(x, y)
 
 
 @pytest.mark.parametrize("split", ["train", "val"])

@@ -7,6 +7,7 @@ predictions, for the dense scorer, the prefix-cached scorer and both eval
 steps.
 """
 import argparse
+import json
 import subprocess
 import sys
 
@@ -158,8 +159,28 @@ def test_evaluate_cli_cpu(synth_root):
     assert 0.0 <= stats["acc"] <= 1.0 and "Total" in stats
 
 
-@pytest.mark.parametrize("extra", [["--is_generation_task"],
-                                   ["--audio", "--audio_merge", "sum"]])
+def test_evaluate_cli_generation_runs(tmp_path):
+    """`cli.evaluate --is_generation_task` on MUSIC-AVQA fixtures: every val
+    row generated, scored by the string-prefix match, and written by qid
+    to the extracted-answers file."""
+    from flipped_tpu_torch.data import synthetic
+
+    root = str(tmp_path / "data")
+    synthetic.main(["--root", root, "--n", "12"])      # 3 val rows
+    out = str(tmp_path / "out")
+    stats = tevaluate.main(get_args_parser().parse_args(
+        ["--model", "tiny", "--dataset", "musicavqa", "--data_root", root,
+         "--batch_size", "2", "--max_seq_len", "128", "--device", "cpu",
+         "--is_generation_task", "--output_dir", out]))
+    assert stats["batches"] == 2 and 0.0 <= stats["acc"] <= 1.0
+    assert "counting" in stats
+    with open(f"{out}/extracted_answers/extracted_answers_epoch0.json") as f:
+        rows = json.load(f)
+    assert [r["qid"] for r in rows] == [0, 1, 2]
+    assert all(isinstance(r["generated_answer"], str) for r in rows)
+
+
+@pytest.mark.parametrize("extra", [["--audio", "--audio_merge", "sum"]])
 def test_evaluate_cli_refuses_unported(synth_root, extra):
     with pytest.raises(NotImplementedError):
         tevaluate.main(_args(synth_root, *extra))

@@ -228,10 +228,74 @@ def test_train_cli_runs_in_process(synth_root):
     ["--remat_policy", "qkv"],
     ["--audio", "--audio_only"], ["--audio", "--audio_merge", "concat"],
     ["--audio", "--audio_merge", "sum"],
-    ["--loader", "grain"], ["--is_generation_task"]])
+    ["--loader", "grain"]])
 def test_train_cli_refuses_unported(synth_root, extra):
     with pytest.raises(NotImplementedError):
         ttrain.main(_args(synth_root, *extra))
+
+
+@pytest.fixture(scope="module")
+def musicavqa_root(tmp_path_factory):
+    """The port's fixtures at --n 16: 4 MUSIC-AVQA val rows."""
+    from flipped_tpu_torch.data import synthetic
+
+    root = tmp_path_factory.mktemp("torch_train_musicavqa")
+    synthetic.main(["--root", str(root), "--n", "16"])
+    return str(root)
+
+
+def test_train_cli_generation_matches_jax(musicavqa_root, tmp_path,
+                                          monkeypatch):
+    """`cli.train --dataset musicavqa --is_generation_task` on the CPU
+    writes extracted_answers_epoch0.json with the qids and answers of JAX's
+    `cli.train` on the same fixture and seed, at f32. Both run --debug: one
+    update (at lr 0: the warm-up's first step), then one val batch of all 4
+    rows. JAX's `build_train_state` is wrapped to build its model and tree
+    at f32, the port's to take that tree (`params_from_flax`) into an f32
+    model."""
+    from flipped_tpu.cli import train as jtrain
+    from flipped_tpu.core.config import get_args_parser as jax_parser
+    from flipped_tpu.train import merge_params
+
+    argv = ["--model", "tiny", "--dataset", "musicavqa", "--data_root",
+            musicavqa_root, "--batch_size", "4", "--max_seq_len", "128",
+            "--epochs", "1", "--debug", "--is_generation_task"]
+    tree = {}
+    jbuild, tbuild = jtrain.build_train_state, ttrain.build_train_state
+
+    def jbuild_f32(run_cfg, *a, **kw):
+        model, cfg, tok, trainable, frozen = jbuild(run_cfg, *a, **kw)
+        model = model.clone(dtype=jnp.float32, frozen_dtype=jnp.float32,
+                            trainable_dtype=jnp.float32)
+        trainable, frozen = jax.tree_util.tree_map(
+            lambda x: x.astype(jnp.float32), (trainable, frozen))
+        tree["params"] = jax.device_get(merge_params(trainable, frozen))
+        return model, cfg, tok, trainable, frozen
+
+    def tbuild_f32(run_cfg, device, seed=0):
+        model, cfg, tok = tbuild(run_cfg, device, seed, dtype=torch.float32)
+        model.load_state_dict(params_from_flax(tree["params"]), strict=True)
+        return model, cfg, tok
+
+    monkeypatch.setattr(jtrain, "build_train_state", jbuild_f32)
+    monkeypatch.setattr(ttrain, "build_train_state", tbuild_f32)
+    outs = {"jax": str(tmp_path / "jax"), "port": str(tmp_path / "port")}
+    jtrain.main(jax_parser().parse_args(argv + ["--dp", "1", "--output_dir",
+                                                outs["jax"]]))
+    _, history = ttrain.main(get_args_parser().parse_args(
+        argv + ["--device", "cpu", "--output_dir", outs["port"]]))
+    assert history[0]["val_batches"] == 1 and "val_counting" in history[0]
+    answers = {}
+    for name, out in outs.items():
+        with open(f"{out}/extracted_answers/extracted_answers_epoch0.json") \
+                as f:
+            answers[name] = json.load(f)
+    assert [r["qid"] for r in answers["port"]] == [0, 1, 2, 3]
+    assert all(isinstance(r["generated_answer"], str)
+               for r in answers["port"])
+    assert answers["port"] == answers["jax"]
+    with open(f"{outs['port']}/log.txt") as f:
+        assert "val_counting" in json.loads(f.readline())
 
 
 def test_profile_tool_classes_and_refuses_cpu(synth_root):
@@ -249,3 +313,13 @@ def test_profile_tool_classes_and_refuses_cpu(synth_root):
     with pytest.raises(ValueError, match="cuda"):
         profile.main(["--mode", "train", "--model", "tiny", "--data_root",
                       synth_root, "--device", "cpu", "--output_dir", ""])
+
+
+def test_profile_generation_mode_refuses_cpu(musicavqa_root):
+    from flipped_tpu_torch.cli import profile
+
+    with pytest.raises(ValueError, match="cuda"):
+        profile.main(["--mode", "generation", "--model", "tiny",
+                      "--dataset", "musicavqa", "--is_generation_task",
+                      "--data_root", musicavqa_root, "--device", "cpu",
+                      "--output_dir", ""])
