@@ -120,11 +120,32 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               Each build's seconds and peak memory are printed; the shards
               are deleted at the end
  14. paths    every quant kernel against its plain version (as in 7) at
-              every (M, K, N) that phases 9-12 handed it (the decode steps'
-              M 32 included), on the first inputs each path gave at that
-              shape
-Each main path (9, 10, 11, 12, and each run of 13) runs with the launch counts
-set to 0 just before it and read just after. The last lines of stdout are the nvidia-smi line, a
+              every (M, K, N) that phases 9-13 and 15 handed it (the decode
+              steps' M 32 included), on the first inputs each path gave at
+              that shape
+ 15. audio    (run before 14) the audio merges and the rest of the trainer
+              through `cli.train.main` at 7B width: the fork's headline
+              recipe (--dataset musicavqa --is_generation_task --audio
+              --audio_merge attention, batch 32, S 128; 64 items: 2
+              updates, then the generated val batch), then sum, concat and
+              audio_only at none and attention at w8a8 on NExT-QA (batch 8,
+              --vaq --qav, 2 updates each): every loss finite, the video-
+              only update's launches (`per_update`; generation's
+              `gen_per_batch`), frozen weights unchanged, no trainable moved
+              by update 1, every one by update 2 (audio_proj, visual_proj
+              and the cross-attention among them) but the attention
+              merge's query and key biases, whose gradients over its one
+              audio key are exactly zero; the answers by qid; the
+              attention update timed without remat beside phase 9's;
+              --remat_policy full and qkv (2 updates each: 64 and 32 K1 an
+              update, metrics and update 2's gradients within GRAD_REL,
+              each timed with remat, peaks), qkv at w8a8, and qkv at S 4096
+              (32 K5, 32 K6a, 32 K6b an update); --loader grain
+              --num_workers 2 (metrics bit for bit the thread loader's);
+              --trace_dir over 4 updates (the Chrome trace's steps 1-3
+              hold K1's and K2's kernels, as many as the launch counts say)
+Each main path (9, 10, 11, 12, 15, and each run of 13) runs with the launch
+counts set to 0 just before it and read just after. The last lines of stdout are the nvidia-smi line, a
 JSON line of the kernels and the contract line {"ok": true, "device": ...}.
 """
 import contextlib
@@ -1780,13 +1801,15 @@ INT4_MODES = ("int4", "w4a8", "int4r", "w4a8r")
 PER_CHANNEL_W8A8 = ("w8a8", "w8a8r", "w8a8d", "w8a8rd")
 
 
-def per_update(quantize, blocks, streaming=False):
+def per_update(quantize, blocks, streaming=False, policy="full"):
     """Launches per training update with remat, from the code: each block's
     forward runs twice (the update's forward and its recompute in the
     backward, per block or per --remat_group) and its backward once. A
     block forward launches one attention forward — K1, or K5 in the
-    streaming regime (a differentiated call with S > MAX_SEQ_BWD = 2048) —
-    and has 9 quantized matmuls: wq, wk, wv, wo, w1, w3, w2 on the stacked
+    streaming regime (a differentiated call with S > MAX_SEQ_BWD = 2048),
+    which under --remat_policy qkv the recompute takes from the forward
+    instead of launching it again (model/llama.py) — and has 9 quantized
+    matmuls: wq, wk, wv, wo, w1, w3, w2 on the stacked
     rows and wk, wv on the adapter rows (model/llama.py) — each K3 under the
     per-channel w8a8 modes, whose backward launches K10 once each under
     w8a8d/w8a8rd; K7 under w8a8g/w8a8o, and K8 under the int4 modes, whose
@@ -1795,9 +1818,11 @@ def per_update(quantize, blocks, streaming=False):
     kernel), chunked or not. A block backward runs K2 once, or K6a and K6b
     once each in the streaming regime."""
     fwd = 2 * blocks
+    attn = blocks if policy == "qkv" else fwd
     grouped = quantize in ("w8a8g", "w8a8o")
-    return {"k1": 0 if streaming else fwd, "k2": 0 if streaming else blocks,
-            "k5": fwd if streaming else 0,
+    return {"k1": 0 if streaming else attn,
+            "k2": 0 if streaming else blocks,
+            "k5": attn if streaming else 0,
             "k6a": blocks if streaming else 0,
             "k6b": blocks if streaming else 0,
             "k3": 9 * fwd if quantize in PER_CHANNEL_W8A8 else 0,
@@ -1817,14 +1842,15 @@ def forward_kernel(quantize):
     return "k8" if quantize in INT4_MODES else "k7"
 
 
-def run_train_slice(torch, fa, qm, data_root, caught, quantize="none",
-                    debug=False, extra=(), long=False):
-    """The train CLI at --quantize `quantize` (--debug: one update and one
-    val batch; `extra` more flags; `long`: the long-context path, batch
-    LONG_B at S LONG_S, in the streaming regime) with its build, step and
-    val entry points wrapped to watch them: snapshots of the parameters,
-    every update's metrics and seconds, and the launch counts when the val
-    eval starts; the quant kernels' inputs go to `caught`."""
+def watch_train(torch, fa, qm, args, caught, grads_at=0):
+    """`cli.train.main(args)` with its build, step and val entry points
+    wrapped to watch them: snapshots of the trainables before the first
+    update and after each of the first two, the frozen weights at build,
+    every update's metrics and seconds, the trainables' gradients of
+    update `grads_at` (0: none), the launch counts when the val loop
+    starts and its seconds. Counts are zeroed just before main and read
+    just after; the quant kernels' inputs go to `caught`. → the watch
+    dict, with 'model', 'history', 'seconds', 'launches' and 'peak'."""
     from flipped_tpu_torch.cli import train as train_cli
 
     watch = {"metrics": [], "snaps": [], "secs": []}
@@ -1850,17 +1876,22 @@ def run_train_slice(torch, fa, qm, data_root, caught, quantize="none",
             watch["secs"].append(time.perf_counter() - t0)
             if len(watch["snaps"]) < 3:
                 watch["snaps"].append(trainables(watch["model"]))
+            if len(watch["metrics"]) == grads_at:
+                watch["grads"] = {
+                    n: p.grad.detach().clone()
+                    for n, p in watch["model"].named_parameters()
+                    if p.requires_grad}
             return m
         return watched
 
     def val(*a, **kw):
         watch["at_val"] = read_counts(fa, qm)
-        return orig[2](*a, **kw)
+        t0 = time.perf_counter()
+        out = orig[2](*a, **kw)
+        torch.cuda.synchronize()
+        watch["val_secs"] = time.perf_counter() - t0
+        return out
 
-    shape = dict(seq=LONG_S, batch=LONG_B) if long else {}
-    args = cli_args(data_root, "--vaq", "--qav", "--epochs", "1",
-                    "--output_dir", "", "--quantize", quantize, *extra,
-                    *(["--debug"] if debug else []), **shape)
     train_cli.build_train_state, train_cli.make_train_step, \
         train_cli.val_one_epoch = build, make_step, val
     try:
@@ -1868,13 +1899,62 @@ def run_train_slice(torch, fa, qm, data_root, caught, quantize="none",
         zero_counts(fa, qm)
         t0 = time.perf_counter()
         with catch_quant_inputs(caught):
-            model, history = train_cli.main(args)
+            watch["model"], watch["history"] = train_cli.main(args)
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = read_counts(fa, qm)
+        watch["seconds"] = time.perf_counter() - t0
+        watch["launches"] = read_counts(fa, qm)
+        watch["peak"] = torch.cuda.max_memory_allocated()
     finally:
         train_cli.build_train_state, train_cli.make_train_step, \
             train_cli.val_one_epoch = orig
+    return watch
+
+
+def check_trainables(torch, watch, still=()):
+    """Frozen weights bitwise unchanged; no trainable moved by update 1 (lr
+    0); every trainable but those of `still` moved by update 2, when there
+    was one (`still`: trainables whose gradient is zero by the model's
+    math, which must also stay). → (update 1's, update 2's trainables)."""
+    model = watch["model"]
+    frozen0 = watch.pop("frozen0")      # 12.6 GiB at 7B: free it here
+    for n, p in model.named_parameters():
+        if not p.requires_grad and not torch.equal(p, frozen0[n]):
+            raise AssertionError(f"frozen weight {n} changed")
+    del frozen0
+    init, *after = watch["snaps"]
+    moved1 = [n for n in init if not torch.equal(init[n], after[0][n])]
+    still2 = ([n for n in init if torch.equal(after[0][n], after[1][n])]
+              if len(after) > 1 else list(still))
+    if moved1 or sorted(still2) != sorted(still):
+        raise AssertionError(f"update 1 (lr 0) moved {moved1}; update 2 "
+                             f"left {still2} unchanged, want {list(still)}")
+    print(f"  frozen weights bitwise unchanged; update 1 moved none of the "
+          f"{len(init)} trainables"
+          + (f", update 2 moved all of them but {list(still)}"
+             if len(after) > 1 else ""), flush=True)
+    return init
+
+
+def print_updates(watch):
+    for i, (m, sec) in enumerate(zip(watch["metrics"], watch["secs"])):
+        print(f"  update {i + 1}: {sec:.4f} s, loss {m[0]:.6f} (vqa "
+              f"{m[1]:.6f}, vaq {m[2]:.6f}, qav {m[3]:.6f}), grad_norm "
+              f"{m[4]:.6g}, lr {m[5]:.6g}", flush=True)
+
+
+def run_train_slice(torch, fa, qm, data_root, caught, quantize="none",
+                    debug=False, extra=(), long=False):
+    """The train CLI at --quantize `quantize` (--debug: one update and one
+    val batch; `extra` more flags; `long`: the long-context path, batch
+    LONG_B at S LONG_S, in the streaming regime), watched by `watch_train`;
+    the quant kernels' inputs go to `caught`."""
+    shape = dict(seq=LONG_S, batch=LONG_B) if long else {}
+    args = cli_args(data_root, "--vaq", "--qav", "--epochs", "1",
+                    "--output_dir", "", "--quantize", quantize, *extra,
+                    *(["--debug"] if debug else []), **shape)
+    watch = watch_train(torch, fa, qm, args, caught)
+    model, history = watch["model"], watch["history"]
+    launches, seconds = watch["launches"], watch["seconds"]
     steps = len(watch["metrics"])
     epoch = watch["at_val"]
     print(f"train --quantize {quantize} {' '.join(extra)} (batch "
@@ -1882,11 +1962,8 @@ def run_train_slice(torch, fa, qm, data_root, caught, quantize="none",
           f"{seconds:.3f} s (7B init and val eval included), {steps} "
           f"updates, launches over the epoch {epoch}, over the whole run "
           f"{launches}; peak allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
-    for i, (m, sec) in enumerate(zip(watch["metrics"], watch["secs"])):
-        print(f"  update {i + 1}: {sec:.4f} s, loss {m[0]:.6f} (vqa "
-              f"{m[1]:.6f}, vaq {m[2]:.6f}, qav {m[3]:.6f}), grad_norm "
-              f"{m[4]:.6g}, lr {m[5]:.6g}", flush=True)
+          f"{watch['peak'] / 2**30:.3f} GiB", flush=True)
+    print_updates(watch)
     print(f"  history: {json.dumps(history)}", flush=True)
     want_steps = (1 if debug else N_LONG_ITEMS // LONG_B if long
                   else N_TRAIN_ITEMS // TRAIN_B)
@@ -1909,20 +1986,7 @@ def run_train_slice(torch, fa, qm, data_root, caught, quantize="none",
             or launches[fwd_kernel] <= epoch[fwd_kernel]):
         raise AssertionError("the val eval should launch the forward "
                              "kernels and no backward kernel")
-    for n, p in model.named_parameters():
-        if not p.requires_grad and not torch.equal(p, watch["frozen0"][n]):
-            raise AssertionError(f"frozen weight {n} changed")
-    init, *after = watch["snaps"]
-    moved1 = [n for n in init if not torch.equal(init[n], after[0][n])]
-    still2 = ([n for n in init if torch.equal(after[0][n], after[1][n])]
-              if len(after) > 1 else [])
-    if moved1 or still2:
-        raise AssertionError(f"update 1 (lr 0) moved {moved1}; update 2 "
-                             f"left {still2} unchanged")
-    print(f"  frozen weights bitwise unchanged; update 1 moved none of the "
-          f"{len(init)} trainables"
-          + (", update 2 moved all of them" if len(after) > 1 else ""),
-          flush=True)
+    check_trainables(torch, watch)
     del watch
     return model, args, launches
 
@@ -2693,6 +2757,245 @@ def check_checkpoints(torch, fa, qm, data_root):
         shutil.rmtree(out, ignore_errors=True)
 
 
+# Phase 15, audio and trainer. The fork's headline recipe
+# (scripts/params.txt "1 0 attention llama7B musicavqa", recipes.sh's
+# MUSIC-AVQA batch 32) on 64 items: 2 updates, then one generated val
+# batch of its 16 val rows. The other merges, the qkv remat policy and the
+# grain loader on 16 NExT-QA items (2 updates at batch 8, one val batch),
+# the trace on 32 (4 updates: steps 1 to 3 traced).
+N_AUDIO_GEN_ITEMS = 64
+N_PHASE15_ITEMS = 16
+N_TRACE_ITEMS = 32
+AUDIO_RUNS = (("sum", ("--audio", "--audio_merge", "sum")),
+              ("concat", ("--audio", "--audio_merge", "concat")),
+              ("audio_only", ("--audio", "--audio_only")))
+CROSS_ATTN = tuple(f"video_audio_cross_attn.{m}.{leaf}"
+                   for m in ("query", "key", "value")
+                   for leaf in ("weight", "bias"))
+# each merge's fusion trainables (model/llama.py): all of them train, the
+# audio ones included, which the fork's name filter left frozen
+FUSION = {"attention": ("audio_proj.weight", "visual_proj.weight")
+          + CROSS_ATTN,
+          "sum": ("audio_proj.weight", "visual_proj.weight"),
+          "concat": ("visual_proj.weight",),
+          "audio_only": ("audio_proj.weight",)}
+# The attention merge reads one audio clip embedding a video
+# (audio_imagebind_clip.pth): a softmax over one key is 1, so the
+# cross-attention's query and key get exactly zero gradients; their
+# kernels move by weight decay alone and their biases (no decay) stay.
+ATTENTION_STILL = ("video_audio_cross_attn.key.bias",
+                   "video_audio_cross_attn.query.bias")
+ATTENTION_ZERO_GRAD = ATTENTION_STILL + ("video_audio_cross_attn.key.weight",
+                                         "video_audio_cross_attn.query.weight")
+K1_KERNEL, K2_KERNELS = "flash_text_fwd_kernel", ("flash_text_dq_kernel",
+                                                  "flash_text_dkv_kernel")
+
+
+def run_phase15(torch, fa, qm, args, caught, label, n_updates, per,
+                merge=None, grads_at=0, gen=False):
+    """One watched `cli.train.main` run of phase 15: `n_updates` updates
+    with finite metrics, the launches per update `per` over the epoch (and
+    one generated batch's `gen_per_batch` after it under `gen`), the
+    merge's fusion trainables among the trainables, frozen weights
+    unchanged, no trainable moved by update 1 and every one moved by
+    update 2 but the attention merge's query and key biases, whose
+    gradients (with the query and key kernels') are exactly zero."""
+    watch = watch_train(torch, fa, qm, args, caught,
+                        grads_at=2 if merge == "attention" else grads_at)
+    steps, blocks = len(watch["metrics"]), len(watch["model"].layers)
+    epoch, launches = watch["at_val"], watch["launches"]
+    secs = watch["secs"]
+    snapshot = sum(p.numel() * p.element_size()
+                   for p in watch["frozen0"].values())
+    print(f"{label} (batch {args.batch_size}, S {args.max_seq_len}): main "
+          f"took {watch['seconds']:.3f} s (7B init and val included), "
+          f"{steps} updates at {', '.join(f'{x:.4f}' for x in secs)} s, "
+          f"val {watch['val_secs']:.3f} s, launches over the epoch {epoch}, "
+          f"over the run {launches}; peak allocated "
+          f"{watch['peak'] / 2**30:.3f} GiB, {snapshot / 2**30:.3f} of it "
+          f"this check's copy of the frozen weights", flush=True)
+    print_updates(watch)
+    if steps != n_updates:
+        raise AssertionError(f"expected {n_updates} updates, ran {steps}")
+    if not all(math.isfinite(x) for m in watch["metrics"] for x in m):
+        raise AssertionError("a training metric is not finite")
+    want = {k: v * steps for k, v in per.items()}
+    if epoch != want:
+        raise AssertionError(f"launches over the epoch {epoch}, want {want}")
+    if gen:
+        rest = {k: launches[k] - epoch[k] for k in launches}
+        want_gen = gen_per_batch(args.quantize, blocks)
+        if rest != want_gen:
+            raise AssertionError(f"generation launches {rest}, want "
+                                 f"{want_gen}")
+    names = set(watch["snaps"][0])
+    missing = [n for n in FUSION.get(merge, ()) if n not in names]
+    if missing:
+        raise AssertionError(f"{missing} are not trainable")
+    still = ATTENTION_STILL if merge == "attention" and steps > 1 else ()
+    if merge == "attention":
+        nonzero = [n for n in ATTENTION_ZERO_GRAD
+                   if bool(watch["grads"][n].any())]
+        if nonzero:
+            raise AssertionError(f"{nonzero}: gradients over one audio key "
+                                 f"should be zero")
+    check_trainables(torch, watch, still)
+    print(f"  launches per update {per}, as the video-only update's"
+          + (f"; fusion trainables {list(FUSION[merge])} moved"
+             + (f" but {list(still)} (zero gradients over one audio key)"
+                if still else "") if merge else ""), flush=True)
+    return watch
+
+
+def grads_rel(a, b):
+    """The largest relative Frobenius difference over the trainables'
+    gradients a and b."""
+    return max(float((a[n].double() - b[n].double()).norm()
+                     / b[n].double().norm().clamp_min(1e-30)) for n in b)
+
+
+def check_trace(path, blocks, steps):
+    """The Chrome trace of `--trace_dir`: spans `train step 1` ..
+    `train step {steps}`, and in them K1's kernel 2 x `blocks` times a step
+    and K2's two kernels `blocks` times each (one K2 call launches a dq and
+    a dk/dv kernel)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {e["name"]: (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in events if e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith("train step")}
+    want_spans = [f"train step {i}" for i in range(1, steps + 1)]
+    if sorted(spans) != want_spans:
+        raise AssertionError(f"trace spans {sorted(spans)}, want "
+                             f"{want_spans}")
+    lo = min(a for a, _ in spans.values())
+    hi = max(b for _, b in spans.values())
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {name: [e for e in kernels if name in e["name"]]
+             for name in (K1_KERNEL,) + K2_KERNELS}
+    want = {K1_KERNEL: 2 * blocks * steps,
+            **{k: blocks * steps for k in K2_KERNELS}}
+    counts = {k: len(v) for k, v in found.items()}
+    outside = sum(not lo <= float(e["ts"]) <= hi
+                  for v in found.values() for e in v)
+    print(f"  trace {os.path.basename(path)}: {os.path.getsize(path)} "
+          f"bytes, {len(kernels)} kernel events, spans "
+          f"{sorted(spans)}; {counts} (want {want}), {outside} of them "
+          f"outside the traced steps", flush=True)
+    if counts != want or outside:
+        raise AssertionError("the trace does not hold K1's and K2's "
+                             "kernels of the traced steps")
+
+
+def audio_and_trainer(torch, fa, qm, caught, video_step):
+    """Phase 15: the audio merges, --remat_policy qkv, --trace_dir and
+    --loader grain at 7B width through `cli.train.main`; `video_step` is
+    phase 9's (s, peak bytes) of a video-only update without remat."""
+    from flipped_tpu_torch.cli.train import trace_file
+
+    gen_root = os.path.join(WORK, "data_audio_gen")
+    write_gen_fixtures(gen_root, N_AUDIO_GEN_ITEMS)
+    root = os.path.join(WORK, "data_phase15")
+    write_fixtures(root, N_PHASE15_ITEMS)
+    none = per_update("none", 32)
+
+    out = os.path.join(WORK, "audio_gen_out")
+    shutil.rmtree(out, ignore_errors=True)
+    args = gen_args(gen_root, "none", out, "--audio", "--audio_merge",
+                    "attention", "--epochs", "1")
+    watch = run_phase15(torch, fa, qm, args, caught,
+                        "train --audio --audio_merge attention on the "
+                        "MUSIC-AVQA recipe, then generation", 2, none,
+                        merge="attention", gen=True)
+    rows = read_answers(out, N_AUDIO_GEN_ITEMS // 4)
+    print(f"  {len(rows)} val answers by qid; s per update "
+          f"{', '.join(f'{x:.4f}' for x in watch['secs'])}, s per "
+          f"generation batch {watch['val_secs']:.3f} (its first call), "
+          f"peak allocated {watch['peak'] / 2**30:.3f} GiB", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    step = time_train_step(torch, watch["model"], cli_args(
+        root, "--vaq", "--qav", "--audio", "--audio_merge", "attention"))
+    print(f"  the attention merge's update without remat {step[0]:.5f} s, "
+          f"peak {step[1] / 2**30:.3f} GiB; the video-only update's "
+          f"(phase 9) {video_step[0]:.5f} s, peak "
+          f"{video_step[1] / 2**30:.3f} GiB", flush=True)
+    del watch
+    torch.cuda.empty_cache()
+
+    base = ("--vaq", "--qav", "--epochs", "1", "--output_dir", "")
+    for merge, flags in AUDIO_RUNS + (("attention", ("--audio",
+                                                     "--audio_merge",
+                                                     "attention")),):
+        quantize = "w8a8" if merge == "attention" else "none"
+        run_phase15(torch, fa, qm, cli_args(root, *base, *flags,
+                                            "--quantize", quantize),
+                    caught, f"train {' '.join(flags)} --quantize "
+                    f"{quantize}", 2, per_update(quantize, 32), merge=merge)
+        torch.cuda.empty_cache()
+
+    runs, timed = {}, {}
+    for policy in ("full", "qkv"):
+        args = cli_args(root, *base, "--remat_policy", policy)
+        runs[policy] = run_phase15(
+            torch, fa, qm, args, caught, f"train --remat_policy {policy}",
+            2, per_update("none", 32, policy=policy), grads_at=2)
+        timed[policy] = time_train_step(torch, runs[policy].pop("model"),
+                                        args, n=3, remat=True)
+        torch.cuda.empty_cache()
+    rel = grads_rel(runs["qkv"]["grads"], runs["full"]["grads"])
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                   for ma, mb in zip(runs["qkv"]["metrics"],
+                                     runs["full"]["metrics"])
+                   for a, b in zip(ma[:5], mb[:5]))
+    print(f"  qkv against full: metrics within {loss_rel:.3g} relative "
+          f"(bit for bit: {runs['qkv']['metrics'] == runs['full']['metrics']}"
+          f"), update 2's gradients within {rel:.3g} (relative Frobenius, "
+          f"bound {GRAD_REL}); with remat full {timed['full'][0]:.5f} s, "
+          f"peak {timed['full'][1] / 2**30:.3f} GiB, qkv "
+          f"{timed['qkv'][0]:.5f} s, peak {timed['qkv'][1] / 2**30:.3f} "
+          f"GiB; K1 per update {per_update('none', 32)['k1']} and "
+          f"{per_update('none', 32, policy='qkv')['k1']}", flush=True)
+    if rel > GRAD_REL or loss_rel > GRAD_REL:
+        raise AssertionError("--remat_policy qkv disagrees with full")
+    run_phase15(torch, fa, qm, cli_args(root, *base, "--remat_policy", "qkv",
+                                        "--quantize", "w8a8", "--debug"),
+                caught, "train --remat_policy qkv --quantize w8a8, one "
+                "update", 1, per_update("w8a8", 32, policy="qkv"))
+    torch.cuda.empty_cache()
+    long_root = os.path.join(WORK, "data_long_qkv")
+    write_fixtures(long_root, N_LONG_ITEMS)
+    run_phase15(torch, fa, qm, cli_args(
+        long_root, *base, "--remat_policy", "qkv", "--lm_head_chunk",
+        LM_CHUNK, "--debug", seq=LONG_S, batch=LONG_B), caught,
+        "train --remat_policy qkv, long context, one update", 1,
+        per_update("none", 32, streaming=True, policy="qkv"))
+    torch.cuda.empty_cache()
+
+    grain = run_phase15(torch, fa, qm, cli_args(
+        root, *base, "--loader", "grain", "--num_workers", "2"), caught,
+        "train --loader grain --num_workers 2", 2, none)
+    same = grain["metrics"] == runs["full"]["metrics"]
+    print(f"  grain's metrics bit for bit the thread loader's: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("--loader grain changed the losses")
+    del grain, runs
+    torch.cuda.empty_cache()
+
+    trace_root = os.path.join(WORK, "data_trace")
+    write_fixtures(trace_root, N_TRACE_ITEMS)
+    trace_dir = os.path.join(WORK, "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    watch = run_phase15(torch, fa, qm, cli_args(
+        trace_root, *base, "--trace_dir", trace_dir), caught,
+        "train --trace_dir", N_TRACE_ITEMS // TRAIN_B, none)
+    check_trace(trace_file(trace_dir, 0), len(watch["model"].layers),
+                min(4, N_TRACE_ITEMS // TRAIN_B - 1))
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    del watch
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2771,13 +3074,14 @@ def main() -> int:
     write_fixtures(long_root, N_LONG_ITEMS)
 
     launches, caught = {}, {k: {} for k in QUANT_KERNELS}
+    step_times = {}
     for quantize, debug in TRAIN_RUNS:
         phase(f"train --quantize {quantize}"
               + (", one update" if debug else ""))
         model, args, launches[quantize] = run_train_slice(
             torch, fa, qm, data_root, caught, quantize, debug)
         if quantize in TIMED_STEPS:
-            time_train_step(torch, model, args)
+            step_times[quantize] = time_train_step(torch, model, args)
         del model
         torch.cuda.empty_cache()
 
@@ -2828,6 +3132,12 @@ def main() -> int:
              f"bf16, S {LONG_EVAL_S}")
     del model
     torch.cuda.empty_cache()
+
+    phase("audio and trainer: the audio merges, --remat_policy qkv, "
+          "--loader grain, --trace_dir")
+    t15 = time.perf_counter()
+    audio_and_trainer(torch, fa, qm, caught, step_times["none"])
+    print(f"phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
 
     phase("quant kernels vs plain at the main paths' shapes")
     matmul.allow_bf16_reduced_precision_reduction = False

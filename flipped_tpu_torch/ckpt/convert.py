@@ -21,9 +21,15 @@ every leaf, trainables included:
     output/kernel                     → output.weight                 (transposed)
     adapter_query, temporal_emb       → adapter_query.weight, temporal_emb.weight
     visual_proj/kernel                → visual_proj.weight            (transposed)
+    audio_proj/kernel                 → audio_proj.weight             (transposed)
+    video_audio_cross_attn/query/kernel
+                                      → video_audio_cross_attn.query.weight
+                                                                      (transposed)
+    video_audio_cross_attn/query/bias → video_audio_cross_attn.query.bias
+    (key and value alike)
 
 Flax kernels are (in, out) and torch Linear weights (out, in), so every
-`kernel` leaf transposes. Gates keep their (H,) shape.
+`kernel` leaf transposes; biases and gates keep their shapes.
 
 The quantized leaves of a frozen Linear (--quantize int8*/w8a8*) keep their
 Flax leaf names, and their dtypes end to end:

@@ -1,7 +1,8 @@
 """Adapter-only training checkpoints (JAX: flipped_tpu/ckpt/manager.py).
 
-Only the trainables (adapter, gates, temporal_emb, visual_proj: ~4.6M
-parameters at 7B) and the optimizer's state are written, never the frozen
+Only the trainables (adapter, gates, temporal_emb, visual_proj and, under
+an audio merge, audio_proj and video_audio_cross_attn: ~4.6M parameters at
+7B without audio) and the optimizer's state are written, never the frozen
 backbone, which a resumed or evaluated run loads from the base checkpoint
 again (reference: util/misc.py:297-336). Layout under `output_dir`:
 

@@ -15,7 +15,11 @@ is exactly the original one. In the port's layout, weights (out, in):
     w2               W' = Rᵀ W
     norm             γn → 1;  output: W' = W diag(γn) R
     temporal_emb     T' = T R
-    visual_proj      (out == dim) W' = Rᵀ W
+    visual_proj, audio_proj   (out == dim) W' = Rᵀ W: visual_proj of
+                     every merge (concat's 1792 inputs stay unrotated) and
+                     audio_proj of sum and audio_only; the attention
+                     merge's audio_proj (out = visual_dim) and its
+                     cross-attention read no residual and are not rotated
     adapter_query    a'_l = a_l diag(γa_l)⁻¹ R   (the adapters feed wk/wv
                      without a norm, so the folded γ is divided out)
     qav_rot          Rᵀ diag(γn) R, symmetric, restores γn in the QAV head
@@ -167,7 +171,8 @@ def fold_leaf(rot: Rotation, name: str, t: torch.Tensor,
         return rot.rotate(t, -1, gamma("norm.weight")).to(t.dtype)
     if name in ("tok_embeddings.weight", "temporal_emb.weight"):
         return rot.rotate(t, -1).to(t.dtype)
-    if name == "visual_proj.weight" and t.shape[0] == rot.dim:
+    if (name in ("visual_proj.weight", "audio_proj.weight")
+            and t.shape[0] == rot.dim):
         return rot.rotate(t, 0).to(t.dtype)
     if name == "adapter_query.weight":
         if adapter_layer <= 0:
@@ -208,8 +213,8 @@ def rotate_params(state: Dict[str, torch.Tensor], n_layers: int,
     """Fold a residual-stream rotation into an unquantized state_dict
     (JAX: rotate.py:157-299): a new dict with every norm weight at 1,
     `qav_rot` added and, where present, the trainables adapter_query,
-    temporal_emb and visual_proj rotated, so the rotated model computes
-    what the original did. A quantized leaf raises."""
+    temporal_emb, visual_proj and audio_proj (where it writes the residual)
+    rotated, so the rotated model computes what the original did. A quantized leaf raises."""
     for name in state:
         if name.endswith(("kernel_q", "kernel_q4")):
             raise ValueError(

@@ -24,7 +24,11 @@ NAME under `--output_dir` (ckpt/manager.py), and a name that is not there
 raises. --quantize runs every frozen-backbone mode. Long context runs as it
 is asked for: at --max_seq_len above 4096 the prefill (and the dense
 scorer) take K5 instead of K1, e.g. `--max_seq_len 8192 --batch_size 1`.
-Not ported yet, and raising rather than ignored: audio merges.
+The audio merges (`--audio --audio_merge sum|concat|attention`, `--audio
+--audio_only`) score and generate as they train. The val loop prints JAX's
+progress lines (`MetricLogger.log_every`); `--trace_dir` is accepted and
+ignored, as JAX's evaluate ignores it, and `--loader` too: the eval reads
+the val split in order with the thread loader.
 """
 from __future__ import annotations
 
@@ -52,7 +56,9 @@ _HOST_KEYS = ("answer", "qtype", "qid")
 
 
 def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """The numeric arrays of a packed eval batch as tensors on `device`."""
+    """The numeric arrays of a packed batch as tensors on `device`: those
+    it has ('video' is absent under --audio_only, 'audio' without
+    --audio)."""
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()
             if k not in _HOST_KEYS and isinstance(v, np.ndarray) and v.ndim}
 
@@ -94,7 +100,8 @@ def val_one_epoch(eval_step, loader, dataset_name: str, device,
     n_batches = 0
     extracted = []
     t0 = time.perf_counter()
-    for batch in loader:
+    for batch in logger.log_every(iter(loader), max(len(loader) // 4, 1),
+                                  f"Epoch: [{epoch}]"):
         valid = int(batch.get("valid", batch["answer"].shape[0]))
         answer = batch["answer"][:valid]
         qtype = batch["qtype"][:valid]
@@ -119,7 +126,8 @@ def val_one_epoch(eval_step, loader, dataset_name: str, device,
             break
     elapsed = time.perf_counter() - t0
     print(f"{'generated' if gen_step else 'scored'} {n_batches} batches in "
-          f"{elapsed:.3f} s  {logger}")
+          f"{elapsed:.3f} s")
+    print("Averaged stats:", logger)
     if gen_step is not None and output_dir:
         save_result(extracted, os.path.join(output_dir, "extracted_answers"),
                     f"extracted_answers_epoch{epoch}")

@@ -25,12 +25,17 @@ port's flash kernels K1/K2 and the streaming K5/K6, its int8 GEMMs K3/K7,
 its quantized dx K4, K8's two GEMMs, K9, K10's quantize pass and GEMM,
 other), and the top kernels by device time. The activation quantize
 pass that K7 and K8's w4a8 branch share counts in the K3/K7 class.
-`--quantize` builds the model it names, as the CLIs do.
+`--quantize` builds the model it names, as the CLIs do, and the audio
+flags (`--audio --audio_merge ...`, `--audio --audio_only`) the merge
+they name, its batch read from the data root's audio features as the
+CLIs read them. `--trace_dir DIR` also writes the profiled steps as a
+Chrome trace, `DIR/profile_{mode}.pt.trace.json`.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import time
 
@@ -159,11 +164,17 @@ def main(argv=None) -> dict:
             run()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            args.trace_dir, f"profile_{opts.mode}.pt.trace.json"))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     out = {"mode": opts.mode, "remat": model.remat,
            "remat_group": model.remat_group,
+           "remat_policy": model.remat_policy,
+           "audio_merge": model.cfg.audio_merge,
            "lm_head_chunk": run_cfg.train.lm_head_chunk,
            "max_seq_len": run_cfg.data.max_seq_len,
            "batch_size": run_cfg.data.batch_size,

@@ -36,13 +36,36 @@ the val loop as generation eval (cli/evaluate.py), the MUSIC-AVQA recipe:
 and writes each epoch's answers to
 `{output_dir}/extracted_answers/extracted_answers_epoch{N}.json`.
 
-Not ported yet, and raising rather than ignored: --loader grain, and the
-options that `check_train_ported` names.
+The audio merges run as in the fork's sweep (scripts/params.txt):
+`--audio --audio_merge sum|concat|attention` or `--audio --audio_only`,
+reading `audio_imagebind.pth` (the attention merge
+`audio_imagebind_clip.pth`) beside the video features, e.g. its headline
+recipe:
+
+    python -m flipped_tpu_torch.cli.train --model llama7B --dataset musicavqa \
+        --is_generation_task --audio --audio_merge attention \
+        --max_seq_len 128 --batch_size 32 --max_feats 10 ...
+
+`--remat_policy qkv` keeps each block's attention outputs through the
+recompute (model/llama.py), so the attention forward runs once per block
+an update. `--loader grain` packs the batches in `--num_workers` worker
+processes (data/pipeline.py `WorkerLoader`), the thread loader's batches
+in its order. Each epoch prints JAX's progress lines (`MetricLogger.
+log_every`: every quarter of the epoch, with the device memory on the
+card). `--trace_dir DIR` traces steps 1 to min(4, len - 1) of the first
+epoch run, as JAX does (cli/train.py:100-122; JAX compares with
+--start_epoch, so under --resume it traces nothing; the port traces the
+first epoch it runs), with `torch.profiler` (CPU activity, and CUDA on
+the card), each step a `train step N` span, into
+`DIR/train_epoch{N}.pt.trace.json` (Chrome trace format). A one-step
+epoch (--debug) writes no trace, as in JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import sys
 import time
 from typing import Dict
@@ -58,34 +81,74 @@ from ..train.builder import build_train_state
 from ..train.optim import make_optimizer
 from ..train.step import make_train_step
 from ..utils.logging import write_log_line
-from ..utils.metrics import MetricLogger
+from ..utils.metrics import MetricLogger, SmoothedValue
 from .evaluate import batch_to_device, make_val_steps, val_one_epoch
 
 
+def trace_file(trace_dir: str, epoch: int) -> str:
+    return os.path.join(trace_dir, f"train_epoch{epoch}.pt.trace.json")
+
+
 def train_one_epoch(train_step, loader, epoch: int, device,
-                    debug: bool = False) -> Dict[str, float]:
-    """One pass over the train loader, one update per batch; averaged
-    metrics plus 'steps' (JAX: cli/train.py:92-131). A non-finite loss
-    stops the run with exit code 1 (reference: engine.py:33-35)."""
+                    debug: bool = False,
+                    trace_dir: str = "") -> Dict[str, float]:
+    """One pass over the train loader, one update per batch, JAX's progress
+    lines every quarter of the epoch; → averaged metrics plus 'steps' (JAX:
+    cli/train.py:92-131). With a `trace_dir`, steps 1 to min(4, len - 1)
+    are traced (`trace_file`). A non-finite loss stops the run with exit
+    code 1 (reference: engine.py:33-35)."""
     logger = MetricLogger()
+    logger.add_meter("lr", SmoothedValue(window_size=1, fmt="{value:.6f}"))
+    print_freq = max(len(loader) // 4, 1)
     loader.set_epoch(epoch)
+    trace_stop_it = min(4, max(len(loader) - 1, 1))
+    prof = None
     n_steps = 0
-    t0 = time.perf_counter()
-    for batch in loader:
-        m = train_step(batch_to_device(batch, device))
-        loss = float(m.loss)
-        if not math.isfinite(loss):
-            print(f"Loss is {loss}, stopping training")
-            sys.exit(1)
-        logger.update(loss=loss, vqa_loss=float(m.vqa_loss),
-                      vaq_loss=float(m.vaq_loss), qav_loss=float(m.qav_loss),
-                      grad_norm=float(m.grad_norm), lr=m.lr)
-        n_steps += 1
-        if debug:
-            break
-    print(f"Epoch [{epoch}] {n_steps} steps in "
-          f"{time.perf_counter() - t0:.3f} s  Averaged stats: {logger}")
+    try:
+        for it, batch in enumerate(logger.log_every(
+                iter(loader), print_freq, f"Epoch: [{epoch}]")):
+            if trace_dir and it == 1:
+                # skip step 0 (first calls: kernel loads, allocator warm-up)
+                prof = torch.profiler.profile(activities=_activities(device))
+                prof.start()
+            with (torch.profiler.record_function(f"train step {it}")
+                  if prof is not None else contextlib.nullcontext()):
+                m = train_step(batch_to_device(batch, device))
+                loss = float(m.loss)
+            if prof is not None and it >= trace_stop_it:
+                _stop_trace(prof, trace_dir, epoch)
+                prof = None
+            if not math.isfinite(loss):
+                print(f"Loss is {loss}, stopping training")
+                sys.exit(1)
+            logger.update(loss=loss, vqa_loss=float(m.vqa_loss),
+                          vaq_loss=float(m.vaq_loss),
+                          qav_loss=float(m.qav_loss),
+                          grad_norm=float(m.grad_norm))
+            logger.update(lr=m.lr)
+            n_steps += 1
+            if debug:
+                break
+    finally:
+        if prof is not None:
+            _stop_trace(prof, trace_dir, epoch)
+    print("Averaged stats:", logger)
     return {**logger.averages(), "steps": n_steps}
+
+
+def _activities(device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
+def _stop_trace(prof, trace_dir: str, epoch: int) -> None:
+    prof.stop()
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(trace_file(trace_dir, epoch))
+    print(f"wrote the trace of epoch {epoch} to "
+          f"{trace_file(trace_dir, epoch)}")
 
 
 def main(args):
@@ -102,9 +165,10 @@ def main(args):
                                               seed=run_cfg.train.seed)
     loader_train = load_data(run_cfg.data, tokenizer, "train",
                              accum_iter=run_cfg.train.accum_iter,
-                             backend=args.loader)
+                             backend=args.loader,
+                             num_workers=args.num_workers)
     loader_val = load_data(run_cfg.data, tokenizer, "val",
-                           backend=args.loader)
+                           backend=args.loader, num_workers=args.num_workers)
 
     # examples per optimizer update (reference eff_bs, train.py:104-107)
     world_batch = run_cfg.data.batch_size * run_cfg.train.accum_iter
@@ -138,8 +202,9 @@ def main(args):
     history = []
     t_start = time.time()
     for epoch in range(start_epoch, run_cfg.train.epochs):
-        train_stats = train_one_epoch(train_step, loader_train, epoch, device,
-                                      debug=run_cfg.debug)
+        train_stats = train_one_epoch(
+            train_step, loader_train, epoch, device, debug=run_cfg.debug,
+            trace_dir=args.trace_dir if epoch == start_epoch else "")
         val_stats = val_one_epoch(eval_step, loader_val, run_cfg.data.dataset,
                                   device, debug=run_cfg.debug,
                                   gen_step=gen_step, tokenizer=tokenizer,

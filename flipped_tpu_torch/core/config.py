@@ -2,11 +2,12 @@
 flipped_tpu/core/config.py).
 
 The dataclasses and flags keep the JAX package's names and defaults, so a
-reference run script translates one to one. What the port does not run yet
-is still parsed, and refused by `check_train_ported` with the ROADMAP item
-it waits for; `quant_flags` decodes a --quantize mode as
-the JAX package does. The mesh flags (--dp/--tp/--sp/--pp) are not
-parsed: the port runs in one process on one card.
+reference run script translates one to one. Every training option runs on
+one card: the audio merges, both remat policies, --trace_dir and both
+loaders. The mesh flags (--dp/--tp/--sp/--pp) are parsed, and a mesh axis
+above 1 is refused by `check_jax_only_flags` naming ROADMAP [9]: the port
+runs in one process on one card. `quant_flags` decodes a --quantize mode
+as the JAX package does.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ class ModelConfig:
     adapter_layer: int = 32
     max_feats: int = 10
     visual_dim: int = 768
+    audio_dim: int = 1024
     bias: float = 3.0
     tau: float = 100.0
     rope_theta: float = 10000.0
@@ -179,14 +181,17 @@ class TrainConfig:
         return self.blr * world_batch / 256.0
 
 
+# 'full' recomputes whole blocks in the backward; 'qkv' keeps the
+# attention's outputs (model/llama.py `FlippedVQAModel`)
+REMAT_POLICIES = ("full", "qkv")
+
+
 def check_train_ported(train: "TrainConfig") -> None:
-    """Refuse the training options the port does not run yet, naming the
-    ROADMAP item each waits for."""
+    """Refuse a training configuration the port cannot run: an unknown
+    --quantize mode or remat policy."""
     check_quantize(train.quantize)
-    if train.remat_policy != "full":
-        raise NotImplementedError(
-            f"--remat_policy {train.remat_policy}: not ported yet (ROADMAP "
-            f"Queue 1, rest of training: the qkv remat policy)")
+    if train.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown --remat_policy {train.remat_policy!r}")
 
 
 @dataclass
@@ -205,22 +210,17 @@ MESH_FLAGS = ("dp", "tp", "sp", "pp")
 
 
 def check_jax_only_flags(args: argparse.Namespace) -> None:
-    """Refuse what the JAX parser's mesh and tracing flags ask for beyond
-    one card, naming the ROADMAP item each waits for. A mesh axis of 1 (or
-    dp -1, all devices) is the single card; --pp_microbatches and
-    --num_workers (Grain's worker count; --loader grain raises) are
-    accepted and unused."""
+    """Refuse what the JAX parser's mesh flags ask for beyond one card,
+    naming ROADMAP [9]. A mesh axis of 1 (or dp -1, all devices) is the
+    single card; --pp_microbatches is accepted and unused. --num_workers is
+    the worker count of `--loader grain` (data/pipeline.py) and --trace_dir
+    the train CLI's profiler trace."""
     for name in MESH_FLAGS:
         size = getattr(args, name)
         if size > 1:
             raise NotImplementedError(
                 f"--{name} {size}: multi-card meshes are not ported yet "
                 f"(ROADMAP [9], parallelism)")
-    if args.trace_dir:
-        raise NotImplementedError(
-            "--trace_dir: the training trace is not ported yet (ROADMAP "
-            "[6], the rest of training and of the CLI); cli/profile.py "
-            "traces a step with torch.profiler")
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -268,7 +268,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--trace_dir", default="")
     p.add_argument("--loader", default="thread", choices=["thread", "grain"])
-    p.add_argument("--remat_policy", default="full", choices=["full", "qkv"])
+    p.add_argument("--remat_policy", default="full",
+                   choices=list(REMAT_POLICIES))
     p.add_argument("--remat_group", type=int, default=1)
     p.add_argument("--quantize", default="none", choices=QUANTIZE_CHOICES)
     p.add_argument("--lm_head_chunk", type=int, default=0)

@@ -3,9 +3,10 @@
 The port's own copy of flipped_tpu/data/pipeline.py, kept here so that
 flipped_tpu_torch imports nothing of the JAX package. It differs in three
 places: the process index and count come from the caller (a single process
-is index 0 of 1; JAX read them from `jax.process_index()`), the Grain
-backend is not copied (`--loader grain` raises), and `pinned_eval_span`
-pins nothing in a single process.
+is index 0 of 1; JAX read them from `jax.process_index()`), `--loader
+grain` is `WorkerLoader` (below: Grain is not on the card's image, so its
+own shuffle order is not reproduced), and `pinned_eval_span` pins nothing
+in a single process.
 
 Replacement of the reference's DataLoader + DistributedSampler
 (reference: dataloader/__init__.py:19-24): each process reads its own
@@ -21,6 +22,7 @@ import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 from .batching import (add_accum_axis, mask_tail_rows, pack_eval_batch,
                        pack_train_batch)
@@ -73,26 +75,39 @@ class Loader:
             return n // group
         return (n + group - 1) // group
 
-    def _batches(self) -> Iterator[Dict[str, np.ndarray]]:
+    def _plan(self):
+        """[(dataset indices, valid rows)] of every batch of this epoch, in
+        order; a tail shorter than the group is padded by wrap-around
+        (tiled: the shard may be smaller than the deficit)."""
         idx = self._indices()
         group = self.batch_size * self.accum_iter
-        n_batches = len(self)
-        for b in range(n_batches):
+        plan = []
+        for b in range(len(self)):
             sel = idx[b * group:(b + 1) * group]
             valid = len(sel)
-            if valid < group:  # pad tail by wrap-around (tiled: the shard
-                sel = np.concatenate(  # may be smaller than the deficit)
-                    [sel, np.resize(idx, group - valid)])
-            items = [self.dataset.get_item(int(i)) for i in sel]
-            if self.split == "train":
-                batch = pack_train_batch(items, self.max_feats)
-                if valid < group:
-                    mask_tail_rows(batch, valid)
-                batch = add_accum_axis(batch, self.accum_iter)
-            else:
-                batch = pack_eval_batch(items, self.max_feats)
-            batch["valid"] = np.asarray(valid, np.int32)
-            yield batch
+            if valid < group:
+                sel = np.concatenate([sel, np.resize(idx, group - valid)])
+            plan.append((sel, valid))
+        return plan
+
+    def _pack(self, sel: np.ndarray, valid: int) -> Dict[str, np.ndarray]:
+        """The fixed-shape numpy batch of the dataset rows `sel`, the rows
+        from `valid` on masked out of the loss (train) or sliced off by
+        `valid` (eval)."""
+        items = [self.dataset.get_item(int(i)) for i in sel]
+        if self.split == "train":
+            batch = pack_train_batch(items, self.max_feats)
+            if valid < len(sel):
+                mask_tail_rows(batch, valid)
+            batch = add_accum_axis(batch, self.accum_iter)
+        else:
+            batch = pack_eval_batch(items, self.max_feats)
+        batch["valid"] = np.asarray(valid, np.int32)
+        return batch
+
+    def _batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        for sel, valid in self._plan():
+            yield self._pack(sel, valid)
 
     def __iter__(self):
         if self.prefetch <= 0:
@@ -136,6 +151,64 @@ class Loader:
                 yield b
         finally:
             stop.set()  # release the worker when the consumer goes away
+
+
+class _PlannedBatches(torch.utils.data.Dataset):
+    """Batch b of one epoch's plan, packed by the loader: what a worker
+    process of `WorkerLoader` runs."""
+
+    def __init__(self, loader: "Loader", plan):
+        self.loader = loader
+        self.plan = plan
+
+    def __len__(self):
+        return len(self.plan)
+
+    def __getitem__(self, b: int) -> Dict[str, np.ndarray]:
+        return self.loader._pack(*self.plan[b])
+
+
+def _as_packed(batch):
+    """The DataLoader's collate: the worker's numpy batch as it is."""
+    return batch
+
+
+class WorkerLoader(Loader):
+    """`--loader grain`: `Loader`'s batches, in `Loader`'s order, packed by
+    a pool of `num_workers` worker processes (a `torch.utils.data.
+    DataLoader` over the epoch's plan, one batch an item), the reference's
+    own mechanism (dataloader/__init__.py:23). JAX's `GrainLoader`
+    (flipped_tpu/data/pipeline.py:135-211) packs with Grain's workers in
+    Grain's shuffle order; Grain is not on the card's image, so this loader
+    keeps `Loader`'s order instead, and so the thread loader's batches
+    exactly. Its contract is GrainLoader's: every example once an epoch,
+    the tail padded to the fixed shapes with `valid`, and the same number
+    of batches for every process. `num_workers` 0 packs in the main
+    process.
+
+    The workers start by fork: they inherit the dataset (its feature
+    stores already in memory) without pickling it, and fork is safe after
+    the parent has made a CUDA context because a worker touches no CUDA:
+    it tokenizes and packs numpy arrays, which it returns as they are (no
+    tensor conversion, no pinned memory). New workers start each epoch."""
+
+    def __init__(self, dataset: VideoQADataset, batch_size: int,
+                 num_workers: int = 2, **kw):
+        super().__init__(dataset, batch_size, **kw)
+        self.num_workers = num_workers
+
+    def __iter__(self):
+        if self.num_workers <= 0:
+            yield from self._batches()
+            return
+        import multiprocessing
+
+        yield from torch.utils.data.DataLoader(
+            _PlannedBatches(self, self._plan()), batch_size=None,
+            shuffle=False, num_workers=self.num_workers,
+            collate_fn=_as_packed,
+            multiprocessing_context=multiprocessing.get_context("fork"),
+            prefetch_factor=self.prefetch or None)
 
 
 def dataset_eval_span(dataset: VideoQADataset) -> tuple:
@@ -191,16 +264,19 @@ def pinned_eval_span(dataset, max_seq_len: int, process_count: int = 1):
 
 def load_data(cfg, tokenizer, split: str = "train", accum_iter: int = 1,
               process_index: int = 0, process_count: int = 1,
-              backend: str = "thread"):
-    """(reference: dataloader/__init__.py:15-26)"""
+              backend: str = "thread", num_workers: int = 0):
+    """(reference: dataloader/__init__.py:15-26) `backend` is --loader:
+    'thread' the prefetching `Loader`, 'grain' the `WorkerLoader` of
+    `num_workers` processes."""
     from .datasets import build_dataset
 
-    if backend != "thread":
-        raise NotImplementedError(
-            f"--loader {backend}: only the thread loader is ported (the Grain "
-            f"backend of flipped_tpu/data/pipeline.py is not copied)")
+    if backend not in ("thread", "grain"):
+        raise ValueError(f"unknown --loader {backend!r}")
     dataset = build_dataset(cfg, tokenizer, split)
-    return Loader(dataset, cfg.batch_size,
-                  accum_iter=accum_iter if split == "train" else 1,
-                  shuffle=split == "train", seed=cfg.seed, split=split,
-                  process_index=process_index, process_count=process_count)
+    kw = dict(accum_iter=accum_iter if split == "train" else 1,
+              shuffle=split == "train", seed=cfg.seed, split=split,
+              process_index=process_index, process_count=process_count)
+    if backend == "grain":
+        return WorkerLoader(dataset, cfg.batch_size, num_workers=num_workers,
+                            **kw)
+    return Loader(dataset, cfg.batch_size, **kw)

@@ -3,11 +3,14 @@ artifacts.
 
 The port's own writer of what `scripts/make_synthetic_data.py` writes for
 NExT-QA (train/val CSVs) and MUSIC-AVQA (`avqa-{train,val}.json`), each
-with its `clipvitl14.pth` feature dict, from the port's own vocabulary
+with its `clipvitl14.pth` video features and its ImageBind-shaped audio
+features (`audio_imagebind.pth`, (10, 1024) a video, which the sum, concat
+and audio-only merges read, and `audio_imagebind_clip.pth`, (1, 1024),
+which the attention merge reads), from the port's own vocabulary
 (`data.batching._WORDS`), so runs and tests of the port need nothing of
-the JAX package. Audio is not ported, so the audio feature files are not
-written. `main` draws NExT-QA, then MUSIC-AVQA, from one RandomState, in
-the script's order, so the files equal the script's:
+the JAX package. `main` draws NExT-QA, then MUSIC-AVQA, from one
+RandomState, in the script's order, and the feature files from their own
+seeds, so the files equal the script's:
 
     python -m flipped_tpu_torch.data.synthetic --root ./data --n 32
 """
@@ -31,6 +34,20 @@ def _features(path, vids, n_frames=16, dim=768, seed=0):
                 for v in vids}, path)
 
 
+def _audio(path, vids, n=10, dim=1024, seed=1):
+    rs = np.random.RandomState(seed)
+    torch.save({v: torch.tensor(rs.randn(n, dim).astype(np.float32))
+                for v in vids}, path)
+
+
+def _media(d, vids):
+    """The video features and both audio feature files of `vids` under d
+    (the script's draws: `_features` seed 0, `_audio` seed 1)."""
+    _features(os.path.join(d, "clipvitl14.pth"), vids)
+    _audio(os.path.join(d, "audio_imagebind.pth"), vids)
+    _audio(os.path.join(d, "audio_imagebind_clip.pth"), vids, n=1)
+
+
 def make_nextqa(root, n, rs: np.random.RandomState):
     """`n` train rows over `n` videos and max(n // 4, 2) val rows under
     root/nextqa, drawn from `rs` (the same draws, in the same order, as the
@@ -46,14 +63,13 @@ def make_nextqa(root, n, rs: np.random.RandomState):
                         f"do,{opts}")
         with open(os.path.join(d, f"{split}.csv"), "w") as f:
             f.write("\n".join(rows))
-    vids = [f"vid{i}" for i in range(n)]
-    _features(os.path.join(d, "clipvitl14.pth"), vids)
+    _media(d, [f"vid{i}" for i in range(n)])
 
 
 def make_musicavqa(root, n, rs: np.random.RandomState):
     """`n` train rows over `n` videos and max(n // 4, 2) val rows under
     root/musicavqa, drawn from `rs` as the script's `make_musicavqa` draws
-    them (its audio feature files left out)."""
+    them."""
     d = os.path.join(root, "musicavqa")
     os.makedirs(d, exist_ok=True)
     types = [["Audio", "Counting"], ["Visual", "Temporal"],
@@ -67,8 +83,7 @@ def make_musicavqa(root, n, rs: np.random.RandomState):
                 for i in range(count)]
         with open(os.path.join(d, f"avqa-{split}.json"), "w") as f:
             json.dump(data, f)
-    _features(os.path.join(d, "clipvitl14.pth"),
-              [f"mv{i}" for i in range(n)])
+    _media(d, [f"mv{i}" for i in range(n)])
 
 
 def main(argv=None):

@@ -552,6 +552,45 @@ def flash_streaming_bwd(q, k, v, gate2, video_start, max_feats: int, g,
 
 # --- the two-segment attention under autograd -------------------------------
 
+class _KeptAttention:
+    """The (text, lse) of each attention call in one checkpointed unit's
+    forward, in call order; the unit's recompute takes them back instead
+    of launching the forward kernel again."""
+
+    def __init__(self):
+        self.kept = []
+        self.replaying = False
+
+
+# the unit whose forward or recompute is running (`keep_attention`); a
+# module global, not a thread-local: autograd runs a CUDA recompute on its
+# own thread, and a unit's forward and its recompute never overlap
+_KEPT = None
+
+
+def keep_attention(fn):
+    """`fn` (one block, or a --remat_group of blocks) as a checkpoint unit
+    under the qkv remat policy: its first call (the forward) keeps each
+    attention call's text output and lse, its second (the recompute in
+    the backward, `torch.utils.checkpoint`) hands them back, so K1 (K5 in
+    the streaming regime) runs once per block per update instead of
+    twice. The recompute's values are the forward's bit for bit, so the
+    gradients are the 'full' policy's. The forward kernel launches through
+    ctypes, which a dispatch-level selective-checkpoint policy cannot see:
+    hence this stash in `FlashAdapterAttention.forward`."""
+    unit = _KeptAttention()
+
+    def run(*args):
+        global _KEPT
+        prev, _KEPT = _KEPT, unit
+        try:
+            return fn(*args)
+        finally:
+            _KEPT = prev
+            unit.replaying = True
+    return run
+
+
 class FlashAdapterAttention(torch.autograd.Function):
     """Two-segment attention, segment B through the flash kernels, the
     adapter segment in plain torch (JAX `_flash_adapter_attention`,
@@ -565,8 +604,14 @@ class FlashAdapterAttention(torch.autograd.Function):
         b, s, h, dh = q.shape
         g2 = gate2.float()
         vs = video_start.to(torch.int32)
-        fwd = flash_streaming_fwd if streaming else flash_text_attention
-        text, lse = fwd(q, k, v, g2, vs, max_feats)
+        unit = _KEPT
+        if unit is not None and unit.replaying:
+            text, lse = unit.kept.pop(0)
+        else:
+            fwd = flash_streaming_fwd if streaming else flash_text_attention
+            text, lse = fwd(q, k, v, g2, vs, max_feats)
+            if unit is not None:
+                unit.kept.append((text, lse))
         out = text + adapter_prefix_attention(q, adapter_k, adapter_v, gate1)
         ctx.save_for_backward(q, k, v, adapter_k, adapter_v, gate1, g2, vs,
                               text, lse)

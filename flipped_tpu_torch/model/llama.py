@@ -19,17 +19,40 @@ rotated modes' `qav_rot`; see `Linear` and `FlippedVQAModel`).
 Only the last `adapter_layer` blocks exist and run, as in the reference
 (`layers[-adapter_layer:]`, JAX: llama.py:610-619); `layers` is a ModuleDict
 keyed by the absolute layer index, so names stay `layers.N.*`.
-Audio merges are not ported: `audio_merge` other than None raises.
+
+`audio_merge` (None, 'audio_only', 'sum', 'concat', 'attention') picks the
+audio fusion of `fuse` and its trainables (JAX: llama.py:426-444, 545-587):
+`audio_proj`, `visual_proj` on the joint features, and the attention
+merge's `video_audio_cross_attn` (query, key, value with biases). The
+fusion is a few small products in plain torch, as JAX leaves it to XLA.
 
 Every parameter is created with requires_grad=False; `train.optim.
 trainable_parameters` turns it on for the trainables, so a backward takes
 only dx through the frozen backbone. `remat=True` recomputes each block in
-the backward (`torch.utils.checkpoint`, the JAX "full" remat policy,
-llama.py:637-660); with `remat_group` > 1 one checkpoint covers that many
-consecutive blocks, so only the group boundaries' h is saved (llama.py:
-461-468, 641-675).
+the backward (`torch.utils.checkpoint`, llama.py:637-660); with
+`remat_group` > 1 one checkpoint covers that many consecutive blocks, so
+only the group boundaries' h is saved (llama.py:461-468, 641-675).
+`remat_policy` is JAX's (llama.py:451-456, 634-639):
+
+- 'full': a unit saves only its input h; its backward recomputes every
+  block of it, attention forward included (K1 twice per block per update:
+  64 at 7B; K5 above MAX_SEQ_BWD).
+- 'qkv': a unit also keeps each block's attention forward outputs, the
+  text segment's output and its row lse (`kernels.flash_attention.
+  keep_attention`), which are what K2 (or K6a/K6b) reads; the recompute
+  takes them back and launches no attention forward (K1 once per block
+  per update: 32 at 7B). It still recomputes the norms, the q/k/v, wo and
+  FFN products, rope and the adapter rows' k/v. JAX saves the rope'd q,
+  k, v and the attention output instead (`checkpoint_name`, :234-236,
+  273) and lets XLA drop the q/k/v products from the recompute; its
+  backward kernel recomputes the lse from q and k. The port saves one
+  (B, S, dim) tensor and a (B, H, S) f32 lse a block where JAX saves
+  four (B, S, dim) tensors. Under --no_flash the einsum attention is
+  recomputed as under 'full'.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,7 +65,7 @@ from .attention import (adapter_gated_attention, chunk_extend_attention,
 from .int4 import int4_matmul, int4_matmul_grouped
 from .int8 import (int8_matmul, int8_matmul_dgrad, int8_matmul_grouped,
                    outlier_count)
-from .kernels.flash_attention import flash_adapter_attention
+from .kernels.flash_attention import flash_adapter_attention, keep_attention
 from .kernels.quant_matmul import dequant
 from .layers import apply_rope, apply_rope_at, precompute_rope, rms_norm
 
@@ -136,6 +159,41 @@ class Linear(nn.Module):
         else:
             out = F.linear(x, dequant(self.kernel_q, self.scale, self.dtype))
         return out if passthrough is None else out + passthrough
+
+
+class Dense(nn.Module):
+    """Linear with bias in f32, named as nn.Linear (`weight` (out, in),
+    `bias`): Flax's `nn.Dense` at dtype f32 (JAX: llama.py:435-437)."""
+
+    def __init__(self, in_features: int, out_features: int, param_dtype,
+                 device=None):
+        super().__init__()
+        self.weight = _empty((out_features, in_features), param_dtype, device)
+        self.bias = _empty((out_features,), param_dtype, device)
+
+    def forward(self, x):
+        return F.linear(x.float(), self.weight.float(), self.bias.float())
+
+
+class CrossAttentionModule(nn.Module):
+    """Video queries over audio keys and values, one head, in f32, for the
+    'attention' merge (JAX: llama.py:426-444; reference: model.py:145-169):
+    softmax(q kᵀ / √feature_dim) v over the audio axis."""
+
+    def __init__(self, feature_dim: int, param_dtype, device=None):
+        super().__init__()
+        self.feature_dim = feature_dim
+        self.query = Dense(feature_dim, feature_dim, param_dtype, device)
+        self.key = Dense(feature_dim, feature_dim, param_dtype, device)
+        self.value = Dense(feature_dim, feature_dim, param_dtype, device)
+
+    def forward(self, video, audio):
+        q, k, v = self.query(video), self.key(audio), self.value(audio)
+        # by an f32 tensor, as JAX divides: CUDA may turn a division by a
+        # Python scalar into a product with its reciprocal
+        scores = (torch.einsum("bfd,bad->bfa", q, k)
+                  / torch.sqrt(torch.tensor(float(self.feature_dim))))
+        return torch.einsum("bfa,bad->bfd", torch.softmax(scores, dim=-1), v)
 
 
 class Embedding(nn.Module):
@@ -309,26 +367,29 @@ class TransformerBlock(nn.Module):
         return h + self.feed_forward(self.ffn_norm(h))
 
 
+AUDIO_MERGES = (None, "audio_only", "sum", "concat", "attention")
+
+
 class FlippedVQAModel(nn.Module):
-    """The adapter-gated LLaMA, video-only merge (JAX: llama.py:447-769)."""
+    """The adapter-gated LLaMA with its audio merges (JAX: llama.py:
+    447-769)."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
                  frozen_dtype=torch.bfloat16, trainable_dtype=torch.float32,
                  device=None, remat: bool = False, remat_group: int = 1,
-                 quantized: bool = False,
+                 remat_policy: str = "full", quantized: bool = False,
                  act_quant: bool = False, quant_group: int = 0,
                  quant_outliers: bool = False, weight_bits: int = 8,
                  rotated: bool = False, dgrad_quant: bool = False,
                  use_flash: bool = True):
         super().__init__()
-        if cfg.audio_merge is not None:
-            raise NotImplementedError(
-                f"audio_merge={cfg.audio_merge!r}: audio merges are not "
-                f"ported yet")
+        if cfg.audio_merge not in AUDIO_MERGES:
+            raise ValueError(f"unknown audio_merge {cfg.audio_merge!r}")
         self.cfg = cfg
         self.dtype = dtype
         self.remat = remat
         self.remat_group = remat_group
+        self.remat_policy = remat_policy
         quant = dict(quantized=quantized, act_quant=act_quant,
                      quant_group=quant_group, quant_outliers=quant_outliers,
                      weight_bits=weight_bits, dgrad_quant=dgrad_quant)
@@ -358,8 +419,20 @@ class FlippedVQAModel(nn.Module):
                                        cfg.dim, trainable_dtype, device)
         self.temporal_emb = Embedding(cfg.max_feats, cfg.dim, trainable_dtype,
                                       device)
-        self.visual_proj = Linear(cfg.visual_dim, cfg.dim, dtype,
-                                  trainable_dtype, device)
+        # the merge's projections (JAX: llama.py:545-563)
+        merge = cfg.audio_merge
+        proj = lambda n_in: Linear(n_in, cfg.dim, dtype, trainable_dtype,
+                                   device)
+        if merge in ("audio_only", "sum"):
+            self.audio_proj = proj(cfg.audio_dim)
+        if merge == "attention":
+            self.audio_proj = Linear(cfg.audio_dim, cfg.visual_dim, dtype,
+                                     trainable_dtype, device)
+            self.video_audio_cross_attn = CrossAttentionModule(
+                cfg.visual_dim, trainable_dtype, device)
+        if merge != "audio_only":
+            self.visual_proj = proj(cfg.visual_dim + cfg.audio_dim
+                                    if merge == "concat" else cfg.visual_dim)
 
     @property
     def device(self):
@@ -376,9 +449,26 @@ class FlippedVQAModel(nn.Module):
         return precompute_rope(self.cfg.head_dim, end, self.cfg.rope_theta,
                                device=self.device)
 
-    def fuse(self, video: torch.Tensor) -> torch.Tensor:
-        """Project video features into model space → (B, F, dim); stored f32,
-        computed in the compute dtype (JAX: llama.py:567-585)."""
+    def fuse(self, video: Optional[torch.Tensor],
+             audio: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Project video and audio features into model space → (B, F, dim)
+        (JAX: llama.py:567-587): the projections in the compute dtype, the
+        attention merge's cross-attention in f32. `video` is None under
+        'audio_only' (the batch has no video), `audio` None without a
+        merge."""
+        merge = self.cfg.audio_merge
+        if merge == "audio_only":
+            return self.audio_proj(audio.to(self.dtype))
+        if merge == "concat":
+            return self.visual_proj(
+                torch.cat([video, audio], dim=-1).to(self.dtype))
+        if merge == "sum":
+            return (self.audio_proj(audio.to(self.dtype))
+                    + self.visual_proj(video.to(self.dtype)))
+        if merge == "attention":
+            a = self.audio_proj(audio.to(self.dtype))
+            fused = self.video_audio_cross_attn(video, a)
+            return self.visual_proj(fused.to(self.dtype))
         return self.visual_proj(video.to(self.dtype))
 
     def add_temporal(self, video_feature: torch.Tensor) -> torch.Tensor:
@@ -403,19 +493,21 @@ class FlippedVQAModel(nn.Module):
         h = self._embed_and_splice(tokens, video_feature, splice_index)
         rope_cos, rope_sin = self._rope(tokens.shape[1])
         remat = self.remat and torch.is_grad_enabled()
+        # the remat unit: under 'qkv' it keeps its attention outputs
+        unit = keep_attention if self.remat_policy == "qkv" else (lambda f: f)
         if remat and self.remat_group > 1:
             # one checkpoint over `remat_group` blocks: only group-boundary
             # h is saved; each block still recomputes exactly once
             n = len(self.layers)
             for start in range(0, n, self.remat_group):
-                h = checkpoint(self._run_block_range, h, rope_cos, rope_sin,
-                               video_start, start,
+                h = checkpoint(unit(self._run_block_range), h, rope_cos,
+                               rope_sin, video_start, start,
                                min(start + self.remat_group, n),
                                use_reentrant=False)
             return self.norm(h)
         for block, adapter in self._active_blocks():
             if remat:
-                h = checkpoint(block, h, rope_cos, rope_sin, adapter,
+                h = checkpoint(unit(block), h, rope_cos, rope_sin, adapter,
                                video_start, use_reentrant=False)
             else:
                 h = block(h, rope_cos, rope_sin, adapter, video_start)
@@ -487,8 +579,8 @@ class FlippedVQAModel(nn.Module):
                              cache_k[i], cache_v[i], pos)
         return self.output(self.norm(h))[:, 0], cache_k, cache_v
 
-    def forward(self, tokens, video, video_start, splice_index):
-        """fuse → encode → (lm logits, qav logits)."""
-        vf = self.fuse(video)
+    def forward(self, tokens, video, audio, video_start, splice_index):
+        """fuse → encode → (lm logits, qav logits) (JAX: llama.py:765-769)."""
+        vf = self.fuse(video, audio)
         h = self.encode(tokens, vf, video_start, splice_index)
         return self.lm_logits(h), self.qav_logits(h, vf)

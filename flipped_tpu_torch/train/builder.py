@@ -95,13 +95,27 @@ def build_model(run_cfg: RunConfig, device, dtype=torch.bfloat16):
     return model, cfg
 
 
+def lecun_normal_(p: torch.Tensor, g: torch.Generator) -> None:
+    """Flax's `nn.Dense` default kernel init, `lecun_normal`: a normal of
+    variance 1/fan_in truncated at two standard deviations (variance_scaling
+    "truncated_normal": the std divided by 0.8796..., the std of N(0, 1)
+    cut at ±2), by the inverse CDF as torch's `trunc_normal_` draws it, from
+    `g`. `p` is (out, in)."""
+    std = math.sqrt(1.0 / p.shape[1]) / 0.87962566103423978
+    cdf = lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
+    p.uniform_(2 * cdf(-2.0) - 1, 2 * cdf(2.0) - 1, generator=g)
+    p.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
+
+
 @torch.no_grad()
 def init_params(model: FlippedVQAModel, seed: int = 0) -> None:
     """Fill every parameter in place, as the Flax initialisers do
-    (JAX: llama.py:44-47, 507-543): U(±1/√fan_in) for Linear weights,
-    N(0, 1) for the embedding tables (tokens, adapter_query, temporal_emb),
-    ones for the norms, zeros for gate1 and -bias for gate2, the identity
-    for qav_rot; the quantized leaves by `randomize_quantized` (JAX:
+    (JAX: llama.py:44-47, 426-444, 507-563): U(±1/√fan_in) for Linear
+    weights (audio_proj and visual_proj included), lecun-normal for the
+    cross-attention's Dense kernels and zeros for their biases, N(0, 1) for
+    the embedding tables (tokens, adapter_query, temporal_emb), ones for
+    the norms, zeros for gate1 and -bias for gate2, the identity for
+    qav_rot; the quantized leaves by `randomize_quantized` (JAX:
     builder.py:191-196). The generator lives on the parameters' device, so
     a 7B init never leaves the card."""
     g = torch.Generator(device=model.device).manual_seed(seed)
@@ -120,6 +134,10 @@ def init_params(model: FlippedVQAModel, seed: int = 0) -> None:
         elif name.split(".")[0] in ("tok_embeddings", "adapter_query",
                                     "temporal_emb"):
             p.normal_(0.0, 1.0, generator=g)
+        elif leaf == "bias":
+            p.zero_()
+        elif name.startswith("video_audio_cross_attn."):
+            lecun_normal_(p, g)
         elif leaf == "weight" and p.dim() == 2:
             bound = 1.0 / math.sqrt(p.shape[1])
             p.uniform_(-bound, bound, generator=g)
@@ -255,10 +273,12 @@ def build_train_state(run_cfg: RunConfig, device, seed: int = 0,
                       dtype=torch.bfloat16):
     """→ (model, cfg, tokenizer) for training: parameters initialised,
     trainables requires_grad, blocks rematerialised unless --no_remat, in
-    groups of --remat_group (JAX: builder.py:113-209). Refuses the training
-    options the port does not run yet."""
+    groups of --remat_group, under --remat_policy (JAX: builder.py:113-209).
+    The audio trainables, which no Meta shard holds, keep their init, as
+    visual_proj does."""
     check_train_ported(run_cfg.train)
     model, cfg, tokenizer = build_eval_state(run_cfg, device, seed, dtype)
     model.remat = run_cfg.train.remat
     model.remat_group = run_cfg.train.remat_group
+    model.remat_policy = run_cfg.train.remat_policy
     return model, cfg, tokenizer

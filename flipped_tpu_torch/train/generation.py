@@ -79,7 +79,7 @@ def make_generation_step(model, eos_id: int,
         video_start = batch["vqa_video_start"]
         tokens = all_tokens[:, 0]                        # option 0 (model.py:385)
         b, s = tokens.shape
-        vf = model.fuse(batch["video"])
+        vf = model.fuse(batch.get("video"), batch.get("audio"))
         h, cache_k, cache_v = model.prefill(tokens, vf, video_start,
                                             batch["vqa_splice"],
                                             s + max_new_tokens + 1)

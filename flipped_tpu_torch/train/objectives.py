@@ -96,10 +96,11 @@ def lm_ce_rowwise_chunked(model, h: torch.Tensor, labels: torch.Tensor,
 def fused_forward(model, batch: Dict[str, torch.Tensor], vaq: bool,
                   qav: bool):
     """fuse + one stacked encode → ({objective: h (B, S, D)}, vf (B, F, D))
-    (JAX: objectives.py:109-131). Training batch keys: video (B, F, Dv) and,
+    (JAX: objectives.py:109-131). Training batch keys: video (B, F, Dv)
+    (absent under --audio_only) and audio (B, Fa, Da) (under --audio) and,
     per objective k, {k}_tokens/{k}_labels (B, S), {k}_video_start (B,),
     {k}_splice (B, F)."""
-    vf = model.fuse(batch["video"])
+    vf = model.fuse(batch.get("video"), batch.get("audio"))
     b = batch["vqa_tokens"].shape[0]
     keys = ["vqa"] + (["vaq"] if vaq else []) + (["qav"] if qav else [])
     tokens = torch.cat([batch[f"{k}_tokens"] for k in keys])
@@ -151,7 +152,7 @@ def option_scores(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     tokens = batch["vqa_tokens"]          # (B, n_opt, S)
     labels = batch["vqa_labels"]
     b, n_opt, s = tokens.shape
-    vf = model.fuse(batch["video"])
+    vf = model.fuse(batch.get("video"), batch.get("audio"))
     vf_rep = vf.repeat_interleave(n_opt, dim=0)
     vstart = batch["vqa_video_start"].repeat_interleave(n_opt, dim=0)
     splice = batch["vqa_splice"].repeat_interleave(n_opt, dim=0)
@@ -175,7 +176,7 @@ def option_scores_cached(model, batch: Dict[str, torch.Tensor],
     b, n_opt, s = tokens.shape
     dev = tokens.device
 
-    vf = model.fuse(batch["video"])
+    vf = model.fuse(batch.get("video"), batch.get("audio"))
     h, ck, cv = model.prefill(tokens[:, 0], vf, batch["vqa_video_start"],
                               batch["vqa_splice"], s)
 

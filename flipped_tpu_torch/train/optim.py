@@ -2,11 +2,14 @@
 (JAX: flipped_tpu/train/optim.py).
 
 - Trainables by parameter name: gates, adapter, temporal_emb, visual_proj
-  (and the audio modules, not ported yet) train in f32; the rest stays
-  frozen with requires_grad=False (reference: llama_vqa.py:71-77).
+  and the audio merges' audio_proj and video_audio_cross_attn train in
+  f32; the rest stays frozen with requires_grad=False (reference:
+  llama_vqa.py:71-77, whose name filter left the audio modules frozen at
+  their init, the fork's bug that JAX optim.py:6-7 fixes).
 - AdamW betas (0.9, 0.95), eps 1e-8, in two groups: timm-style no decay on
-  1-D parameters, except the gates, which DO decay (the reference stores
-  them 4-D; JAX optim.py:121-139).
+  1-D parameters (the cross-attention's biases among them), except the
+  gates, which DO decay (the reference stores them 4-D; JAX
+  optim.py:121-139).
 - The lr is set before each update from `lr_schedule(count)`, count being
   the number of updates before this one, so the first update has lr 0
   (reference: util/lr_sched.py:9-21). Optional global-norm clipping is

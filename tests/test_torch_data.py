@@ -27,6 +27,7 @@ from flipped_tpu_torch.data import (Loader, build_dataset, dataset_eval_span,
                                     load_data, make_synthetic_items,
                                     pack_eval_batch, pack_train_batch,
                                     pinned_eval_span)
+from flipped_tpu_torch.data.pipeline import WorkerLoader
 from flipped_tpu_torch.data.synthetic import make_musicavqa, make_nextqa
 from flipped_tpu_torch.text import MockTokenizer, load_tokenizer
 from flipped_tpu_torch.utils.metrics import MetricLogger, log_qtype
@@ -79,32 +80,63 @@ def fixtures(tmp_path_factory):
     return str(ours), str(ref)
 
 
+FEATURE_FILES = ("clipvitl14.pth", "audio_imagebind.pth",
+                 "audio_imagebind_clip.pth")
+
+
+def assert_feature_files_equal(ours, ref, dataset):
+    """The video and both audio feature dicts equal the script's, tensor
+    for tensor: (16, 768), (10, 1024) and (1, 1024) a video."""
+    for name, shape in zip(FEATURE_FILES, ((16, 768), (10, 1024),
+                                           (1, 1024))):
+        fa = torch.load(os.path.join(ours, dataset, name))
+        fb = torch.load(os.path.join(ref, dataset, name))
+        assert sorted(fa) == sorted(fb), name
+        assert all(torch.equal(fa[k], fb[k]) and fa[k].shape == shape
+                   for k in fa), name
+
+
 def test_fixture_writer_matches_script(fixtures):
     ours, ref = fixtures
     for name in ("train.csv", "val.csv"):
         with open(os.path.join(ours, "nextqa", name)) as a, \
                 open(os.path.join(ref, "nextqa", name)) as b:
             assert a.read() == b.read(), name
-    fa = torch.load(os.path.join(ours, "nextqa", "clipvitl14.pth"))
-    fb = torch.load(os.path.join(ref, "nextqa", "clipvitl14.pth"))
-    assert sorted(fa) == sorted(fb)
-    assert all(torch.equal(fa[k], fb[k]) for k in fa)
+    assert_feature_files_equal(ours, ref, "nextqa")
 
 
 def test_musicavqa_fixture_writer_matches_script(fixtures):
-    """The JSON files and the feature dict equal the script's; the script's
-    audio feature files are not written (audio is not ported)."""
+    """The JSON files, the video features and both audio feature files
+    equal the script's, and nothing else is written."""
     ours, ref = fixtures
     for name in ("avqa-train.json", "avqa-val.json"):
         with open(os.path.join(ours, "musicavqa", name)) as a, \
                 open(os.path.join(ref, "musicavqa", name)) as b:
             assert a.read() == b.read(), name
-    fa = torch.load(os.path.join(ours, "musicavqa", "clipvitl14.pth"))
-    fb = torch.load(os.path.join(ref, "musicavqa", "clipvitl14.pth"))
-    assert sorted(fa) == sorted(fb)
-    assert all(torch.equal(fa[k], fb[k]) for k in fa)
-    assert sorted(os.listdir(os.path.join(ours, "musicavqa"))) == [
-        "avqa-train.json", "avqa-val.json", "clipvitl14.pth"]
+    assert_feature_files_equal(ours, ref, "musicavqa")
+    assert sorted(os.listdir(os.path.join(ours, "musicavqa"))) == sorted(
+        ("avqa-train.json", "avqa-val.json") + FEATURE_FILES)
+
+
+@pytest.mark.parametrize("split", ["train", "val"])
+@pytest.mark.parametrize("merge", ["sum", "attention"])
+def test_audio_batches_equal_jax(fixtures, merge, split):
+    """With --audio, the port's reader and loader pack the audio store of
+    the merge (the (10, 1024) features under sum, the (1, 1024) clip
+    embedding under attention) as JAX's do, array for array."""
+    kw = dict(dataset="nextqa", data_root=fixtures[0], batch_size=3,
+              max_seq_len=128, max_feats=10, seed=1, audio=True,
+              audio_merge=merge)
+    ours = build_dataset(DataConfig(**kw), MockTokenizer(32000), split)
+    ref = jbuild_dataset(JDataConfig(**kw), JMockTokenizer(32000), split)
+    shuffle = split == "train"
+    a = Loader(ours, 3, shuffle=shuffle, seed=1, split=split, prefetch=0)
+    b = JLoader(ref, 3, shuffle=shuffle, seed=1, split=split, prefetch=0)
+    assert len(a) == len(b)
+    n_audio = 1 if merge == "attention" else 10
+    for x, y in zip(a, b):
+        assert x["audio"].shape[-2:] == (n_audio, 1024)
+        assert_batches_equal(x, y)
 
 
 def test_musicavqa_generation_batches_equal_jax(fixtures):
@@ -144,13 +176,18 @@ def test_dataset_and_loader_equal_jax(fixtures, split):
 
 
 def test_load_data_single_process_and_refusals(fixtures):
+    """One process; `--loader grain` is the worker-pool loader, an unknown
+    backend raises."""
     cfg = DataConfig(dataset="nextqa", data_root=fixtures[0], batch_size=3)
     loader = load_data(cfg, MockTokenizer(32000), "train", accum_iter=2)
     assert (loader.process_index, loader.process_count) == (0, 1)
     assert loader.accum_iter == 2 and loader.shuffle
     assert pinned_eval_span(loader.dataset, 128) is None
-    with pytest.raises(NotImplementedError, match="grain"):
-        load_data(cfg, MockTokenizer(32000), "train", backend="grain")
+    grain = load_data(cfg, MockTokenizer(32000), "train", backend="grain",
+                      num_workers=2)
+    assert isinstance(grain, WorkerLoader) and grain.num_workers == 2
+    with pytest.raises(ValueError, match="loader"):
+        load_data(cfg, MockTokenizer(32000), "train", backend="tf.data")
 
 
 def test_spm_tokenizer_copy_encodes_like_jax(tmp_path):

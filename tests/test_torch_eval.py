@@ -8,6 +8,7 @@ steps.
 """
 import argparse
 import json
+import os
 import subprocess
 import sys
 
@@ -180,7 +181,15 @@ def test_evaluate_cli_generation_runs(tmp_path):
     assert all(isinstance(r["generated_answer"], str) for r in rows)
 
 
-@pytest.mark.parametrize("extra", [["--audio", "--audio_merge", "sum"]])
-def test_evaluate_cli_refuses_unported(synth_root, extra):
-    with pytest.raises(NotImplementedError):
-        tevaluate.main(_args(synth_root, *extra))
+@pytest.mark.parametrize("extra", [
+    ["--audio", "--audio_merge", "sum"], ["--audio", "--audio_only"],
+    ["--trace_dir", "unused_trace_dir"]])
+def test_evaluate_cli_runs_audio_and_trace_dir(synth_root, extra, tmp_path,
+                                               monkeypatch):
+    """The evaluate CLI scores under an audio merge; --trace_dir is
+    accepted and ignored, as JAX's evaluate ignores it (nothing is
+    written)."""
+    monkeypatch.chdir(tmp_path)
+    stats = tevaluate.main(_args(synth_root, *extra))
+    assert stats["batches"] >= 1 and 0.0 <= stats["acc"] <= 1.0
+    assert not os.path.exists(tmp_path / "unused_trace_dir")

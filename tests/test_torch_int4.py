@@ -438,8 +438,9 @@ def test_forward_matches_jax(interpret, float_case, mode):
         lambda m, i, o, name=name: tcalls.append((name, i[0].numpy())))
         for name, mod in tmodel.named_modules() if isinstance(mod, Linear)]
     with torch.no_grad():
-        tlm, tqav = tmodel(*(torch.tensor(d[k])
-                             for k in ("tokens", "video", "vs", "splice")))
+        tokens, video, vs, splice = (torch.tensor(d[k]) for k in
+                                     ("tokens", "video", "vs", "splice"))
+        tlm, tqav = tmodel(tokens, video, None, vs, splice)
     for h in hooks:
         h.remove()
     assert len(tcalls) == len(jcalls)

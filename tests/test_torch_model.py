@@ -125,7 +125,7 @@ def test_lm_and_qav_logits(pair):
                            jnp.array(d["video"]), None, *_j(d, "vs", "splice"))
     with torch.no_grad():
         tlm, tqav = tmodel(torch.tensor(d["tokens"]), torch.tensor(d["video"]),
-                           *_t(d, "vs", "splice"))
+                           None, *_t(d, "vs", "splice"))
     _close(tlm, lm)
     _close(tqav, qav)
 
@@ -172,6 +172,37 @@ def test_init_params_follows_flax_initialisers():
     assert "gate" in TRAINABLE_MARKERS
 
 
-def test_audio_merge_not_ported():
-    with pytest.raises(NotImplementedError):
-        FlippedVQAModel(ModelConfig(**CFGS["all_layers"], audio_merge="sum"))
+@pytest.mark.parametrize("merge,shapes", [
+    (None, {"visual_proj.weight": (32, 768)}),
+    ("audio_only", {"audio_proj.weight": (32, 1024)}),
+    ("sum", {"audio_proj.weight": (32, 1024),
+             "visual_proj.weight": (32, 768)}),
+    ("concat", {"visual_proj.weight": (32, 1792)}),
+    ("attention", {"audio_proj.weight": (768, 1024),
+                   "visual_proj.weight": (32, 768),
+                   **{f"video_audio_cross_attn.{m}.{leaf}": shape
+                      for m in ("query", "key", "value")
+                      for leaf, shape in (("weight", (768, 768)),
+                                          ("bias", (768,)))}})])
+def test_model_builds_every_audio_merge(merge, shapes):
+    """Each merge's fusion trainables, named and shaped as the reference
+    state_dict's (JAX llama.py:545-563), f32 under the dtype policy; the
+    cross-attention's biases start at zero, its kernels lecun-normal."""
+    # the reference's widths: CLIP 768, ImageBind 1024
+    cfg = ModelConfig(**{**CFGS["all_layers"], "visual_dim": 768},
+                      audio_merge=merge)
+    model = FlippedVQAModel(cfg)
+    init_params(model, seed=0)
+    check_dtype_policy(model, torch.bfloat16)
+    fusion = {n: tuple(p.shape) for n, p in model.named_parameters()
+              if "audio" in n or "visual_proj" in n}
+    assert fusion == shapes
+    sd = model.state_dict()
+    for name in fusion:
+        assert is_trainable(name) and sd[name].dtype == torch.float32, name
+        if name.endswith("bias"):
+            assert torch.all(sd[name] == 0), name
+        elif name.startswith("video_audio_cross_attn"):
+            std = 1 / np.sqrt(768)
+            assert sd[name].abs().max() <= 2 * std / 0.8796 + 1e-6
+            assert 0.8 * std < float(sd[name].std()) < 1.2 * std, name

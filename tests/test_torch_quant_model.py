@@ -208,8 +208,9 @@ def test_forward_matches_jax(float_case, mode):
         for name, mod in tmodel.named_modules() if type(mod).__name__
         == "Linear"]
     with torch.no_grad():
-        tlm, tqav = tmodel(*(torch.tensor(d[k])
-                             for k in ("tokens", "video", "vs", "splice")))
+        tokens, video, vs, splice = (torch.tensor(d[k]) for k in
+                                     ("tokens", "video", "vs", "splice"))
+        tlm, tqav = tmodel(tokens, video, None, vs, splice)
     for h in hooks:
         h.remove()
     assert len(tcalls) == len(jcalls)

@@ -224,14 +224,22 @@ def test_train_cli_runs_in_process(synth_root):
     assert history[0]["train_steps"] == 1
 
 
-@pytest.mark.parametrize("extra", [
-    ["--remat_policy", "qkv"],
-    ["--audio", "--audio_only"], ["--audio", "--audio_merge", "concat"],
-    ["--audio", "--audio_merge", "sum"],
-    ["--loader", "grain"]])
-def test_train_cli_refuses_unported(synth_root, extra):
-    with pytest.raises(NotImplementedError):
-        ttrain.main(_args(synth_root, *extra))
+@pytest.mark.parametrize("extra,merge", [
+    (["--remat_policy", "qkv"], None),
+    (["--audio", "--audio_only"], "audio_only"),
+    (["--audio", "--audio_merge", "concat"], "concat"),
+    (["--audio", "--audio_merge", "sum"], "sum"),
+    (["--audio", "--audio_merge", "attention"], "attention"),
+    (["--loader", "grain", "--num_workers", "2"], None)])
+def test_train_cli_runs_audio_qkv_and_grain(synth_root, extra, merge):
+    """The options the port used to refuse run end to end: one update with
+    finite losses and one val batch, the model built with the merge."""
+    model, history = ttrain.main(_args(synth_root, *extra))
+    assert model.cfg.audio_merge == merge
+    assert model.remat_policy == ("qkv" if "qkv" in extra else "full")
+    assert history[0]["train_steps"] == 1 and history[0]["val_batches"] == 1
+    assert all(np.isfinite(history[0][f"train_{k}"])
+               for k in ("vqa_loss", "grad_norm"))
 
 
 @pytest.fixture(scope="module")
