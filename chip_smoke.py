@@ -2,6 +2,9 @@
 """Drive flipped_tpu_torch on one CUDA card, end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --p16-runs abcd  # phase 16 (some of its runs)
+    python3 chip_smoke.py --p16-faults     # phase 16, then run (b) on
+                                           # copies with planted faults
 
 Phases; any failure prints its traceback and exits 1 without a result line:
   1. device   torch and CUDA versions, the card's name and power limit;
@@ -15,9 +18,11 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               and key tiles (S 1 to 255), on strided q/k/v views (slices
               of one (B, S, 3, H, Dh) tensor), and lse against float64;
               at S 2049 and 4096 (the forward-only regime up to
-              MAX_SEQ_FWD) within K5's bound (K1_LONG_CASES)
+              MAX_SEQ_FWD) within K5's bound (K1_LONG_CASES); at 16 heads,
+              phase 16's eval prefill under --tp 2
   4. K2       flash_text_bwd against its plain version in bf16 at the unit
-              shapes, the training shape and S 650, within the bound stated
+              shapes, the training shape, S 650 and one dp rank's training
+              encode at --dp 2 --tp 2 (16 heads), within the bound stated
               at K2_CASES; dgate2 against a float64 sum
   5. grads    the autograd.Function (K1 forward, K2 backward) against
               autograd through the plain formulation, all seven grads, at
@@ -29,9 +34,12 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               S 4096 case also as four q shards at q_offset 0, 1024, 2048,
               3072 against its full K/V: out, lse and dq bit for bit the
               full run's rows, dk, dv and dgate2 partials summed against
-              the full backward; then the streaming regime of the
-              autograd.Function (K5 forward, K6a + K6b backward) at S 2304,
-              its seven grads against plain autograd
+              the full backward; phase 16's sequence-parallel shards
+              (SP_SHAPES: S_q 2048 at q_offset 2048 against S_k 4096, and
+              S_q 64 at q_offset 0 and 64 against S_k 128 at 16 heads);
+              then the streaming regime of the autograd.Function (K5
+              forward, K6a + K6b backward) at S 2304, its seven grads
+              against plain autograd
   7. quant    K3 int8_fwd, K7 int8_grouped_fwd, K8 int4_fwd's w4a8 branch
               and K10 int8_dgrad bitwise against their plain versions, K4
               quant_dx, K8's weight-only branch and K9 int4_dx within the
@@ -56,7 +64,9 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               on the dequantized weight. K5, K6a and K6b at the long
               training shape (B 3, S 4096), against SDPA's forward (K5) and
               its backward alone on a saved forward (K6a + K6b), with SDPA
-              without the mask as an aside
+              without the mask as an aside; K1 and K2 at 16 heads, and K5,
+              K6a and K6b at the shards of SP_SHAPES against SDPA on the
+              same shard (`shard_bounds`)
   9. train    `flipped_tpu_torch.cli.train.main` at LLaMA-7B width (dim
               4096, 32 layers, random frozen weights from a seed), --vaq
               --qav, batch 8, S 128, one epoch over 64 synthetic NExT-QA
@@ -144,9 +154,35 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               --num_workers 2 (metrics bit for bit the thread loader's);
               --trace_dir over 4 updates (the Chrome trace's steps 1-3
               hold K1's and K2's kernels, as many as the launch counts say)
+ 16. parallel (run last) data, sequence and tensor parallelism through
+              `cli.train.main` on ranks that are processes of this script
+              (`--p16-rank`), sharing the card over gloo
+              (`init_distributed_mode(share_device=True)`), each run held
+              against the single-rank run of the same command in this
+              process: (a) --sp 2 on 2 ranks at LLaMA-7B, all 32 blocks,
+              batch 1, S 4096, --lm_head_chunk 512, remat full, 2 updates
+              and 2 val examples whose questions are lengthened so that
+              the answer's labels and the options' rows fall in sp rank
+              1's half (`write_long_fixtures`); (b) --dp 2 --sp 2 --tp 2
+              and (c) --quantize w8a8d --dp 4 --tp 2 on 8 ranks at 7B
+              width with the depth cut to 8 of 32 blocks (--adapter_layer
+              8: eight processes share one card's memory), --vaq --qav, a
+              global batch of 8 at S 128, 2 updates and one cached val
+              batch of 4: each rank's launches before the val loop
+              (`per_update`; sp ranks run K5/K6a/K6b at every S, and in
+              (a) rank 1 at q_offset 2048), losses, grad norm, lr, update
+              2's gradient of each trainable (GRAD_REL, and under w8a8d
+              P16_SR_NOISE times the single rank's stochastic-rounding
+              noise, from a single-rank w8a8 run) and val scores within
+              the bounds at P16_LOSS_REL, frozen weights unchanged
+              (checksums), each rank's seconds and peak; (d) one rank
+              under torchrun's variables (world size 1): nccl,
+              `cli.train --debug`, an all-reduce on the card. No speed is
+              claimed: the ranks share one card
 Each main path (9, 10, 11, 12, 15, and each run of 13) runs with the launch
-counts set to 0 just before it and read just after. The last lines of stdout are the nvidia-smi line, a
-JSON line of the kernels and the contract line {"ok": true, "device": ...}.
+counts set to 0 just before it and read just after; in phase 16 each
+rank counts its own launches, zeroed before its `main`. The last lines of
+stdout are the nvidia-smi line, a JSON line of the kernels and the contract line {"ok": true, "device": ...}.
 """
 import contextlib
 import json
@@ -189,6 +225,8 @@ K1_CASES = [
     (2, 127, 8, 128, (3, 9)),
     (2, 129, 8, 128, (5, -1)),
     (2, 255, 8, 128, (7, 0)),
+    # phase 16's eval prefill at --tp 2: one dp rank's batch, 16 heads
+    (4, 128, 16, 128, (5, -1, 0, 40)),
 ]
 # K1 on q, k, v that are slices of one (B, S, 3, H, Dh) tensor, as a fused
 # projection hands them: strides that are not those of a (B, S, H, Dh)
@@ -225,18 +263,24 @@ K2_REPLACES = "flipped_tpu/model/pallas/flash_attention.py:174"
 # the dense eval encode (8 examples x 5 options) and the generation
 # prefill (the MUSIC-AVQA recipe's batch 32)
 K1_SHAPES = {"train": TRAIN_SHAPE, "prefill": (8, 128, 32, 128),
-             "dense": (40, 128, 32, 128), "gen prefill": (32, 128, 32, 128)}
+             "dense": (40, 128, 32, 128), "gen prefill": (32, 128, 32, 128),
+             "prefill, tp 2": (4, 128, 16, 128)}
 ADAPTER_LEN = 10
 N_TRAIN_ITEMS = 64                  # 8 updates at batch 8; 16 val examples
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, dense bf16
 # tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+# one dp rank's training encode at --dp 2 --tp 2 (batch 4, --vaq --qav,
+# 16 heads)
+TP_TRAIN_SHAPE = (12, 128, 16, 128)
+TP_TRAIN_VS = TRAIN_VS[:4] + TRAIN_VS[8:12] + (-1,) * 4
 K2_CASES = [
     (2, 37, 4, 128, (-1, 5)),
     (2, 37, 4, 128, (0, 5)),
     (*TRAIN_SHAPE, TRAIN_VS),
     (1, 650, 32, 128, (4,)),
+    (*TP_TRAIN_SHAPE, TP_TRAIN_VS),
 ]
 # Tolerance of K2 against its plain version, from where the two differ.
 # Both take the same bf16 operands. The kernel reads P as exp(s - lse) with
@@ -311,6 +355,17 @@ STREAM_CASES = [(1, 4096, 4096, 32, 0, (7,), True),
                 (1, LONG_EVAL_S, LONG_EVAL_S, 32, 0, (40,), False),
                 (5, LONG_EVAL_S, LONG_EVAL_S, 32, 0, (40, 7, -1, 0, 12),
                  False)]
+# The sequence-parallel shards of phase 16 (--sp 2): the long train path's
+# encode cut in two (S_q 2048 at q_offset 2048 against S_k 4096), and one dp
+# rank's encode at --dp 2 --sp 2 --tp 2 (batch 4 x 3 objectives, 16 heads)
+# cut in two (S_q 64, below K5's 128-row q tile, at q_offset 0 and 64
+# against S_k 128)
+SP_SHAPES = {"--sp 2, S 4096, shard 1": (3, 2048, 4096, 32, 2048, LONG_VS),
+             "--dp 2 --sp 2 --tp 2, shard 0": (12, 64, 128, 16, 0,
+                                              TP_TRAIN_VS),
+             "--dp 2 --sp 2 --tp 2, shard 1": (12, 64, 128, 16, 64,
+                                              TP_TRAIN_VS)}
+STREAM_CASES += [(*shape, True) for shape in SP_SHAPES.values()]
 SHARDS = 4
 # K5 against its plain version: K1's bound (K1_REL) plus what grows with S:
 # the f32 sums of up to S_k terms and S_k/64 rescales on both sides, and
@@ -1174,6 +1229,69 @@ def time_stream(torch, fa):
     return times
 
 
+def shard_pairs(s_q: int, q_offset: int) -> int:
+    """Causal (row, key) pairs of S_q rows from global row q_offset."""
+    return s_q * q_offset + causal_pairs(s_q)
+
+
+def shard_bounds(b, s_q, s_k, h, dh, q_offset):
+    """K5's, K6a's and K6b's bounds on one q shard against S_k keys: K5
+    reads q and writes out (S_q rows), reads k and v (S_k), writes lse;
+    K6a reads q, dO, k, v, lse and D and writes dq; K6b reads q, dO, k, v,
+    lse and D and writes dk and dv (S_k rows: the partial sums); with K1's,
+    K6a's and K6b's products over the shard's causal pairs."""
+    nq, nk = b * s_q * h * dh * 2, b * s_k * h * dh * 2
+    rows = b * h * s_q * 4
+    pairs = shard_pairs(s_q, q_offset) * b * h
+    return {"k5": bound_ms(2 * nq + 2 * nk + rows, 2 * 2 * dh * pairs),
+            "k6a": bound_ms(3 * nq + 2 * nk + 2 * rows, 3 * 2 * dh * pairs),
+            "k6b": bound_ms(2 * nq + 4 * nk + 2 * rows, 4 * 2 * dh * pairs)}
+
+
+def time_sp_shapes(torch, fa):
+    """K5, K6a and K6b at phase 16's shard shapes (SP_SHAPES): kernel,
+    plain version, bound (`shard_bounds`) and SDPA on the same shard with
+    the shard's rows of the gate2 + causal mask (forward for K5; its
+    backward alone, one saved forward, for K6a and K6b). → {name: times}."""
+    out = {}
+    for i, (name, (b, s_q, s_k, h, off, vs)) in enumerate(
+            SP_SHAPES.items()):
+        q, k, v, do, gate2, vsb = stream_inputs(torch, b, s_q, s_k, h, vs,
+                                                700 + i)
+        o, lse = fa.flash_streaming_fwd(q, k, v, gate2, vsb, MAX_FEATS, off)
+        delta = fa.stream_delta(do, o)
+        args = (q, k, v, gate2, vsb, MAX_FEATS)
+        grads = (do, lse, delta, off)
+        few = dict(n=2, reps=2, host_n=2) if s_k > 1024 else {}
+        t = {"k5": timed(torch, lambda: fa.flash_streaming_fwd(*args, off),
+                         lambda: fa.flash_streaming_fwd_ref(*args, off),
+                         **few),
+             "k6a": timed(torch, lambda: fa.flash_streaming_dq(*args, *grads),
+                          lambda: fa.flash_streaming_dq_ref(*args, *grads),
+                          **few),
+             "k6b": timed(torch, lambda: fa.flash_streaming_dkv(*args,
+                                                                *grads),
+                          lambda: fa.flash_streaming_dkv_ref(*args, *grads),
+                          **few)}
+        mask = sdpa_mask(torch, gate2, vsb, s_k)[:, :, off:off + s_q]
+        sd = sdpa_times(torch, q, k, v, do, mask.contiguous())["mask"]
+        bounds = shard_bounds(b, s_q, s_k, h, 128, off)
+        for key, lib in (("k5", sd["fwd"]), ("k6a", sd["bwd"]),
+                         ("k6b", sd["bwd"])):
+            x = t[key]
+            x["library_ms"] = lib
+            x["bound_ms"], x["bound_by"] = bounds[key]
+            what = "forward" if key == "k5" else "backward alone"
+            print(f"{key.upper()} timing {name} {(b, s_q, h, 128)} S_k {s_k} "
+                  f"q_offset {off}: device kernel {x['ms']:.5f} ms, plain "
+                  f"{x['plain_ms']:.5f} ms, sdpa {what} "
+                  f"on the shard with the bias mask {lib:.5f} ms, bound "
+                  f"{x['bound_ms']:.5f} ms ({x['bound_by']}); runs "
+                  f"{x['runs']}", flush=True)
+        out[name] = t
+    return out
+
+
 def timed(torch, kern, plain, n=20, reps=5, host_n=30):
     """Host us per eager call of kernel and plain version, then their device
     ms in turns (plain, kernel, kernel, plain). The host times come first:
@@ -1216,14 +1334,14 @@ def time_k1(torch, fa):
     return times
 
 
-def time_k2(torch, fa):
-    """K2 at the training shape against its plain version, its bound, and
-    the library yardstick: SDPA's backward alone on one saved forward with
-    the gate2 + causal mask (K2 reads K1's out and lse: it is the backward
-    alone), with SDPA's forward + backward beside it and SDPA without the
-    mask as an aside (`sdpa_times`)."""
-    b, s, h, dh = TRAIN_SHAPE
-    q, k, v, gate2, vs, do = k2_inputs(torch, b, s, h, dh, TRAIN_VS, 200)
+def time_k2(torch, fa, shape=TRAIN_SHAPE, video_start=TRAIN_VS):
+    """K2 at `shape` (the training shape) against its plain version, its
+    bound, and the library yardstick: SDPA's backward alone on one saved
+    forward with the gate2 + causal mask (K2 reads K1's out and lse: it is
+    the backward alone), with SDPA's forward + backward beside it and SDPA
+    without the mask as an aside (`sdpa_times`)."""
+    b, s, h, dh = shape
+    q, k, v, gate2, vs, do = k2_inputs(torch, b, s, h, dh, video_start, 200)
     out, lse = fa.flash_text_attention(q, k, v, gate2, vs, MAX_FEATS)
     t = timed(torch, lambda: fa.flash_text_attention_bwd(
                   q, k, v, gate2, vs, MAX_FEATS, do, out, lse),
@@ -1232,14 +1350,14 @@ def time_k2(torch, fa):
     lib = sdpa_times(torch, q, k, v, do, sdpa_mask(torch, gate2, vs, s))
     t["library_ms"] = lib["mask"]["bwd"]
     t["bound_ms"], t["bound_by"] = k2_bound(b, s, h, dh)
-    print(f"K2 timing {TRAIN_SHAPE}: device kernel {t['ms']:.5f} ms, plain "
+    print(f"K2 timing {shape}: device kernel {t['ms']:.5f} ms, plain "
           f"{t['plain_ms']:.5f} ms, sdpa backward alone with the bias mask "
           f"{t['library_ms']:.5f} ms (forward+backward "
           f"{lib['mask']['fwd_bwd']:.5f} ms), bound {t['bound_ms']:.5f} ms "
           f"({t['bound_by']}); runs {t['runs']}; host per eager call: kernel "
           f"{t['host_us']:.1f} us, plain {t['plain_host_us']:.1f} us",
           flush=True)
-    print(f"sdpa at {TRAIN_SHAPE} without the mask (is_causal=True, no gate2 "
+    print(f"sdpa at {shape} without the mask (is_causal=True, no gate2 "
           f"bias): backward alone {lib['causal']['bwd']:.5f} ms, "
           f"forward+backward {lib['causal']['fwd_bwd']:.5f} ms", flush=True)
     return t
@@ -2996,6 +3114,561 @@ def audio_and_trainer(torch, fa, qm, caught, video_step):
     torch.cuda.empty_cache()
 
 
+# --- phase 16: data, sequence and tensor parallelism -------------------------
+# Ranks are processes of this script (`--p16-rank SPEC`) that share the one
+# card over gloo (`init_distributed_mode(share_device=True)`): NCCL refuses
+# two ranks on one device. Each multi-rank run is held against the
+# single-rank run of the same command in this process (same seed, same
+# fixtures: the dp rows' loader shards hold, update by update, the rows of
+# the single rank's batch).
+# (b) and (c) are the JAX dry run's two legs at LLaMA-7B width (dim 4096, 32
+# heads, vocab 32000) with the depth cut to 8 of 32 blocks (--adapter_layer
+# 8: only the last 8 blocks exist and run), since eight processes share one
+# card's memory; (a) keeps 7B's full depth.
+P16_ITEMS = 16                  # (b), (c): 2 updates at a global batch of 8
+P16_LONG_ITEMS = 2              # (a): 2 updates at batch 1, S 4096
+P16_LAYERS = 8
+P16_RUNS = (
+    ("a", "--sp 2, S 4096, full depth", 2, "none",
+     ("--sp", "2"), True),
+    ("b", "--dp 2 --sp 2 --tp 2, 8 blocks", 8, "none",
+     ("--dp", "2", "--sp", "2", "--tp", "2"), False),
+    ("c", "--quantize w8a8d --dp 4 --tp 2, 8 blocks", 8, "w8a8d",
+     ("--dp", "4", "--tp", "2"), False))
+# Tolerances of a multi-rank run against the single rank's, both in bf16 on
+# the card. The ranks compute the same function with other splits: a tp
+# rank's GEMM sums half the products and the halves are added in bf16 (one
+# more rounding, 2^-8 relative, a row-split Linear), the sp ranks' K5/K6
+# see S_q 2048 (64) rows at an offset where the single rank's kernels see
+# the whole sequence (other tiles, the same operations), and the losses'
+# and gradients' sums over ranks run in another order. The losses, means of
+# log-softmax over 32000 logits, move by a few such roundings: held to
+# 2^-7 relative; the grad norm to GRAD_REL; the eval scores to SCORE_RTOL.
+# The updates are held by what they depend on: update 2's gradient of each
+# trainable (after the dp×sp and tp sums), by the norm of its difference
+# from the single rank's, at GRAD_REL of the leaf's norm (the bound the
+# train phase holds bf16 gradients to). A sum over ranks that is skipped
+# or doubled moves a leaf's gradient by a part of itself, not by
+# roundings. (The updated weights cannot show it: update 1 runs at lr 0,
+# so update 2 is AdamW's first step, about lr per element whatever the
+# gradient.) Under w8a8d the backward rounds each cotangent stochastically,
+# with a dither hashed from its bits, so where two layouts' cotangents
+# differ in a bit they draw other noise: each side's gradient is the exact
+# one (w8a8's: the same forward, dx exact) plus noise N1 or N2. The single
+# rank's noise is measured, ||N1|| = ||g(w8a8d) - g(w8a8)|| per leaf from
+# a single-rank w8a8 run, and ||N2 - N1||, about 1.4 ||N1|| for
+# independent draws of one law, is allowed P16_SR_NOISE ||N1|| on top.
+# (A small leaf whose gradient sums many cancelling terms, such as a
+# block's 32 gates, may carry noise of the order of itself.)
+P16_SR_NOISE = 2.0
+P16_LOSS_REL = 2.0 ** -7
+# (a)'s questions: this many words ahead of each question put the answer's
+# labels and the options' rows past row LONG_S / 2 (rows 2463-2472 of 4096)
+P16_LONG_WORDS = 2400
+
+
+def p16_spec(root, run, argv, share=True, nccl_check=False):
+    """Write one rank group's spec; → (spec path, out path of rank r)."""
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, f"spec_{run}.json")
+    with open(path, "w") as f:
+        json.dump({"argv": list(argv), "share": share,
+                   "nccl_check": nccl_check,
+                   "out": os.path.join(root, f"{run}_rank{{rank}}.pt")}, f)
+    return path
+
+
+def p16_spawn(spec, ranks, timeout):
+    """`ranks` processes of this script on `spec`, with torchrun's
+    variables (and gloo's and NCCL's sockets on the loopback interface:
+    the ranks share one host); → the ranks' saved records. Raises, with
+    the tail of each failing rank's log, if a rank fails or outlasts
+    `timeout` s (a rank dumps its threads' stacks to its log 20 s before
+    that)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with open(spec) as f:
+        spec_dict = json.load(f)
+    spec_dict["timeout"] = timeout
+    with open(spec, "w") as f:
+        json.dump(spec_dict, f)
+    logs, procs = [], []
+    for r in range(ranks):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(ranks),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(ranks),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+        log = open(spec.replace(".json", f"_rank{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--p16-rank", spec],
+            env=env, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT))
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            with open(spec.replace(".json", f"_rank{r}.log")) as f:
+                print(f"  rank {r} exited {procs[r].returncode}:\n"
+                      + f.read()[-6000:], flush=True)
+        raise AssertionError(f"ranks {bad} failed or outlasted {timeout} s")
+    import torch
+
+    with open(spec) as f:
+        out = json.load(f)["out"]
+    return [torch.load(out.format(rank=r), weights_only=False)
+            for r in range(ranks)]
+
+
+def frozen_checksums(torch, model):
+    """A position-weighted sum of each frozen leaf's bytes (int64), taken
+    16 Mi bytes at a time: equal before and after an update when the leaf
+    did not change. (A copy of the frozen weights would cost eight ranks
+    on one card as much memory again.)"""
+    out = {}
+    step = 1 << 24
+    for n, p in model.named_parameters():
+        if p.requires_grad:
+            continue
+        flat = p.detach().contiguous().view(-1).view(torch.uint8)
+        total = 0
+        for i in range(0, flat.numel(), step):
+            b = flat[i:i + step].to(torch.int64)
+            w = torch.arange(i, i + b.numel(), device=b.device) % 251 + 1
+            total += int((b * w).sum())
+        out[n] = total
+    return out
+
+
+class ByOffset:
+    """A streaming kernel's wrapper that also counts its calls by q_offset
+    (`counts`); its `launches` are the wrapper's."""
+
+    def __init__(self, fn, n_args: int, counts: dict):
+        self.fn, self.n_args, self.counts = fn, n_args, counts
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+    def __call__(self, *a, **kw):
+        off = int(kw.get("q_offset", a[self.n_args] if len(a) > self.n_args
+                         else 0))
+        self.counts[off] = self.counts.get(off, 0) + 1
+        return self.fn(*a, **kw)
+
+
+@contextlib.contextmanager
+def p16_recording(torch, fa, qm, rec):
+    """Around `cli.train.main`: each update's metrics and the last one's
+    gradient of each trainable (rec['grads'], after the step's sums over
+    ranks), the frozen checksums at build and the model, the launch counts
+    when the
+    val loop starts, the eval scores of each val batch, and each
+    K5/K6a/K6b launch by q_offset (rec['offsets'])."""
+    from flipped_tpu_torch.cli import train as train_cli
+
+    orig = (train_cli.build_train_state, train_cli.make_train_step,
+            train_cli.val_one_epoch, train_cli.make_val_steps)
+    # (name, the position of q_offset among the wrapper's arguments)
+    streams = {"k5": ("flash_streaming_fwd", 6),
+               "k6a": ("flash_streaming_dq", 9),
+               "k6b": ("flash_streaming_dkv", 9)}
+    wrapped = {k: getattr(fa, n) for k, (n, _) in streams.items()}
+    rec.update(metrics=[], scores=[], offsets={k: {} for k in streams})
+
+    def build(*a, **kw):
+        model, cfg, tok = orig[0](*a, **kw)
+        rec["model"] = model
+        rec["frozen0"] = frozen_checksums(torch, model)
+        return model, cfg, tok
+
+    def make_step(*a, **kw):
+        step = orig[1](*a, **kw)
+
+        def watched(batch):
+            m = step(batch)
+            rec["metrics"].append([float(x) for x in m])
+            rec["grads"] = {n: p.grad.float().cpu() for n, p in
+                            rec["model"].named_parameters()
+                            if p.grad is not None}
+            return m
+        return watched
+
+    def val(*a, **kw):
+        rec["at_val"] = read_counts(fa, qm)
+        return orig[2](*a, **kw)
+
+    def val_steps(*a, **kw):
+        eval_step, gen_step = orig[3](*a, **kw)
+
+        def watched(batch, span_info=None):
+            out = eval_step(batch, span_info=span_info)
+            rec["scores"].append(out["scores"].float().cpu())
+            return out
+        return watched, gen_step
+
+    train_cli.build_train_state, train_cli.make_train_step, \
+        train_cli.val_one_epoch, train_cli.make_val_steps = \
+        build, make_step, val, val_steps
+    for k, (n, pos) in streams.items():
+        setattr(fa, n, ByOffset(wrapped[k], pos, rec["offsets"][k]))
+    try:
+        yield rec
+    finally:
+        train_cli.build_train_state, train_cli.make_train_step, \
+            train_cli.val_one_epoch, train_cli.make_val_steps = orig
+        for k, (n, _) in streams.items():
+            setattr(fa, n, wrapped[k])
+
+
+def p16_rank(spec_path) -> int:
+    """One rank of a phase-16 group: `cli.train.main` on the spec's argv,
+    recorded (`p16_recording`), saved for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from flipped_tpu_torch.cli import train as train_cli
+    from flipped_tpu_torch.core.config import get_args_parser
+    from flipped_tpu_torch.core.distributed import init_distributed_mode
+    from flipped_tpu_torch.model.kernels import flash_attention as fa
+    from flipped_tpu_torch.model.kernels import quant_matmul as qm
+
+    import faulthandler
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    faulthandler.dump_traceback_later(max(spec["timeout"] - 20, 10),
+                                      exit=True)
+    args = get_args_parser().parse_args(spec["argv"])
+    # the argv's --device: cuda here; a rehearsal on the CPU passes cpu
+    device = init_distributed_mode(args.device, share_device=spec["share"])
+    on_card = device.type == "cuda"
+    rank = dist.get_rank()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa, qm)
+    t0 = time.perf_counter()
+    with p16_recording(torch, fa, qm, {}) as rec:
+        model, history = train_cli.main(args)
+    if on_card:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    same = frozen_checksums(torch, model) == rec.pop("frozen0")
+    out = {"metrics": rec["metrics"], "scores": rec["scores"],
+           "offsets": rec["offsets"], "at_val": rec["at_val"],
+           "launches": read_counts(fa, qm), "history": history,
+           "frozen_same": same, "seconds": seconds,
+           "peak": torch.cuda.max_memory_allocated() if on_card else 0,
+           "backend": dist.get_backend(),
+           "grads": rec["grads"]}
+    if spec["nccl_check"]:
+        t = torch.full((4,), float(rank + 1), device=device)
+        dist.all_reduce(t)
+        out["all_reduce"] = t.cpu().tolist()
+    torch.save(out, spec["out"].format(rank=rank))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def write_long_fixtures(root, n):
+    """`write_fixtures`, with P16_LONG_WORDS words drawn ahead of each
+    question; raises unless every answer label and every option's row of
+    the train and val items lies in the second half of LONG_S (sp rank
+    1's rows under --sp 2)."""
+    import csv
+
+    import numpy as np
+
+    from flipped_tpu_torch.core.config import (get_args_parser,
+                                               run_config_from_args)
+    from flipped_tpu_torch.data.pipeline import load_data
+    from flipped_tpu_torch.data.synthetic import _WORDS
+    from flipped_tpu_torch.text import MockTokenizer
+
+    write_fixtures(root, n)
+    rs = np.random.RandomState(1)
+    for split in ("train", "val"):
+        path = os.path.join(root, "nextqa", f"{split}.csv")
+        with open(path) as f:
+            rows = list(csv.reader(f))
+        for row in rows[1:]:
+            row[3] = " ".join(rs.choice(_WORDS, P16_LONG_WORDS)) + " " + row[3]
+        with open(path, "w", newline="") as f:
+            csv.writer(f).writerows(rows)
+    cfg = run_config_from_args(get_args_parser().parse_args(
+        ["--dataset", "nextqa", "--data_root", root, "--max_seq_len",
+         str(LONG_S), "--batch_size", "1", "--vaq", "--qav"])).data
+    for split in ("train", "val"):
+        for batch in load_data(cfg, MockTokenizer(32000), split):
+            cols = np.nonzero(batch["vqa_labels"] > 0)[-1]
+            if cols.size == 0 or cols.min() < LONG_S // 2:
+                raise AssertionError(f"{split}: answer labels at rows "
+                                     f"{cols.min() if cols.size else None}"
+                                     f"..: not all past {LONG_S // 2}")
+
+
+def p16_argv(root, quantize, long, *extra):
+    """The train command of a phase-16 run (without --batch_size)."""
+    argv = ["--model", "llama7B", "--dataset", "nextqa", "--data_root", root,
+            "--device", "cuda", "--llama_model_path",
+            os.path.join(WORK, "no_checkpoint"), "--vaq", "--qav",
+            "--epochs", "1", "--output_dir", "", "--quantize", quantize]
+    if long:
+        argv += ["--max_seq_len", str(LONG_S), "--lm_head_chunk", LM_CHUNK]
+    else:
+        argv += ["--max_seq_len", str(TRAIN_S), "--adapter_layer",
+                 str(P16_LAYERS)]
+    return argv + list(extra)
+
+
+def p16_reference(torch, fa, qm, argv):
+    """The single-rank run of `argv` in this process → its record, with
+    the launches and the peak."""
+    from flipped_tpu_torch.cli import train as train_cli
+    from flipped_tpu_torch.core.config import get_args_parser
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa, qm)
+    t0 = time.perf_counter()
+    with p16_recording(torch, fa, qm, {}) as rec:
+        model, history = train_cli.main(get_args_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["launches"] = read_counts(fa, qm)
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["frozen_same"] = frozen_checksums(torch, model) == rec.pop("frozen0")
+    rec["history"] = history
+    del model, rec["model"]
+    torch.cuda.empty_cache()
+    return rec
+
+
+def p16_hold(torch, ref, ranks, mesh, blocks, quantize, long, n_val,
+             noise=None):
+    """Every rank of one run against the single rank's record (the bounds
+    at P16_LOSS_REL); `n_val` val items, in order, the dp row d's shard
+    holding items d, d + dp, ...; `noise` the single rank's stochastic
+    rounding noise of each gradient (w8a8d), a norm per leaf."""
+    dp, sp = mesh.get("dp", 1), mesh.get("sp", 1)
+    streaming = long or sp > 1
+    per = per_update(quantize, blocks, streaming=streaming)
+    ref_per = per_update(quantize, blocks, streaming=long)
+    n_up = len(ref["metrics"])
+    if n_up != 2 or ref["at_val"] != {k: v * n_up for k, v in
+                                      ref_per.items()}:
+        raise AssertionError(f"single rank: {n_up} updates, launches "
+                             f"{ref['at_val']}, want 2 x {ref_per}")
+    if not ref["frozen_same"]:
+        raise AssertionError("single rank: a frozen weight changed")
+    want = ref["metrics"]
+    print(f"  single rank: {ref['seconds']:.2f} s, peak "
+          f"{ref['peak'] / 2**30:.3f} GiB, metrics {want}", flush=True)
+    ref_scores = torch.cat(ref["scores"])[:n_val]
+    noise = noise or {}
+    for r, out in enumerate(ranks):
+        got = out["metrics"]
+        at_val = out["at_val"]
+        if at_val != {k: v * n_up for k, v in per.items()}:
+            raise AssertionError(f"rank {r}: launches before the val loop "
+                                 f"{at_val}, want 2 x {per}")
+        if not out["frozen_same"]:
+            raise AssertionError(f"rank {r}: a frozen weight changed")
+        loss_rel = max(abs(g[i] - w[i]) / abs(w[i]) for g, w in
+                       zip(got, want) for i in range(4) if w[i])
+        norm_rel = max(abs(g[4] - w[4]) / w[4] for g, w in zip(got, want))
+        lr_same = all(g[5] == w[5] for g, w in zip(got, want))
+        if out["grads"].keys() != ref["grads"].keys():
+            raise AssertionError(f"rank {r}: gradients of "
+                                 f"{sorted(out['grads'])}, want "
+                                 f"{sorted(ref['grads'])}")
+        # each leaf's difference over its bound (1 at the bound)
+        grad_at = {n: float((out["grads"][n] - g).norm())
+                   / max(GRAD_REL * float(g.norm())
+                         + P16_SR_NOISE * noise.get(n, 0.0), 1e-30)
+                   for n, g in ref["grads"].items()}
+        worst = max(grad_at, key=grad_at.get)
+        worst_norm = max(float(ref["grads"][worst].norm()), 1e-30)
+        worst_rel = float((out["grads"][worst] - ref["grads"][worst])
+                          .norm()) / worst_norm
+        d = r // (len(ranks) // dp)
+        rows = list(range(d, n_val, dp))
+        ours = torch.cat(out["scores"])[:len(rows)]
+        theirs = ref_scores[rows]
+        score_rel = float(((ours - theirs).abs()
+                           / theirs.abs().clamp_min(1e-6)).max())
+        print(f"  rank {r}: {out['seconds']:.2f} s, peak "
+              f"{out['peak'] / 2**30:.3f} GiB, {out['backend']}; losses "
+              f"within {loss_rel:.3g} relative, grad norm {norm_rel:.3g}, "
+              f"update 2's gradients at {grad_at[worst]:.3g} of their "
+              f"bounds (the farthest of {len(grad_at)}: {worst}, "
+              f"{worst_rel:.3g} of its norm, single-rank noise "
+              f"{noise.get(worst, 0.0) / worst_norm:.3g}), val "
+              f"rows {rows} scores within {score_rel:.3g} relative; K5/K6 "
+              f"launches by q_offset {out['offsets']}", flush=True)
+        if (loss_rel > P16_LOSS_REL or norm_rel > GRAD_REL or not lr_same
+                or grad_at[worst] > 1.0
+                or score_rel > SCORE_RTOL):
+            raise AssertionError(f"rank {r} is not within the bounds of the "
+                                 f"single-rank run")
+
+
+def parallel_phase(torch, fa, qm, runs="abcd"):
+    """Phase 16: (a) --sp 2 at full 7B depth and S 4096, (b) --dp 2 --sp 2
+    --tp 2 and (c) --quantize w8a8d --dp 4 --tp 2 at 7B width and 8
+    blocks, each against its single-rank run; (d) cli.train on one rank
+    under NCCL. `runs` names the runs to make."""
+    root = os.path.join(WORK, "phase16")
+    data, long_data = (os.path.join(root, d) for d in ("data", "data_long"))
+    write_fixtures(data, P16_ITEMS)
+    write_long_fixtures(long_data, P16_LONG_ITEMS)
+    for run, label, n, quantize, mesh_flags, long in P16_RUNS:
+        if run not in runs:
+            continue
+        phase(f"parallelism ({run}): {label}, {n} ranks on one card")
+        t0 = time.perf_counter()
+        mesh = dict(zip(mesh_flags[::2], (int(x) for x in mesh_flags[1::2])))
+        mesh = {k.lstrip("-"): v for k, v in mesh.items()}
+        dp = mesh.get("dp", 1)
+        batch = 1 if long else 8
+        argv = p16_argv(long_data if long else data, quantize, long)
+        ref = p16_reference(torch, fa, qm,
+                            argv + ["--batch_size", str(batch)])
+        noise = None
+        if quantize == "w8a8d":
+            exact = p16_reference(torch, fa, qm, p16_argv(
+                data, "w8a8", long, "--batch_size", str(batch)))["grads"]
+            noise = {n: float((g - exact[n]).norm())
+                     for n, g in ref["grads"].items()}
+        ranks = p16_spawn(p16_spec(root, run, argv + list(mesh_flags) + [
+            "--batch_size", str(batch // dp)]), n, timeout=600)
+        blocks = 32 if long else P16_LAYERS
+        p16_hold(torch, ref, ranks, mesh, blocks, quantize, long,
+                 max((P16_LONG_ITEMS if long else P16_ITEMS) // 4, 2), noise)
+        if long:
+            got = ranks[1]["offsets"]
+            want = {"k5": 2 * 2 * blocks, "k6a": 2 * blocks,
+                    "k6b": 2 * blocks}
+            if any(got[k].get(LONG_S // 2, 0) != v for k, v in want.items()):
+                raise AssertionError(f"sp rank 1 launched K5/K6a/K6b at "
+                                     f"q_offset {LONG_S // 2} {got}, want "
+                                     f"{want}")
+        print(f"  phase 16 ({run}) took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del ref, ranks
+        torch.cuda.empty_cache()
+    if "d" not in runs:
+        return
+    phase("parallelism (d): cli.train under torchrun's variables, world "
+          "size 1, NCCL")
+    t0 = time.perf_counter()
+    argv = p16_argv(data, "none", False, "--debug", "--batch_size", "8")
+    (out,) = p16_spawn(p16_spec(root, "d", argv, share=False,
+                                nccl_check=True), 1, timeout=300)
+    if out["backend"] != "nccl" or out["all_reduce"] != [1.0] * 4:
+        raise AssertionError(f"world size 1: backend {out['backend']}, "
+                             f"all_reduce {out['all_reduce']}")
+    if not all(math.isfinite(x) for m in out["metrics"] for x in m):
+        raise AssertionError("world size 1: a metric is not finite")
+    print(f"  nccl rank 0/1: {len(out['metrics'])} update, metrics "
+          f"{out['metrics']}, all_reduce on the card {out['all_reduce']}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# `--p16-faults`: the lines of flipped_tpu_torch/train/step.py that a copy
+# of the checkout replaces by `pass`, one at a time; phase 16's run (b)
+# must refuse each.
+P16_FAULTS = (
+    ("the dp×sp gradient sum skipped", "        _sum_grads(grads, dpsp)\n"),
+    ("the tp sum of the head-split gates skipped",
+     "        _sum_grads([p.grad for p in partial], tp)\n"))
+
+
+def p16_faults() -> int:
+    """`python3 chip_smoke.py --p16-faults`: phase 16 on this checkout,
+    then run (b) (`--p16-runs b`) in a copy of the checkout for each of
+    P16_FAULTS, which must fail its hold. Prints each hold's readings;
+    0 when the sound runs pass and every fault is refused."""
+    import shutil
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch sees no CUDA device", file=sys.stderr)
+        return 1
+    print(f"card: {nvidia_smi_line()}", flush=True)
+    sys.path.insert(0, ROOT)
+    from flipped_tpu_torch.model.kernels import build as kbuild
+    from flipped_tpu_torch.model.kernels import flash_attention as fa
+    from flipped_tpu_torch.model.kernels import quant_matmul as qm
+
+    kbuild.build()
+    parallel_phase(torch, fa, qm)
+    torch.cuda.empty_cache()
+    refused = []
+    for name, line in P16_FAULTS:
+        phase(f"planted fault: {name}")
+        dst = os.path.join(WORK, "fault")
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(ROOT, dst, ignore=shutil.ignore_patterns(
+            ".git", "chiprun_out", "chip_smoke"))
+        path = os.path.join(dst, "flipped_tpu_torch", "train", "step.py")
+        with open(path) as f:
+            src = f.read()
+        if src.count(line) != 1:
+            raise AssertionError(f"{name}: {line!r} is not one line of "
+                                 f"step.py")
+        with open(path, "w") as f:
+            f.write(src.replace(line, line[:len(line) - len(line.lstrip())]
+                                + "pass\n"))
+        p = subprocess.run([sys.executable, os.path.join(dst, "chip_smoke.py"),
+                            "--p16-runs", "b"], cwd=dst, capture_output=True,
+                           text=True, timeout=900)
+        print(p.stdout[-4000:] + p.stderr[-1500:], flush=True)
+        refused.append(p.returncode != 0
+                       and "not within the bounds" in p.stderr)
+        print(f"  {name}: exit {p.returncode}, refused {refused[-1]}",
+              flush=True)
+        shutil.rmtree(dst)
+    return 0 if all(refused) else 1
+
+
+def p16_runs(runs) -> int:
+    """`python3 chip_smoke.py --p16-runs RUNS`: phase 16's runs RUNS
+    (letters of a-d) alone, on kernels built from this checkout."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from flipped_tpu_torch.model.kernels import build as kbuild
+    from flipped_tpu_torch.model.kernels import flash_attention as fa
+    from flipped_tpu_torch.model.kernels import quant_matmul as qm
+
+    kbuild.build()
+    parallel_phase(torch, fa, qm, runs)
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3063,7 +3736,9 @@ def main() -> int:
     phase("timing")
     k1_times = time_k1(torch, fa)
     k2_time = time_k2(torch, fa)
+    time_k2(torch, fa, TP_TRAIN_SHAPE, TP_TRAIN_VS)
     stream_times = time_stream(torch, fa)
+    time_sp_shapes(torch, fa)
     torch.cuda.empty_cache()
     quant_times = time_quant(torch, qm)
     matmul.allow_bf16_reduced_precision_reduction = reduced
@@ -3144,6 +3819,11 @@ def main() -> int:
     check_caught(torch, qm, caught, quant_err, QUANT_KERNELS)
     matmul.allow_bf16_reduced_precision_reduction = reduced
     del caught
+    torch.cuda.empty_cache()
+
+    t16 = time.perf_counter()
+    parallel_phase(torch, fa, qm)
+    print(f"phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
 
     if any(m in ("jax", "flipped_tpu") or m.startswith(("jax.", "flipped_tpu."))
            for m in sys.modules):
@@ -3199,7 +3879,14 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        if sys.argv[1:2] == ["--p16-rank"]:
+            code = p16_rank(sys.argv[2])
+        elif sys.argv[1:2] == ["--p16-runs"]:
+            code = p16_runs(sys.argv[2])
+        elif sys.argv[1:2] == ["--p16-faults"]:
+            code = p16_faults()
+        else:
+            code = main()
     except Exception:
         traceback.print_exc()
         code = 1

@@ -7,11 +7,13 @@ nothing of the JAX package: the numpy host layers it needs (`text/`,
 the originals, so both packages see identical batches.
 
 Layer map (mirrors flipped_tpu):
-  core/           config dataclasses and the CLI parser
+  core/           config dataclasses and the CLI parser; the process group,
+                  the (dp, pp, sp, tp) rank grid and the collectives
   text/           tokenizers, prompt encoders, label masking (copies)
   data/           dataset readers, loader, batching (copies), fixture writer
   model/          adapter-gated LLaMA as nn.Modules, plain attention math,
-                  the w8a8 autograd Functions (int8.py)
+                  the w8a8 autograd Functions (int8.py), the tensor- and
+                  sequence-parallel pieces (parallel.py)
   model/kernels/  hand-written CUDA kernels: build, bind, plain twins,
                   the autograd.Function around K1 and K2, the int8 GEMMs
   csrc/           CUDA C++ sources (sm_90a), built at first use

@@ -14,6 +14,11 @@ Each file is written under a temporary name and moved into place with
 `os.replace`, so a save cut short leaves the previous checkpoint whole.
 The meta also travels inside state.pt, which `restore` reads, so the two
 can never be of different saves.
+
+Under torch.distributed the trainables are replicated on every rank
+(model/parallel.py splits frozen leaves only): rank 0 writes the
+checkpoint, every rank waits for it at a barrier, and every rank
+restores it.
 """
 from __future__ import annotations
 
@@ -22,6 +27,9 @@ import os
 from typing import TYPE_CHECKING, Dict, Optional
 
 import torch
+
+from ..core.collectives import barrier
+from ..core.distributed import get_rank
 
 if TYPE_CHECKING:
     from ..train.optim import Optimizer
@@ -59,7 +67,11 @@ class CheckpointManager:
              epoch: int, best_acc: float = 0.0) -> None:
         """Write the trainables of `model` and the state of `optimizer`,
         moved to the CPU first, so a checkpoint written on the card loads
-        on a machine without one."""
+        on a machine without one; rank 0 writes, every rank returns once
+        it is written."""
+        if get_rank() != 0:
+            barrier()
+            return
         meta = {"epoch": int(epoch), "best_acc": float(best_acc)}
         state = {"trainable": {n: _to_cpu(p) for n, p in
                                model.named_parameters() if p.requires_grad},
@@ -74,6 +86,7 @@ class CheckpointManager:
             with open(tmp, "w") as f:
                 json.dump(meta, f)
         _replace(path + ".meta.json", write_meta)
+        barrier()
 
     @torch.no_grad()
     def restore(self, name: str, model: torch.nn.Module,

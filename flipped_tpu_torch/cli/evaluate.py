@@ -28,7 +28,11 @@ The audio merges (`--audio --audio_merge sum|concat|attention`, `--audio
 --audio_only`) score and generate as they train. The val loop prints JAX's
 progress lines (`MetricLogger.log_every`); `--trace_dir` is accepted and
 ignored, as JAX's evaluate ignores it, and `--loader` too: the eval reads
-the val split in order with the thread loader.
+the val split in order with the thread loader. Under torchrun the ranks
+take the train CLI's grid (--dp, --sp, --tp; cli/train.py): each dp row
+scores its own shard of the val split, with one answer window pinned for
+every rank, and the meters and answers are merged across ranks.
+Generation eval runs under dp only.
 """
 from __future__ import annotations
 
@@ -42,12 +46,14 @@ import torch
 
 from ..ckpt.manager import CheckpointManager
 from ..core.config import get_args_parser, run_config_from_args
+from ..core.distributed import init_distributed_mode
+from ..core.mesh import SP_AXIS, TP_AXIS, loader_shards, make_mesh
 from ..data.datasets import build_dataset
-from ..data.pipeline import Loader
+from ..data.pipeline import Loader, pinned_eval_span
 from ..train.builder import build_eval_state
 from ..train.generation import decode_generated, make_generation_step
 from ..train.step import make_eval_step
-from ..utils.logging import save_result
+from ..utils.logging import save_result, setup_for_distributed
 from ..utils.metrics import MetricLogger, log_qtype
 
 # per-example host bookkeeping of a packed eval batch (data/batching.py);
@@ -89,13 +95,31 @@ def generation_correct(gen_step, tokenizer, batch: Dict, tb, valid: int,
     return correct, rows
 
 
+def check_generation_mesh(run_cfg, mesh) -> None:
+    """Generation eval runs under dp only: refuse it on an sp or tp
+    grid."""
+    if run_cfg.train.is_generation_task and (
+            mesh.size(SP_AXIS) > 1 or mesh.size(TP_AXIS) > 1):
+        raise NotImplementedError(
+            "--is_generation_task runs under --dp only; --sp and --tp "
+            "generation are not ported (ROADMAP [9])")
+
+
+def shard_leader(mesh, n_shards: int) -> bool:
+    """Whether this rank writes its loader shard's generated answers: the
+    first rank of each shard's group (JAX: cli/train.py:147-151)."""
+    return mesh.rank % max(1, mesh.ranks.size // n_shards) == 0
+
+
 def val_one_epoch(eval_step, loader, dataset_name: str, device,
                   debug: bool = False, gen_step=None, tokenizer=None,
-                  output_dir: str = "", epoch: int = 0) -> Dict[str, float]:
+                  output_dir: str = "", epoch: int = 0,
+                  leader: bool = True) -> Dict[str, float]:
     """Score (or, with a `gen_step`, generate for) every batch; returns
     count-weighted accuracy meters, with the per-question-type buckets,
-    plus 'batches' (JAX: cli/train.py:134-221). Generation writes the
-    extracted answers under `output_dir` when there is one."""
+    merged across ranks, plus 'batches' (JAX: cli/train.py:134-221).
+    Generation writes the extracted answers under `output_dir` when there
+    is one, each loader shard's from its `leader` rank only."""
     logger = MetricLogger()
     n_batches = 0
     extracted = []
@@ -109,7 +133,8 @@ def val_one_epoch(eval_step, loader, dataset_name: str, device,
         if gen_step is not None:
             correct, rows = generation_correct(gen_step, tokenizer, batch,
                                                tb, valid, dataset_name)
-            extracted += rows
+            if leader:
+                extracted += rows
         else:
             span_info = (int(batch["span_need"]), bool(batch["span_exact"]))
             out = eval_step(tb, span_info=span_info)
@@ -127,6 +152,7 @@ def val_one_epoch(eval_step, loader, dataset_name: str, device,
     elapsed = time.perf_counter() - t0
     print(f"{'generated' if gen_step else 'scored'} {n_batches} batches in "
           f"{elapsed:.3f} s")
+    logger.synchronize_between_processes()
     print("Averaged stats:", logger)
     if gen_step is not None and output_dir:
         save_result(extracted, os.path.join(output_dir, "extracted_answers"),
@@ -134,20 +160,25 @@ def val_one_epoch(eval_step, loader, dataset_name: str, device,
     return {**logger.averages(), "batches": n_batches}
 
 
-def make_val_steps(model, run_cfg, tokenizer):
-    """(eval_step, gen_step): the cached scorer, and under
-    --is_generation_task the generation step (JAX: cli/evaluate.py:
-    70-72), else None."""
+def make_val_steps(model, run_cfg, tokenizer, span_len=None):
+    """(eval_step, gen_step): the cached scorer (at the pinned `span_len`
+    when there is one), and under --is_generation_task the generation step
+    (JAX: cli/evaluate.py:70-72), else None."""
     gen_step = (make_generation_step(model, tokenizer.eos_id)
                 if run_cfg.train.is_generation_task else None)
-    return make_eval_step(model, cached=True), gen_step
+    return make_eval_step(model, cached=True, span_len=span_len), gen_step
 
 
 def main(args) -> Dict[str, float]:
     run_cfg = run_config_from_args(args)
-    device = torch.device(run_cfg.device)
-    model, cfg, tokenizer = build_eval_state(run_cfg, device,
-                                             seed=run_cfg.train.seed)
+    device = init_distributed_mode(run_cfg.device)
+    setup_for_distributed()
+    mesh = make_mesh(run_cfg.mesh)
+    check_generation_mesh(run_cfg, mesh)
+    # a single rank builds as before the grid existed
+    model, cfg, tokenizer = build_eval_state(
+        run_cfg, device, seed=run_cfg.train.seed,
+        **({"mesh": mesh} if mesh.is_parallel else {}))
     if run_cfg.train.resume:
         mgr = CheckpointManager(run_cfg.train.output_dir)
         if not mgr.exists(run_cfg.train.resume):
@@ -157,13 +188,20 @@ def main(args) -> Dict[str, float]:
         print(f"loaded {run_cfg.train.resume} (epoch {meta['epoch']}, "
               f"best_acc {meta['best_acc']:.4f})")
     dataset = build_dataset(run_cfg.data, tokenizer, "val")
+    shard, n_shards = loader_shards(mesh)
     loader = Loader(dataset, run_cfg.data.batch_size, shuffle=False,
-                    seed=run_cfg.data.seed, split="val")
-    eval_step, gen_step = make_val_steps(model, run_cfg, tokenizer)
+                    seed=run_cfg.data.seed, split="val",
+                    process_index=shard, process_count=n_shards)
+    span_pin = (None if run_cfg.train.is_generation_task else
+                pinned_eval_span(dataset, run_cfg.data.max_seq_len,
+                                 mesh.ranks.size))
+    eval_step, gen_step = make_val_steps(model, run_cfg, tokenizer,
+                                         span_pin)
     stats = val_one_epoch(eval_step, loader, run_cfg.data.dataset, device,
                           debug=run_cfg.debug, gen_step=gen_step,
                           tokenizer=tokenizer,
-                          output_dir=run_cfg.train.output_dir)
+                          output_dir=run_cfg.train.output_dir,
+                          leader=shard_leader(mesh, n_shards))
     print(json.dumps({f"val_{k}": v for k, v in stats.items()}))
     return stats
 

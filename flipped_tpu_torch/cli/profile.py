@@ -29,7 +29,9 @@ pass that K7 and K8's w4a8 branch share counts in the K3/K7 class.
 flags (`--audio --audio_merge ...`, `--audio --audio_only`) the merge
 they name, its batch read from the data root's audio features as the
 CLIs read them. `--trace_dir DIR` also writes the profiled steps as a
-Chrome trace, `DIR/profile_{mode}.pt.trace.json`.
+Chrome trace, `DIR/profile_{mode}.pt.trace.json`. The profile is one
+process: a --dp, --sp or --tp grid larger than its one rank raises
+`core.mesh.make_mesh`'s ValueError.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ import time
 import torch
 
 from ..core.config import get_args_parser, run_config_from_args
+from ..core.mesh import make_mesh
 from ..data.pipeline import load_data
 from ..train.builder import build_eval_state, build_train_state
 from ..train.generation import make_generation_step
@@ -121,6 +124,7 @@ def main(argv=None) -> dict:
     opts, rest = extra.parse_known_args(argv)
     args = get_args_parser().parse_args(rest)
     run_cfg = run_config_from_args(args)
+    make_mesh(run_cfg.mesh, world_size=1, rank=0)
     device = torch.device(run_cfg.device)
     if device.type != "cuda":
         raise ValueError("the profile measures the card: --device cuda")

@@ -1,16 +1,29 @@
-"""Training CLI: fine-tune the adapter of the frozen LLaMA on one card.
+"""Training CLI: fine-tune the adapter of the frozen LLaMA on one card or
+on a grid of torch.distributed ranks.
 
     python -m flipped_tpu_torch.cli.train --model llama7B --dataset nextqa \
         --llama_model_path ./pretrained/llama/ --data_root ./data \
         --batch_size 8 --max_seq_len 128 --vaq --qav \
         --output_dir ./output_dir/nextqa --device cuda
 
-The port of flipped_tpu/cli/train.py (reference train.py + engine.py), in
-one process with no mesh: loaders → model build → optimizer → epoch loop
-{train_one_epoch, `val_one_epoch`}. Each train step runs
-the three objectives stacked in one encode, K1 forward and K2 backward in
-every block (above S = 2048 K5 forward and K6a + K6b backward), and one
-AdamW update on the adapter. `--quantize` runs the frozen backbone in int8
+The port of flipped_tpu/cli/train.py (reference train.py + engine.py):
+process group → rank grid → loaders → model build → optimizer → epoch loop
+{train_one_epoch, `val_one_epoch`}. Under torchrun (or SLURM, OpenMPI;
+core/distributed.py) --dp, --sp and --tp lay the ranks out (core/mesh.py),
+one card a rank over NCCL, or gloo under --device cpu:
+
+    torchrun --nproc_per_node 8 -m flipped_tpu_torch.cli.train \
+        --model llama7B --dp 2 --sp 2 --tp 2 --batch_size 4 --vaq --qav ...
+
+Each dp row reads its own shard of the data (`--batch_size` rows a shard,
+so the global batch is batch_size · dp), the sp ranks keep S/sp rows of
+the sequence each, the tp ranks H/tp heads and ffn_hidden/tp columns
+(model/parallel.py), and the step sums the gradients over dp×sp.
+Generation eval (--is_generation_task) runs under dp only.
+
+Each train step runs the three objectives stacked in one encode, K1
+forward and K2 backward in every block (above S = 2048 K5 forward and
+K6a + K6b backward), and one AdamW update on the adapter. `--quantize` runs the frozen backbone in int8
 or int4 (K3, K7, K4, K8, K9, K10 by mode). The long-context options run:
 `--lm_head_chunk N` sweeps the LM head in N-token chunks, `--remat_group N`
 checkpoints N blocks as one unit, e.g.
@@ -76,13 +89,16 @@ import torch
 from ..ckpt.manager import CheckpointManager
 from ..core.config import (check_train_ported, get_args_parser,
                            run_config_from_args)
-from ..data.pipeline import load_data
+from ..core.distributed import init_distributed_mode
+from ..core.mesh import loader_shards, make_mesh
+from ..data.pipeline import load_data, pinned_eval_span
 from ..train.builder import build_train_state
 from ..train.optim import make_optimizer
 from ..train.step import make_train_step
-from ..utils.logging import write_log_line
+from ..utils.logging import setup_for_distributed, write_log_line
 from ..utils.metrics import MetricLogger, SmoothedValue
-from .evaluate import batch_to_device, make_val_steps, val_one_epoch
+from .evaluate import (batch_to_device, check_generation_mesh,
+                       make_val_steps, shard_leader, val_one_epoch)
 
 
 def trace_file(trace_dir: str, epoch: int) -> str:
@@ -132,6 +148,7 @@ def train_one_epoch(train_step, loader, epoch: int, device,
     finally:
         if prof is not None:
             _stop_trace(prof, trace_dir, epoch)
+    logger.synchronize_between_processes()
     print("Averaged stats:", logger)
     return {**logger.averages(), "steps": n_steps}
 
@@ -159,19 +176,29 @@ def main(args):
     if run_cfg.train.resume and not output_dir:
         raise ValueError("--resume reads its checkpoint from --output_dir, "
                          "which is empty")
-    device = torch.device(run_cfg.device)
-    np.random.seed(run_cfg.train.seed)
-    model, cfg, tokenizer = build_train_state(run_cfg, device,
-                                              seed=run_cfg.train.seed)
+    device = init_distributed_mode(run_cfg.device)
+    setup_for_distributed()
+    mesh = make_mesh(run_cfg.mesh)
+    check_generation_mesh(run_cfg, mesh)
+    np.random.seed(run_cfg.train.seed + mesh.rank)
+    # a single rank builds as before the grid existed
+    model, cfg, tokenizer = build_train_state(
+        run_cfg, device, seed=run_cfg.train.seed,
+        **({"mesh": mesh} if mesh.is_parallel else {}))
+    shard, n_shards = loader_shards(mesh)
     loader_train = load_data(run_cfg.data, tokenizer, "train",
                              accum_iter=run_cfg.train.accum_iter,
+                             process_index=shard, process_count=n_shards,
                              backend=args.loader,
                              num_workers=args.num_workers)
     loader_val = load_data(run_cfg.data, tokenizer, "val",
+                           process_index=shard, process_count=n_shards,
                            backend=args.loader, num_workers=args.num_workers)
 
-    # examples per optimizer update (reference eff_bs, train.py:104-107)
-    world_batch = run_cfg.data.batch_size * run_cfg.train.accum_iter
+    # examples per optimizer update (reference eff_bs, train.py:104-107):
+    # batch_size rows a loader shard, one shard a dp row
+    world_batch = (run_cfg.data.batch_size * run_cfg.train.accum_iter
+                   * n_shards)
     print(f"effective batch size: {world_batch}")
     print(f"actual lr: {run_cfg.train.absolute_lr(world_batch):.2e}")
     steps_per_epoch = max(len(loader_train) * run_cfg.train.accum_iter, 1)
@@ -194,9 +221,15 @@ def main(args):
     train_step = make_train_step(model, optimizer, vaq=run_cfg.train.vaq,
                                  qav=run_cfg.train.qav,
                                  lm_chunk=run_cfg.train.lm_head_chunk)
-    # one process: no eval span is pinned (data.pipeline.pinned_eval_span),
-    # each batch carries its pack-time span
-    eval_step, gen_step = make_val_steps(model, run_cfg, tokenizer)
+    # more than one process: one eval span pinned for every rank
+    # (data.pipeline.pinned_eval_span); one process: each batch's own
+    span_pin = (None if run_cfg.train.is_generation_task else
+                pinned_eval_span(loader_val.dataset,
+                                 run_cfg.data.max_seq_len, mesh.ranks.size))
+    if span_pin is not None:
+        print(f"eval span pinned: {span_pin}")
+    eval_step, gen_step = make_val_steps(model, run_cfg, tokenizer,
+                                         span_pin)
 
     print(f"Start training for {run_cfg.train.epochs} epochs")
     history = []
@@ -208,7 +241,8 @@ def main(args):
         val_stats = val_one_epoch(eval_step, loader_val, run_cfg.data.dataset,
                                   device, debug=run_cfg.debug,
                                   gen_step=gen_step, tokenizer=tokenizer,
-                                  output_dir=output_dir, epoch=epoch)
+                                  output_dir=output_dir, epoch=epoch,
+                                  leader=shard_leader(mesh, n_shards))
         if best_acc < val_stats.get("acc", 0.0):
             best_acc = val_stats["acc"]
             if mgr is not None:

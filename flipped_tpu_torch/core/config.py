@@ -4,10 +4,11 @@ flipped_tpu/core/config.py).
 The dataclasses and flags keep the JAX package's names and defaults, so a
 reference run script translates one to one. Every training option runs on
 one card: the audio merges, both remat policies, --trace_dir and both
-loaders. The mesh flags (--dp/--tp/--sp/--pp) are parsed, and a mesh axis
-above 1 is refused by `check_jax_only_flags` naming ROADMAP [9]: the port
-runs in one process on one card. `quant_flags` decodes a --quantize mode
-as the JAX package does.
+loaders. The mesh flags --dp, --sp and --tp lay the ranks of a
+torch.distributed run out on a (dp, pp, sp, tp) grid (`MeshConfig`,
+core/mesh.py); --pp above 1 is refused by `check_jax_only_flags` naming
+ROADMAP [9]. `quant_flags` decodes a --quantize mode as the JAX package
+does.
 """
 from __future__ import annotations
 
@@ -194,11 +195,24 @@ def check_train_ported(train: "TrainConfig") -> None:
         raise ValueError(f"unknown --remat_policy {train.remat_policy!r}")
 
 
+@dataclass(frozen=True)
+class MeshConfig:
+    """The rank grid (JAX: core/config.py:185-205): dp data parallel (-1:
+    every rank the other axes leave), pp pipeline stages (not ported), sp
+    sequence parallel, tp tensor parallel (core/mesh.py)."""
+
+    dp: int = -1
+    pp: int = 1
+    sp: int = 1
+    tp: int = 1
+
+
 @dataclass
 class RunConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     llama_model_path: str = "./pretrained/llama/"
     model_name: str = "llama7B"
     tokenizer_path: str = ""
@@ -206,21 +220,17 @@ class RunConfig:
     device: str = "cuda"
 
 
-MESH_FLAGS = ("dp", "tp", "sp", "pp")
-
-
 def check_jax_only_flags(args: argparse.Namespace) -> None:
-    """Refuse what the JAX parser's mesh flags ask for beyond one card,
-    naming ROADMAP [9]. A mesh axis of 1 (or dp -1, all devices) is the
-    single card; --pp_microbatches is accepted and unused. --num_workers is
-    the worker count of `--loader grain` (data/pipeline.py) and --trace_dir
-    the train CLI's profiler trace."""
-    for name in MESH_FLAGS:
-        size = getattr(args, name)
-        if size > 1:
-            raise NotImplementedError(
-                f"--{name} {size}: multi-card meshes are not ported yet "
-                f"(ROADMAP [9], parallelism)")
+    """Refuse the one mesh axis the port does not run: --pp above 1, naming
+    ROADMAP [9]. --dp, --sp and --tp make the rank grid (core/mesh.py
+    `make_mesh`, which raises when it needs more ranks than the run has);
+    --pp_microbatches is accepted and unused. --num_workers is the worker
+    count of `--loader grain` (data/pipeline.py) and --trace_dir the train
+    CLI's profiler trace."""
+    if args.pp > 1:
+        raise NotImplementedError(
+            f"--pp {args.pp}: pipeline parallelism is not ported yet "
+            f"(ROADMAP [9], pp)")
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -327,7 +337,8 @@ def run_config_from_args(args: argparse.Namespace) -> RunConfig:
         remat_group=args.remat_group, quantize=args.quantize,
         lm_head_chunk=args.lm_head_chunk,
         flash_attention=not args.no_flash)
-    return RunConfig(model=model, data=data, train=train,
+    mesh = MeshConfig(dp=args.dp, pp=args.pp, sp=args.sp, tp=args.tp)
+    return RunConfig(model=model, data=data, train=train, mesh=mesh,
                      llama_model_path=args.llama_model_path,
                      model_name=args.model,
                      tokenizer_path=args.tokenizer_path, debug=args.debug,

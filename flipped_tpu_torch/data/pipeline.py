@@ -2,11 +2,13 @@
 
 The port's own copy of flipped_tpu/data/pipeline.py, kept here so that
 flipped_tpu_torch imports nothing of the JAX package. It differs in three
-places: the process index and count come from the caller (a single process
-is index 0 of 1; JAX read them from `jax.process_index()`), `--loader
-grain` is `WorkerLoader` (below: Grain is not on the card's image, so its
-own shuffle order is not reproduced), and `pinned_eval_span` pins nothing
-in a single process.
+places: the process index and count come from the caller, which takes
+them from `core.mesh.loader_shards` (every rank of one dp row reads the
+same shard; one process is shard 0 of 1; JAX read them from
+`jax.process_index()`), `--loader grain` is `WorkerLoader` (below: Grain
+is not on the card's image, so its own shuffle order is not reproduced),
+and `pinned_eval_span` takes the process count as an argument: it pins
+one eval span for every rank when there is more than one, as JAX does.
 
 Replacement of the reference's DataLoader + DistributedSampler
 (reference: dataloader/__init__.py:19-24): each process reads its own

@@ -43,6 +43,13 @@ wrapper:
 - `<wrapper>.launches` counts kernel launches; only the CUDA branch adds
   to it.
 
+Under sequence parallelism (`sp_flash_or_einsum`, JAX :811-1017) each sp
+rank runs K5, K6a and K6b on its own S/sp q rows at `q_offset` = its sp
+index · S/sp, against K/V all-gathered over the sp group
+(`SpFlashAdapterAttention`); the full-length dk/dv partials go back to
+their shards by a reduce-scatter. A sequence that sp does not divide is
+held whole by every sp rank and goes through the single-rank kernels.
+
 The kernels' persistent grids take their work items from a counter in
 device memory that the launch's last block resets. Each launch gets the
 counter of the stream it runs on (`_item_counter`): launches on one
@@ -52,10 +59,14 @@ their own items.
 from __future__ import annotations
 
 import math
+import warnings
+from typing import Optional
 
 import torch
 
-from ..attention import NEG_INF, adapter_prefix_attention
+from ...core import collectives as C
+from ..attention import (NEG_INF, adapter_gated_attention,
+                         adapter_prefix_attention)
 
 # head dims the kernels are instantiated for (csrc/flash_*.cu): every LLaMA
 # preset the repo names (7B, 13B, 33B) has 128
@@ -656,3 +667,128 @@ def flash_adapter_attention(q, k, v, adapter_k, adapter_v, gate1, gate2,
     return FlashAdapterAttention.apply(q, k, v, adapter_k, adapter_v, gate1,
                                        gate2, video_start, max_feats,
                                        streaming)
+
+
+# --- sequence parallelism (JAX flash_attention.py:811-1017) ------------------
+
+def sp_indivisible_reason(s: int, b: int, sp: int, dp: int) -> Optional[str]:
+    """Why a length-s sequence of a global batch of b cannot be cut into
+    sp equal shards over dp rows, or None (JAX `_indivisible_reason`,
+    :992-1001)."""
+    if s % sp:
+        return f"S={s} % sp={sp} != 0"
+    if b % dp:
+        return f"B={b} % dp={dp} != 0"
+    return None
+
+
+class SpFlashAdapterAttention(torch.autograd.Function):
+    """Sequence-parallel two-segment attention (JAX
+    `sp_flash_adapter_attention`, :945-989). q, k, v are this rank's S/sp
+    rows, at global rows q_offset.. of the sequence.
+
+    Forward: K/V all-gathered over the sp group, K5 on the local q rows at
+    q_offset; the adapter segment outside, exact small attention on the
+    local rows (JAX :945-980). Backward: K/V gathered again, D in plain
+    torch, K6a for dq and dgate2 and K6b for the full-length dk/dv
+    partials, which a reduce-scatter (in f32) sums and hands back to their
+    shards. dgate2 is this rank's rows' part: the train step's one sum
+    over dp×sp completes it (JAX sums it here, :931, and the step's
+    reduction would count it twice). Under the qkv remat policy the
+    recompute takes (text, lse) from the forward's stash, as
+    `FlashAdapterAttention` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, adapter_k, adapter_v, gate1, gate2,
+                video_start, max_feats, group, q_offset):
+        b, s, h, dh = q.shape
+        g2 = gate2.float()
+        vs = video_start.to(torch.int32)
+        unit = _KEPT
+        if unit is not None and unit.replaying:
+            text, lse = unit.kept.pop(0)
+        else:
+            kf, vf = _gather_kv(k, v, group)
+            text, lse = flash_streaming_fwd(q, kf, vf, g2, vs, max_feats,
+                                            q_offset)
+            if unit is not None:
+                unit.kept.append((text, lse))
+        out = text + adapter_prefix_attention(q, adapter_k, adapter_v, gate1)
+        ctx.save_for_backward(q, k, v, adapter_k, adapter_v, gate1, g2, vs,
+                              text, lse)
+        ctx.max_feats, ctx.group, ctx.q_offset = max_feats, group, q_offset
+        ctx.gate2_dtype = gate2.dtype
+        return out.reshape(b, s, h * dh)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, adapter_k, adapter_v, gate1, g2, vs, text, lse = \
+            ctx.saved_tensors
+        g4 = g.reshape(q.shape).to(q.dtype)
+        kf, vf = _gather_kv(k, v, ctx.group)
+        dq_t, dk_full, dv_full, dg2 = flash_streaming_bwd(
+            q, kf, vf, g2, vs, ctx.max_feats, g4, text, lse, ctx.q_offset)
+        dk = C.reduce_scatter(dk_full.float(), ctx.group, 1).to(k.dtype)
+        dv = C.reduce_scatter(dv_full.float(), ctx.group, 1).to(v.dtype)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in
+                      (q, adapter_k, adapter_v, gate1)]
+            seg = adapter_prefix_attention(*leaves)
+        dq_a, dak, dav, dg1 = torch.autograd.grad(seg, leaves, g4)
+        return (dq_t + dq_a, dk, dv, dak, dav, dg1,
+                dg2.to(ctx.gate2_dtype), None, None, None, None)
+
+
+def _gather_kv(k, v, group):
+    """The whole sequence's K and V, (B, S, H, Dh) contiguous."""
+    return (C.all_gather(k, group, 1).contiguous(),
+            C.all_gather(v, group, 1).contiguous())
+
+
+def sp_flash_adapter_attention(q, k, v, adapter_k, adapter_v, gate1, gate2,
+                               video_start, max_feats: int, group,
+                               q_offset: int) -> torch.Tensor:
+    """Sequence-parallel drop-in for `adapter_gated_attention` on this
+    rank's rows: K5/K6 per shard against K/V gathered over `group`, at any
+    S (JAX routes every multi-device mesh here, llama.py:252-266).
+    Returns (B, S/sp, H*Dh)."""
+    return SpFlashAdapterAttention.apply(q, k, v, adapter_k, adapter_v,
+                                         gate1, gate2, video_start,
+                                         max_feats, group, q_offset)
+
+
+def sp_flash_or_einsum(q, k, v, adapter_k, adapter_v, gate1, gate2,
+                       video_start, max_feats: int, seq,
+                       use_flash: bool = True) -> torch.Tensor:
+    """Sequence-parallel dispatch (JAX `sp_flash_or_einsum`, :984-1017).
+    `seq` is the rank's `model.llama.SeqShard`. Where the sequence could
+    not be cut (`seq.reason`: S % sp or B % dp), every sp rank holds the
+    whole sequence, the input of the single-rank path: this warns with
+    JAX's text and runs `flash_adapter_attention` on it (JAX takes its
+    einsum attention there); divisible shapes take the streaming kernels
+    on the shard (`sp_flash_adapter_attention`). Under --no_flash: the
+    einsum attention, on q, k, v gathered over the group for a shard, this
+    rank's rows kept."""
+    if seq.reason is not None:
+        if not use_flash:
+            return adapter_gated_attention(q, k, v, adapter_k, adapter_v,
+                                           gate1, gate2, video_start,
+                                           max_feats)
+        warnings.warn(
+            "sequence-parallel flash kernels skipped (" + seq.reason +
+            "); every sp rank attends over the whole sequence with the "
+            "single-rank flash kernels. Pick sp/dp that divide S and B "
+            "evenly.", stacklevel=2)
+        return flash_adapter_attention(q, k, v, adapter_k, adapter_v, gate1,
+                                       gate2, video_start, max_feats)
+    if use_flash:
+        return sp_flash_adapter_attention(q, k, v, adapter_k, adapter_v,
+                                          gate1, gate2, video_start,
+                                          max_feats, seq.group, seq.offset)
+    from ..parallel import seq_gather
+
+    gather = lambda t: seq_gather(t, seq.group)
+    out = adapter_gated_attention(gather(q), gather(k), gather(v), adapter_k,
+                                  adapter_v, gate1, gate2, video_start,
+                                  max_feats)
+    return out[:, seq.offset:seq.offset + q.shape[1]]

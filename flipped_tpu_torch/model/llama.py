@@ -65,9 +65,12 @@ from .attention import (adapter_gated_attention, chunk_extend_attention,
 from .int4 import int4_matmul, int4_matmul_grouped
 from .int8 import (int8_matmul, int8_matmul_dgrad, int8_matmul_grouped,
                    outlier_count)
-from .kernels.flash_attention import flash_adapter_attention, keep_attention
+from .kernels.flash_attention import (flash_adapter_attention,
+                                      keep_attention, sp_flash_or_einsum,
+                                      sp_indivisible_reason)
 from .kernels.quant_matmul import dequant
 from .layers import apply_rope, apply_rope_at, precompute_rope, rms_norm
+from .parallel import copy_to, gather_from, seq_gather
 
 
 def _empty(shape, dtype, device) -> nn.Parameter:
@@ -109,6 +112,8 @@ class Linear(nn.Module):
         self.quant_outliers = quant_outliers
         self.weight_bits = weight_bits
         self.dgrad_quant = dgrad_quant
+        # a parallel.TensorSplit when the bf16 weight is a tp piece
+        self.tp = None
         if not quantized:
             self.weight = _empty((out_features, in_features), param_dtype,
                                  device)
@@ -137,6 +142,8 @@ class Linear(nn.Module):
 
     def forward(self, x):
         if not self.quantized:
+            if self.tp is not None:
+                return self.tp.linear(x, self.weight.to(self.dtype))
             return F.linear(x, self.weight.to(self.dtype))
         if self.weight_bits == 4:
             mm = int4_matmul_grouped if self.act_quant else int4_matmul
@@ -197,14 +204,18 @@ class CrossAttentionModule(nn.Module):
 
 
 class Embedding(nn.Module):
-    """A lookup table named like nn.Embedding (`<name>.weight`)."""
+    """A lookup table named like nn.Embedding (`<name>.weight`). Under tp
+    the token table holds its rank's columns (P(None, 'tp')) and the
+    lookup gathers the rest (`tp_group`, set by model/parallel.py)."""
 
     def __init__(self, num: int, dim: int, param_dtype, device=None):
         super().__init__()
         self.weight = _empty((num, dim), param_dtype, device)
+        self.tp_group = None
 
     def forward(self, idx):
-        return F.embedding(idx.long(), self.weight)
+        return gather_from(F.embedding(idx.long(), self.weight),
+                           self.tp_group, -1)
 
 
 class RMSNorm(nn.Module):
@@ -222,7 +233,16 @@ class Attention(nn.Module):
     `prefill` send segment B through K1 (and its backward through K2), or,
     with use_flash False (--no_flash), through the einsum
     `adapter_gated_attention` (JAX: llama.py:262-263); `extend` and
-    `decode` run the plain chunk and single-token attention."""
+    `decode` run the plain chunk and single-token attention.
+
+    Under tp (`split_heads`, model/parallel.py) it runs heads [head0,
+    head0 + n_local_heads) of its rank: wq/wk/wv hold those heads' rows,
+    wo their columns, and gate1/gate2 are sliced to them. Under sp the
+    dense forward gets `seq` (`SeqShard`): its rows are a shard of the
+    sequence, and segment B runs `sp_flash_adapter_attention` (K5 forward,
+    K6a + K6b backward against K/V gathered over the sp group; a sequence
+    sp does not divide goes whole through K1/K2 or K5/K6, as without sp),
+    or under --no_flash the einsum attention on gathered q, k, v."""
 
     def __init__(self, cfg: ModelConfig, dtype, frozen_dtype, trainable_dtype,
                  device=None, quant=None, use_flash: bool = True):
@@ -234,10 +254,22 @@ class Attention(nn.Module):
         self.wq, self.wk, self.wv, self.wo = mk(), mk(), mk(), mk()
         self.gate1 = _empty((cfg.n_heads,), trainable_dtype, device)
         self.gate2 = _empty((cfg.n_heads,), trainable_dtype, device)
+        self.n_local_heads, self.head0, self.tp_group = cfg.n_heads, 0, None
+
+    def split_heads(self, tp: int, index: int, group) -> None:
+        """Run this tp rank's H/tp heads (its wq/wk/wv/wo pieces)."""
+        self.n_local_heads = self.cfg.n_heads // tp
+        self.head0 = index * self.n_local_heads
+        self.tp_group = group
+
+    def _gates(self):
+        heads = slice(self.head0, self.head0 + self.n_local_heads)
+        return self.gate1[heads], self.gate2[heads]
 
     def _qkv(self, x, rope_cos, rope_sin):
         b, s, _ = x.shape
-        h, dh = self.cfg.n_heads, self.cfg.head_dim
+        h, dh = self.n_local_heads, self.cfg.head_dim
+        x = copy_to(x, self.tp_group)
         q = self.wq(x).view(b, s, h, dh)
         k = self.wk(x).view(b, s, h, dh)
         v = self.wv(x).view(b, s, h, dh)
@@ -245,22 +277,31 @@ class Attention(nn.Module):
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
     def _adapter_kv(self, adapter):
-        h, dh = self.cfg.n_heads, self.cfg.head_dim
+        h, dh = self.n_local_heads, self.cfg.head_dim
         al = adapter.shape[0]
-        a = adapter.to(self.wk.dtype)
+        a = copy_to(adapter.to(self.wk.dtype), self.tp_group)
         return (self.wk(a).view(al, h, dh), self.wv(a).view(al, h, dh))
 
-    def _attend(self, x, rope_cos, rope_sin, adapter, video_start):
+    def _attend(self, x, rope_cos, rope_sin, adapter, video_start,
+                seq=None):
         q, k, v = self._qkv(x, rope_cos, rope_sin)
         ak, av = self._adapter_kv(adapter)
-        attend = (flash_adapter_attention if self.use_flash
-                  else adapter_gated_attention)
-        out = attend(q, k, v, ak, av, self.gate1, self.gate2, video_start,
-                     self.cfg.max_feats)
+        gate1, gate2 = self._gates()
+        if seq is not None:
+            out = sp_flash_or_einsum(q, k, v, ak, av, gate1, gate2,
+                                     video_start, self.cfg.max_feats, seq,
+                                     self.use_flash)
+        else:
+            attend = (flash_adapter_attention if self.use_flash
+                      else adapter_gated_attention)
+            out = attend(q, k, v, ak, av, gate1, gate2, video_start,
+                         self.cfg.max_feats)
         return self.wo(out), k, v
 
-    def forward(self, x, rope_cos, rope_sin, adapter, video_start):
-        return self._attend(x, rope_cos, rope_sin, adapter, video_start)[0]
+    def forward(self, x, rope_cos, rope_sin, adapter, video_start,
+                seq=None):
+        return self._attend(x, rope_cos, rope_sin, adapter, video_start,
+                            seq)[0]
 
     def prefill(self, x, rope_cos, rope_sin, adapter, video_start):
         """Dense forward that also returns the rope'd K / V for the cache."""
@@ -270,8 +311,9 @@ class Attention(nn.Module):
                cache_v, prefix, n_opt: int):
         """x (B, n_opt*L, D); chunk row j sits at position prefix + j % L."""
         b, nl, _ = x.shape
-        h, dh = self.cfg.n_heads, self.cfg.head_dim
+        h, dh = self.n_local_heads, self.cfg.head_dim
         chunk_len = nl // n_opt
+        x = copy_to(x, self.tp_group)
         q = self.wq(x).view(b, nl, h, dh)
         k = self.wk(x).view(b, nl, h, dh)
         v = self.wv(x).view(b, nl, h, dh)
@@ -281,8 +323,9 @@ class Attention(nn.Module):
         q = apply_rope_at(q, cos, sin)
         k = apply_rope_at(k, cos, sin)
         ak, av = self._adapter_kv(adapter)
+        gate1, gate2 = self._gates()
         out = chunk_extend_attention(q, k, v, cache_k, cache_v, ak, av,
-                                     self.gate1, self.gate2, video_start,
+                                     gate1, gate2, video_start,
                                      prefix, n_opt, self.cfg.max_feats)
         return self.wo(out)
 
@@ -293,7 +336,8 @@ class Attention(nn.Module):
         H, Dh) at pos in place: JAX's functional `.at[].set` would copy the
         whole cache every token."""
         b = x.shape[0]
-        h, dh = self.cfg.n_heads, self.cfg.head_dim
+        h, dh = self.n_local_heads, self.cfg.head_dim
+        x = copy_to(x, self.tp_group)
         q = self.wq(x).view(b, 1, h, dh)
         k = self.wk(x).view(b, 1, h, dh)
         v = self.wv(x).view(b, 1, h, dh)
@@ -305,14 +349,15 @@ class Attention(nn.Module):
         cache_k[rows, pos] = k[:, 0].to(cache_k.dtype)
         cache_v[rows, pos] = v[:, 0].to(cache_v.dtype)
         ak, av = self._adapter_kv(adapter)
-        out = decode_attention(q, cache_k, cache_v, ak, av, self.gate1,
-                               self.gate2, video_start, pos,
-                               self.cfg.max_feats)
+        gate1, gate2 = self._gates()
+        out = decode_attention(q, cache_k, cache_v, ak, av, gate1, gate2,
+                               video_start, pos, self.cfg.max_feats)
         return self.wo(out)
 
 
 class FeedForward(nn.Module):
-    """SwiGLU FFN (JAX: llama.py:330-359)."""
+    """SwiGLU FFN (JAX: llama.py:330-359). Under tp w1/w3 hold this
+    rank's hidden rows and w2 its columns (model/parallel.py)."""
 
     def __init__(self, cfg: ModelConfig, dtype, frozen_dtype, device=None,
                  quant=None):
@@ -322,8 +367,10 @@ class FeedForward(nn.Module):
         self.w1 = Linear(cfg.dim, hid, dtype, frozen_dtype, device, **q)
         self.w2 = Linear(hid, cfg.dim, dtype, frozen_dtype, device, **q)
         self.w3 = Linear(cfg.dim, hid, dtype, frozen_dtype, device, **q)
+        self.tp_group = None
 
     def forward(self, x):
+        x = copy_to(x, self.tp_group)
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
 
 
@@ -341,9 +388,10 @@ class TransformerBlock(nn.Module):
                                       device)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, frozen_dtype, device)
 
-    def forward(self, x, rope_cos, rope_sin, adapter, video_start):
+    def forward(self, x, rope_cos, rope_sin, adapter, video_start,
+                seq=None):
         h = x + self.attention(self.attention_norm(x), rope_cos, rope_sin,
-                               adapter, video_start)
+                               adapter, video_start, seq)
         return h + self.feed_forward(self.ffn_norm(h))
 
     def prefill(self, x, rope_cos, rope_sin, adapter, video_start):
@@ -370,9 +418,30 @@ class TransformerBlock(nn.Module):
 AUDIO_MERGES = (None, "audio_only", "sum", "concat", "attention")
 
 
+class SeqShard:
+    """The rows of one sp rank: `length` rows from global row `offset`,
+    K/V gathered over `group`; where `reason` says why the sequence could
+    not be cut, the whole sequence (offset 0)."""
+
+    def __init__(self, group, offset: int, length: int, reason=None):
+        self.group, self.offset, self.length = group, offset, length
+        self.reason = reason
+
+
 class FlippedVQAModel(nn.Module):
     """The adapter-gated LLaMA with its audio merges (JAX: llama.py:
-    447-769)."""
+    447-769).
+
+    Under a mesh (model/parallel.py `parallelize` sets `mesh`) the tp
+    leaves are this rank's pieces, and with sp > 1
+    `encode` keeps S/sp rows a rank (JAX `seq_shard`, llama.py:491-517):
+    the embedding and the video splice run on the full S, so the features
+    land at their global positions, then the rank keeps rows [offset,
+    offset + S/sp), RoPE is taken at that offset and every block runs on
+    those rows (`SeqShard`). Where S does not divide by sp, `seq_cut`
+    warns with JAX's text and every sp rank runs the whole sequence through
+    the single-rank flash kernels. The KV-cache paths (prefill, extend,
+    decode) run the whole sequence on every sp rank, as JAX's do."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
                  frozen_dtype=torch.bfloat16, trainable_dtype=torch.float32,
@@ -387,6 +456,7 @@ class FlippedVQAModel(nn.Module):
             raise ValueError(f"unknown audio_merge {cfg.audio_merge!r}")
         self.cfg = cfg
         self.dtype = dtype
+        self.mesh = None            # set by model/parallel.py
         self.remat = remat
         self.remat_group = remat_group
         self.remat_policy = remat_policy
@@ -487,11 +557,32 @@ class FlippedVQAModel(nn.Module):
         return (h * (1.0 - is_video[..., None])
                 + torch.einsum("bfs,bfd->bsd", onehot, vf))
 
+    def seq_cut(self, s: int, b: int) -> Optional[SeqShard]:
+        """This rank's rows of a length-s sequence under sp, or None
+        without sp. Where S (or the global batch, b·dp) does not divide,
+        the SeqShard is the whole sequence with the reason, and attention
+        warns and runs it through the single-rank kernels
+        (`sp_flash_or_einsum`)."""
+        if self.mesh is None or self.mesh.size("sp") == 1:
+            return None
+        g = self.mesh.group("sp")
+        sp, dp = self.mesh.size("sp"), self.mesh.size("dp")
+        reason = sp_indivisible_reason(s, b * dp, sp, dp)
+        if reason is not None:
+            return SeqShard(g, 0, s, reason)
+        n = s // sp
+        return SeqShard(g, self.mesh.index("sp") * n, n)
+
     def encode(self, tokens, video_feature, video_start, splice_index):
         """Embed, splice video, run the active blocks + final norm →
-        (B, S, dim) (JAX: llama.py:622-661)."""
+        (B, S, dim) (JAX: llama.py:622-661); under sp (B, S/sp, dim), the
+        rows of `seq_cut`."""
         h = self._embed_and_splice(tokens, video_feature, splice_index)
         rope_cos, rope_sin = self._rope(tokens.shape[1])
+        seq = self.seq_cut(tokens.shape[1], tokens.shape[0])
+        if seq is not None and seq.reason is None:
+            rows = slice(seq.offset, seq.offset + seq.length)
+            h, rope_cos, rope_sin = h[:, rows], rope_cos[rows], rope_sin[rows]
         remat = self.remat and torch.is_grad_enabled()
         # the remat unit: under 'qkv' it keeps its attention outputs
         unit = keep_attention if self.remat_policy == "qkv" else (lambda f: f)
@@ -502,36 +593,54 @@ class FlippedVQAModel(nn.Module):
             for start in range(0, n, self.remat_group):
                 h = checkpoint(unit(self._run_block_range), h, rope_cos,
                                rope_sin, video_start, start,
-                               min(start + self.remat_group, n),
+                               min(start + self.remat_group, n), seq,
                                use_reentrant=False)
             return self.norm(h)
         for block, adapter in self._active_blocks():
             if remat:
                 h = checkpoint(unit(block), h, rope_cos, rope_sin, adapter,
-                               video_start, use_reentrant=False)
+                               video_start, seq, use_reentrant=False)
             else:
-                h = block(h, rope_cos, rope_sin, adapter, video_start)
+                h = block(h, rope_cos, rope_sin, adapter, video_start, seq)
         return self.norm(h)
 
+    def encode_full(self, tokens, video_feature, video_start, splice_index):
+        """`encode` with the sp ranks' rows gathered: (B, S, dim) on every
+        rank (the dense scorer's)."""
+        h = self.encode(tokens, video_feature, video_start, splice_index)
+        seq = self.seq_cut(tokens.shape[1], tokens.shape[0])
+        if seq is None or seq.reason is not None:
+            return h
+        return seq_gather(h, seq.group)
+
     def _run_block_range(self, h, rope_cos, rope_sin, video_start,
-                         start: int, stop: int):
+                         start: int, stop: int, seq=None):
         """Active blocks [start, stop): the remat_group checkpoint unit
         (JAX: llama.py:664-672)."""
         for block, adapter in self._active_blocks()[start:stop]:
-            h = block(h, rope_cos, rope_sin, adapter, video_start)
+            h = block(h, rope_cos, rope_sin, adapter, video_start, seq)
         return h
 
     def lm_logits(self, h):
-        return self.output(h)
+        """The vocabulary logits of h's rows; under tp the head's vocab
+        pieces gathered (model/parallel.py)."""
+        split = self.output.tp
+        return self.output(copy_to(h, split.group if split else None))
 
-    def qav_logits(self, h, video_feature):
-        """h · video_featureᵀ / tau over the F frames, f32; the rotated
-        modes take vf @ qav_rot (JAX: llama.py:684-696)."""
+    def qav_row_logits(self, h_rows, video_feature):
+        """h_rows · video_featureᵀ / tau over the F frames, f32: the QAV
+        logits of the rows given, each predicting the next position's
+        frame label; the rotated modes take vf @ qav_rot (JAX: llama.py:
+        684-696)."""
         vf = video_feature.float()
         if self.rotated:
             vf = vf @ self.qav_rot.float()
-        return (torch.einsum("bsd,bfd->bsf", h[:, :-1].float(), vf)
+        return (torch.einsum("bsd,bfd->bsf", h_rows.float(), vf)
                 / self.cfg.tau)
+
+    def qav_logits(self, h, video_feature):
+        """The QAV logits of rows 0..S-2 of the whole sequence h."""
+        return self.qav_row_logits(h[:, :-1], video_feature)
 
     def prefill(self, tokens, video_feature, video_start, splice_index,
                 cache_len: int):
@@ -543,7 +652,8 @@ class FlippedVQAModel(nn.Module):
         cfg = self.cfg
         h = self._embed_and_splice(tokens, video_feature, splice_index)
         rope_cos, rope_sin = self._rope(cache_len)
-        shape = (len(self.layers), b, cache_len, cfg.n_heads, cfg.head_dim)
+        heads = next(iter(self.layers.values())).attention.n_local_heads
+        shape = (len(self.layers), b, cache_len, heads, cfg.head_dim)
         cache_k = torch.zeros(shape, dtype=self.dtype, device=tokens.device)
         cache_v = torch.zeros_like(cache_k)
         for i, (block, adapter) in enumerate(self._active_blocks()):
@@ -564,7 +674,7 @@ class FlippedVQAModel(nn.Module):
         for i, (block, adapter) in enumerate(self._active_blocks()):
             h = block.extend(h, rope_cos, rope_sin, adapter, video_start,
                              cache_k[i], cache_v[i], prefix, n_opt)
-        logits = self.output(self.norm(h))
+        logits = self.lm_logits(self.norm(h))
         return logits.view(b, n_opt, chunk_len, self.cfg.vocab_size)
 
     def decode_step(self, token, cache_k, cache_v, pos, video_start):
@@ -577,7 +687,7 @@ class FlippedVQAModel(nn.Module):
         for i, (block, adapter) in enumerate(self._active_blocks()):
             h = block.decode(h, rope_cos, rope_sin, adapter, video_start,
                              cache_k[i], cache_v[i], pos)
-        return self.output(self.norm(h))[:, 0], cache_k, cache_v
+        return self.lm_logits(self.norm(h))[:, 0], cache_k, cache_v
 
     def forward(self, tokens, video, audio, video_start, splice_index):
         """fuse → encode → (lm logits, qav logits) (JAX: llama.py:765-769)."""

@@ -20,6 +20,11 @@ warning; extra checkpoint keys are ignored. A directory with only the JAX
 converter's `model.flax.safetensors` raises: the port reads the .pth
 shards (the card's image has no safetensors package). With no checkpoint
 the backbone stays at random init, with the JAX builder's warning.
+
+Under a mesh every rank builds the same full tree from the seed (random
+weights, or the checkpoint) and then keeps its piece of each tp-split leaf
+(`model.parallel.parallelize`, leaf by leaf through `core.mesh.
+shard_leaf`), so no rank holds two full copies.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from ..ckpt.rotate import Rotation, fold_leaf
 from ..core.config import (MODEL_PRESETS, ModelConfig, RunConfig,
                            check_train_ported, model_quant_kwargs)
 from ..model.llama import FlippedVQAModel, Linear
+from ..model.parallel import parallelize
 from ..text import load_tokenizer
 from .optim import is_trainable, trainable_parameters
 
@@ -241,9 +247,10 @@ def load_checkpoint(model: FlippedVQAModel, path) -> List[str]:
 
 
 def build_eval_state(run_cfg: RunConfig, device, seed: int = 0,
-                     dtype=torch.bfloat16):
+                     dtype=torch.bfloat16, mesh=None):
     """→ (model, cfg, tokenizer) with the model's parameters initialised
-    and, where there is a checkpoint, its frozen backbone loaded."""
+    and, where there is a checkpoint, its frozen backbone loaded; under a
+    `mesh` (core/mesh.py) cut to this rank's pieces."""
     model, cfg = build_model(run_cfg, device, dtype)
     tok_path = tokenizer_path(run_cfg)
     tokenizer = load_tokenizer(tok_path if os.path.exists(tok_path) else "",
@@ -266,18 +273,21 @@ def build_eval_state(run_cfg: RunConfig, device, seed: int = 0,
                   f"leaves — they stay RANDOMLY initialized (first few: "
                   f"{missing[:5]}). The checkpoint is likely incomplete.")
     check_dtype_policy(model, dtype)
+    if mesh is not None:
+        parallelize(model, mesh)
     return model, cfg, tokenizer
 
 
 def build_train_state(run_cfg: RunConfig, device, seed: int = 0,
-                      dtype=torch.bfloat16):
+                      dtype=torch.bfloat16, mesh=None):
     """→ (model, cfg, tokenizer) for training: parameters initialised,
     trainables requires_grad, blocks rematerialised unless --no_remat, in
     groups of --remat_group, under --remat_policy (JAX: builder.py:113-209).
     The audio trainables, which no Meta shard holds, keep their init, as
     visual_proj does."""
     check_train_ported(run_cfg.train)
-    model, cfg, tokenizer = build_eval_state(run_cfg, device, seed, dtype)
+    model, cfg, tokenizer = build_eval_state(run_cfg, device, seed, dtype,
+                                             mesh)
     model.remat = run_cfg.train.remat
     model.remat_group = run_cfg.train.remat_group
     model.remat_policy = run_cfg.train.remat_policy

@@ -13,6 +13,15 @@ count of NONZERO token losses (not the label mask), prediction = argmin.
 `--lm_head_chunk` (`lm_chunk` > 0) sweeps the LM head over the sequence in
 chunks, each recomputed in the backward, so that one chunk's vocab-width
 logits are live at a time (`lm_ce_rowwise_chunked`).
+
+Under a mesh (model/parallel.py) the losses are global token means, as
+GSPMD computes them: each rank divides its own sum by the valid count of
+the whole dp×sp group, all-reduced without gradient, so the dp×sp sum of
+the ranks' losses (and of their gradients, train/step.py) is the mean over
+every token of the global batch. A mean of per-rank means (DDP's) would
+differ where ranks hold different counts. Under sp the labels are shifted
+on the full S before the cut (`shift_rows`): a shard's last row predicts
+the next shard's first label.
 """
 from __future__ import annotations
 
@@ -20,6 +29,9 @@ from typing import Dict, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ..core import collectives as C
+from ..core.mesh import DPSP
 
 
 class Losses(NamedTuple):
@@ -32,17 +44,40 @@ class Losses(NamedTuple):
         return self.vqa + self.vaq + self.qav
 
 
+def global_count(count: torch.Tensor, group) -> torch.Tensor:
+    """`count` summed over `group` (None: this rank's), no gradient."""
+    if group is None:
+        return count
+    return C.all_reduce(count.detach().clone(), group)
+
+
 def ce_ignore_index(logits: torch.Tensor, labels: torch.Tensor,
-                    ignore_index: int) -> torch.Tensor:
+                    ignore_index: int, group=None) -> torch.Tensor:
     """Mean CE over positions where labels != ignore_index
-    (JAX: objectives.py:37-47)."""
+    (JAX: objectives.py:37-47); with a `group`, this rank's sum over the
+    group's valid count."""
     logits = logits.float()
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     logp = torch.log_softmax(logits, dim=-1)
     tok_ll = torch.gather(logp, -1, safe[..., None])[..., 0]
     losses = torch.where(valid, -tok_ll, torch.zeros_like(tok_ll))
-    return losses.sum() / valid.sum().clamp_min(1)
+    return losses.sum() / global_count(valid.sum(), group).clamp_min(1)
+
+
+def shift_rows(model, h: torch.Tensor, labels: torch.Tensor,
+               ignore_index: int):
+    """(rows of h, their targets): each row predicts the next position's
+    label. Whole sequences: h[:, :-1] against labels[:, 1:]
+    (objectives.py:145-166). Under the sp cut h holds this rank's rows of
+    the sequence: labels are shifted on the full S, the last position
+    ignored, then cut to the same rows."""
+    seq = model.seq_cut(labels.shape[1], labels.shape[0])
+    if seq is None or seq.reason is not None:
+        return h[:, :-1], labels[:, 1:]
+    nxt = torch.cat([labels[:, 1:],
+                     torch.full_like(labels[:, :1], ignore_index)], dim=1)
+    return h, nxt[:, seq.offset:seq.offset + seq.length]
 
 
 def token_ce_unreduced(logits: torch.Tensor,
@@ -116,33 +151,42 @@ def compute_objective_losses(model, batch: Dict[str, torch.Tensor],
     """The three losses of one microbatch, the LM head over the VQA and VAQ
     rows only: dense, or with lm_chunk > 0 swept in sequence chunks of that
     size (`lm_ce_rowwise_chunked`), the same losses with bounded vocab-width
-    memory (JAX: objectives.py:134-175)."""
+    memory (JAX: objectives.py:134-175). Under a mesh each loss is this
+    rank's share of the global token mean (module note)."""
+    mesh = getattr(model, "mesh", None)
+    group = mesh.group(DPSP) if mesh is not None else None
     parts, vf = fused_forward(model, batch, vaq, qav)
     zero = torch.zeros((), device=vf.device)
     lm_keys = ["vqa"] + (["vaq"] if vaq else [])
     b = batch["vqa_tokens"].shape[0]
-    lm_h = torch.cat([parts[k][:, :-1] for k in lm_keys])
+    rows = [shift_rows(model, parts[k], batch[f"{k}_labels"], 0)
+            for k in lm_keys]
+    lm_h = torch.cat([h for h, _ in rows])
+    lm_labels = torch.cat([t for _, t in rows])
 
     if lm_chunk > 0:
-        lm_labels = torch.cat([batch[f"{k}_labels"][:, 1:] for k in lm_keys])
         tot, cnt = lm_ce_rowwise_chunked(model, lm_h, lm_labels, lm_chunk)
 
-        def lm_loss(k, idx):
-            rows = slice(idx * b, (idx + 1) * b)
-            return tot[rows].sum() / cnt[rows].sum().clamp_min(1)
+        def lm_loss(idx):
+            sel = slice(idx * b, (idx + 1) * b)
+            return (tot[sel].sum()
+                    / global_count(cnt[sel].sum(), group).clamp_min(1))
     else:
         logits = model.lm_logits(lm_h)
 
-        def lm_loss(k, idx):
-            return ce_ignore_index(logits[idx * b:(idx + 1) * b],
-                                   batch[f"{k}_labels"][:, 1:],
-                                   ignore_index=0)
+        def lm_loss(idx):
+            sel = slice(idx * b, (idx + 1) * b)
+            return ce_ignore_index(logits[sel], lm_labels[sel],
+                                   ignore_index=0, group=group)
 
-    vqa_loss = lm_loss("vqa", 0)
-    vaq_loss = lm_loss("vaq", 1) if vaq else zero
-    qav_loss = (ce_ignore_index(model.qav_logits(parts["qav"], vf),
-                                batch["qav_labels"][:, 1:], ignore_index=-1)
-                if qav else zero)
+    vqa_loss = lm_loss(0)
+    vaq_loss = lm_loss(1) if vaq else zero
+    qav_loss = zero
+    if qav:
+        h_rows, q_labels = shift_rows(model, parts["qav"],
+                                      batch["qav_labels"], -1)
+        qav_loss = ce_ignore_index(model.qav_row_logits(h_rows, vf),
+                                   q_labels, ignore_index=-1, group=group)
     return Losses(vqa=vqa_loss, vaq=vaq_loss, qav=qav_loss)
 
 
@@ -156,7 +200,8 @@ def option_scores(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     vf_rep = vf.repeat_interleave(n_opt, dim=0)
     vstart = batch["vqa_video_start"].repeat_interleave(n_opt, dim=0)
     splice = batch["vqa_splice"].repeat_interleave(n_opt, dim=0)
-    h = model.encode(tokens.reshape(b * n_opt, s), vf_rep, vstart, splice)
+    h = model.encode_full(tokens.reshape(b * n_opt, s), vf_rep, vstart,
+                          splice)
     logits = model.lm_logits(h[:, :-1])
     tok_losses = token_ce_unreduced(
         logits, labels.reshape(b * n_opt, s)[:, 1:]).view(b, n_opt, s - 1)

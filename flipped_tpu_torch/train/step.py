@@ -3,8 +3,19 @@
 
 PyTorch runs eagerly, so the JAX jit wrappers and their compile-shape
 bucketing become plain calls; `bucket_span` is kept so both packages score
-the same answer window. Single-process only: the multi-process span
-agreement and the dp all-reduce come with the parallelism port.
+the same answer window.
+
+Under a mesh (model/parallel.py) the step does what GSPMD's partitioned
+program does: the trainables' gradients are summed over the dp×sp group
+once, in one flat all-reduce; the trainables a tp rank uses in part (the
+gates of a head-split attention, `tp_partial_parameters`) are summed over
+tp as well, while those that reach the split layers through `copy_to`
+arrive whole. The trainables are replicated, so after the sums every rank
+holds the same gradients, the same (global) norm and takes the same
+update. The losses are each rank's share of the global token mean
+(train/objectives.py), summed over dp×sp for the metrics. A multi-process
+eval pins one answer window for every rank (`span_len`,
+data/pipeline.py `pinned_eval_span`).
 """
 from __future__ import annotations
 
@@ -13,7 +24,10 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core import collectives as C
+from ..core.mesh import DPSP, TP_AXIS
 from ..data.batching import eval_span
+from ..model.parallel import tp_partial_parameters
 from .objectives import (compute_objective_losses, option_scores,
                          option_scores_cached)
 from .optim import Optimizer
@@ -39,6 +53,10 @@ def make_train_step(model, optimizer: Optimizer, vaq: bool, qav: bool,
     scan does (the reference's loss/accum_iter, engine.py:37-41).
     grad_norm is the global norm of the averaged gradients, before
     clipping."""
+    mesh = getattr(model, "mesh", None)
+    dpsp = mesh.group(DPSP) if mesh is not None else None
+    tp = mesh.group(TP_AXIS) if mesh is not None else None
+    partial = tp_partial_parameters(model) if tp is not None else []
 
     def train_step(batch: Dict[str, torch.Tensor]) -> TrainMetrics:
         accum = batch["vqa_tokens"].shape[0]
@@ -52,17 +70,30 @@ def make_train_step(model, optimizer: Optimizer, vaq: bool, qav: bool,
             per_micro.append(torch.stack([losses.total.detach(),
                                           *(x.detach() for x in losses)]))
         grads = [p.grad for p in optimizer.params]
+        _sum_grads(grads, dpsp)
+        _sum_grads([p.grad for p in partial], tp)
         if accum > 1:
             for g in grads:
                 g.div_(accum)
         grad_norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         lr = optimizer.step(grad_norm)
-        loss, vqa_loss, vaq_loss, qav_loss = torch.stack(per_micro).mean(0)
+        per_micro = C.all_reduce(torch.stack(per_micro), dpsp)
+        loss, vqa_loss, vaq_loss, qav_loss = per_micro.mean(0)
         return TrainMetrics(loss=loss, vqa_loss=vqa_loss, vaq_loss=vaq_loss,
                             qav_loss=qav_loss, grad_norm=grad_norm, lr=lr)
 
     return train_step
+
+
+@torch.no_grad()
+def _sum_grads(grads, group) -> None:
+    """Sum the gradients over `group` in one flat all-reduce."""
+    if group is None or not grads:
+        return
+    flat = C.all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
 
 
 def _host(x) -> np.ndarray:
@@ -82,15 +113,17 @@ def bucket_span(n: int, s: int) -> int:
     return min(max(8, -(-n // 8) * 8), max(s - 1, 1))
 
 
-def make_eval_step(model, cached: bool = True):
+def make_eval_step(model, cached: bool = True, span_len=None):
     """Returns eval_step(batch, span_info=None) → {'scores' (B, n_opt),
     'prediction' (B,)}.
 
     cached=True scores against a shared prompt cache, sizing the scored
     window from `span_info` (the loader's pack-time (span_need,
     span_exact)) or from the labels, and falls back to the dense scorer
-    when a label precedes the prefix. cached=False always runs the dense
-    per-option forward.
+    when a label precedes the prefix; an explicit `span_len` (the
+    multi-process pin) scores that window for every batch (JAX:
+    step.py:153-209). cached=False always runs the dense per-option
+    forward.
     """
 
     def finish(scores) -> Dict[str, torch.Tensor]:
@@ -100,6 +133,8 @@ def make_eval_step(model, cached: bool = True):
     def eval_step(batch, span_info: Optional[tuple] = None):
         if not cached:
             return finish(option_scores(model, batch))
+        if span_len is not None:
+            return finish(option_scores_cached(model, batch, span_len))
         need, exact = (span_info if span_info is not None
                        else required_eval_span(batch))
         if not exact:

@@ -6,9 +6,11 @@ the reference's util/misc.py:27-172): a windowed median and mean beside an
 exact count-weighted global average, and `log_every`, which prints a
 progress line every `print_freq` iterations and at the last, with the
 meters, the iteration and data times and, on the card, the allocated and
-peak device memory (`device_memory_gib`). The port runs one process, so
-there is nothing to synchronise between processes (the multi-rank merge
-comes with ROADMAP [9]). The per-question-type buckets (`log_qtype` and its
+peak device memory (`device_memory_gib`). Under torch.distributed the
+meters are merged across ranks (`allgather_payload`, JAX metrics.py:20-41,
+76-91, 134-152): every rank of a dp row logs the same values, so the merge
+scales counts and totals alike and leaves the averages as they are. The
+per-question-type buckets (`log_qtype` and its
 tables) are the port's own copy of the JAX package's plain-Python ones
 (metrics.py:199-253).
 """
@@ -21,6 +23,14 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..core.collectives import all_gather_object
+
+
+def allgather_payload(obj):
+    """Every rank's small picklable `obj`, in rank order ([obj] in one
+    process)."""
+    return all_gather_object(obj)
 
 
 def device_memory_gib() -> Optional[Tuple[float, float]]:
@@ -51,8 +61,12 @@ class SmoothedValue:
         self.total += value * n
 
     def synchronize_between_processes(self):
-        """One process: nothing to sum (the reference's dist.all_reduce,
-        misc.py:58-70, comes with the multi-rank port, ROADMAP [9])."""
+        """Sum (count, total) over the ranks (the reference's
+        dist.all_reduce, misc.py:58-70). Every rank must call it the same
+        number of times."""
+        parts = allgather_payload([self.count, self.total])
+        self.count = float(sum(c for c, _ in parts))
+        self.total = float(sum(t for _, t in parts))
 
     @property
     def median(self) -> float:
@@ -97,8 +111,18 @@ class MetricLogger:
         self.meters[name] = meter
 
     def synchronize_between_processes(self):
-        """One process: nothing to merge (ROADMAP [9] brings the
-        multi-rank merge of JAX metrics.py:134-152)."""
+        """Merge (count, total) of every meter over the ranks, in one
+        payload gather; a meter that only some ranks have (a question type
+        only some shards hold) is installed on every rank."""
+        merged: Dict[str, list] = {}
+        for d in allgather_payload({k: [m.count, m.total]
+                                    for k, m in self.meters.items()}):
+            for k, (c, t) in d.items():
+                mc, mt = merged.get(k, (0.0, 0.0))
+                merged[k] = [mc + c, mt + t]
+        for k, (c, t) in merged.items():
+            meter = self.meters[k]
+            meter.count, meter.total = c, t
 
     def averages(self) -> Dict[str, float]:
         """Each meter's count-weighted mean over everything it was given:

@@ -42,6 +42,9 @@ def test_port_imports_without_jax():
         flipped_tpu_torch.__path__, "flipped_tpu_torch.")]
     assert "flipped_tpu_torch.cli.train" in names
     assert "flipped_tpu_torch.data.pipeline" in names
+    for module in ("core.distributed", "core.mesh", "core.collectives",
+                   "model.parallel"):
+        assert f"flipped_tpu_torch.{module}" in names
     _run("".join(f"import {n}\n" for n in names) + CHECK)
 
 

@@ -31,7 +31,9 @@ def cuda():
 
 
 @pytest.mark.parametrize("shape,vs", [((2, 130, 4, 128), (-1, 5)),
-                                      ((3, 37, 2, 128), (0, 5, -1))])
+                                      ((3, 37, 2, 128), (0, 5, -1)),
+                                      # the eval prefill at tp 2: 16 heads
+                                      ((4, 128, 16, 128), (5, -1, 0, 40))])
 def test_flash_text_fwd_matches_plain(cuda, shape, vs):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(*shape, device=cuda, generator=g)
@@ -69,7 +71,9 @@ def test_flash_text_fwd_rejects_f32(cuda):
 K2_SHAPES = [((2, 130, 4, 128), (-1, 5)), ((3, 37, 2, 128), (0, 5, -1)),
              ((2, 1, 2, 128), (0, -1)), ((2, 65, 2, 128), (3, -1)),
              ((1, 129, 4, 128), (60,)), ((1, 258, 2, 128), (120,)),
-             ((1, 2048, 2, 128), (1000,))]
+             ((1, 2048, 2, 128), (1000,)),
+             # the training encode of one dp rank at tp 2: 16 heads
+             ((12, 128, 16, 128), (5, 1, 9, 0, -1, 3, 2, 5, -1, 7, 0, 4))]
 
 
 @pytest.mark.parametrize("shape,vs", K2_SHAPES)
@@ -271,8 +275,17 @@ STREAM_EDGE = [(1, 1, 2, 2, 1, (0,)), (2, 1, 300, 2, 200, (5, -1)),
                (1, 64, 4096, 8, 0, (5,)), (2, 64, 3200, 4, 3000, (3000, -1))]
 
 
+# The sequence-parallel shapes (model/kernels/flash_attention.py
+# `sp_flash_adapter_attention` under --sp 2): S 128 cut in two, S_q 64
+# against S_k 128 (below K5's 128-row q tile) at q_offset 0 and 64, at 16
+# heads (tp 2 of 32); S 4096 cut in two, S_q 2048 at q_offset 2048.
+SP_CASES = [(4, 64, 128, 16, 0, (5, -1, 0, 40)),
+            (4, 64, 128, 16, 64, (5, -1, 0, 40)),
+            (1, 2048, 4096, 32, 2048, (7,))]
+
+
 @pytest.mark.parametrize("b,s_q,s_k,h,q_offset,vs",
-                         STREAM_CASES + STREAM_EDGE)
+                         STREAM_CASES + STREAM_EDGE + SP_CASES)
 def test_flash_stream_fwd_matches_plain(cuda, b, s_q, s_k, h, q_offset, vs):
     """K5: one launch, within `_k5_hold`'s bounds, and a second run equal
     bit for bit (an item's sums run in one order whichever block takes it)."""
@@ -287,7 +300,7 @@ def test_flash_stream_fwd_matches_plain(cuda, b, s_q, s_k, h, q_offset, vs):
 
 
 @pytest.mark.parametrize("b,s_q,s_k,h,q_offset,vs",
-                         STREAM_CASES + STREAM_EDGE)
+                         STREAM_CASES + STREAM_EDGE + SP_CASES)
 def test_flash_stream_bwd_matches_plain(cuda, b, s_q, s_k, h, q_offset, vs):
     """K6a and K6b: one launch each, within the coarse bound below of their
     plain versions; keys after every row (c > q_offset + S_q - 1) exactly
@@ -402,6 +415,51 @@ def test_flash_streaming_regime_on_card(cuda, monkeypatch):
     assert moved == [0, 0, 1, 1, 1]
     for x in (q, k, v, ak, av, g1, g2):
         assert bool(torch.isfinite(x.grad).all())
+
+
+@pytest.mark.parametrize("max_seq_bwd,want", [(None, [1, 1, 0, 0, 0]),
+                                               (64, [0, 0, 1, 1, 1])])
+def test_sp_dispatch_of_an_indivisible_sequence_on_card(cuda, monkeypatch,
+                                                        max_seq_bwd, want):
+    """S 129 under sp 2 does not divide: every sp rank holds the whole
+    sequence and `sp_flash_or_einsum` runs it through the single-rank
+    kernels (K1 + K2, or K5 + K6a + K6b above MAX_SEQ_BWD), with JAX's
+    warning, and gives flash_adapter_attention's output and grads bit for
+    bit."""
+    from flipped_tpu_torch.model.llama import SeqShard
+
+    if max_seq_bwd is not None:
+        monkeypatch.setattr(fa, "MAX_SEQ_BWD", max_seq_bwd)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    mk = lambda *s: torch.randn(*s, device=cuda, generator=g)
+    base = [mk(2, 129, 4, 128).to(torch.bfloat16) for _ in range(3)] + [
+        mk(10, 4, 128).to(torch.bfloat16) for _ in range(2)] + [mk(4),
+                                                                mk(4)]
+    vs = torch.tensor([3, -1], device=cuda)
+    do = mk(2, 129, 4 * 128).to(torch.bfloat16)
+    names = ("flash_text_attention", "flash_text_attention_bwd",
+             "flash_streaming_fwd", "flash_streaming_dq",
+             "flash_streaming_dkv")
+
+    def run(attend):
+        xs = [t.clone().requires_grad_() for t in base]
+        out = attend(*xs)
+        out.backward(do)
+        return out.detach(), [x.grad for x in xs]
+
+    before = [getattr(fa, n).launches for n in names]
+    seq = SeqShard(None, 0, 129, "S=129 % sp=2 != 0")
+    with pytest.warns(UserWarning, match="sequence-parallel flash kernels "
+                                         "skipped"):
+        out, grads = run(lambda *xs: fa.sp_flash_or_einsum(
+            *xs, vs, 10, seq))
+    torch.cuda.synchronize()
+    assert [getattr(fa, n).launches - b
+            for n, b in zip(names, before)] == want
+    ref, ref_grads = run(lambda *xs: fa.flash_adapter_attention(*xs, vs, 10))
+    assert torch.equal(out, ref)
+    for a, b in zip(grads, ref_grads):
+        assert torch.equal(a, b)
 
 
 # --- K3, K7, K4: the int8 GEMMs of the quantized backbone -------------------
