@@ -2,7 +2,7 @@
 """Drive flipped_tpu_torch on one CUDA card, end to end.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --p16-runs abcd  # phase 16 (some of its runs)
+    python3 chip_smoke.py --p16-runs efg   # phase 16 (some of its runs)
     python3 chip_smoke.py --p16-faults     # phase 16, then run (b) on
                                            # copies with planted faults
 
@@ -19,11 +19,14 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               of one (B, S, 3, H, Dh) tensor), and lse against float64;
               at S 2049 and 4096 (the forward-only regime up to
               MAX_SEQ_FWD) within K5's bound (K1_LONG_CASES); at 16 heads,
-              phase 16's eval prefill under --tp 2
+              phase 16's eval prefill under --tp 2; at the microbatches of
+              a --pp 2 stage (the training encode, the eval and
+              generation prefills) and the generation prefill at --tp 2
   4. K2       flash_text_bwd against its plain version in bf16 at the unit
-              shapes, the training shape, S 650 and one dp rank's training
-              encode at --dp 2 --tp 2 (16 heads), within the bound stated
-              at K2_CASES; dgate2 against a float64 sum
+              shapes, the training shape, S 650, one dp rank's training
+              encode at --dp 2 --tp 2 (16 heads) and a --pp 2 stage's
+              training microbatch, within the bound stated at K2_CASES;
+              dgate2 against a float64 sum
   5. grads    the autograd.Function (K1 forward, K2 backward) against
               autograd through the plain formulation, all seven grads, at
               the training shape
@@ -177,8 +180,20 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               the bounds at P16_LOSS_REL, frozen weights unchanged
               (checksums), each rank's seconds and peak; (d) one rank
               under torchrun's variables (world size 1): nccl,
-              `cli.train --debug`, an all-reduce on the card. No speed is
-              claimed: the ranks share one card
+              `cli.train --debug`, an all-reduce on the card; (e) --pp 2
+              on 2 ranks at LLaMA-7B, all 32 blocks: the same training
+              (--vaq --qav, batch 8, S 128, 2 updates, a cached val
+              batch), then `cli.evaluate --is_generation_task` on the
+              MUSIC-AVQA recipe (batch 32, S 128); (f) --pp 2 --sp 2 --tp
+              2 on 8 ranks, the JAX dry run's pp leg, and (g) generation
+              under --sp 2 --tp 2 on 4 ranks, both at 7B width with 8
+              blocks (a params.json of n_layers 8): each rank held as
+              (b), its launches counted over the GPipe ticks (a stage's
+              blocks on 2 microbatches and a bubble tick), its
+              generation fed the single rank's tokens and its logits
+              held at every step of every row (P16_PP_RUNS), and in (e)
+              each rank's frozen bytes about half the single rank's. No
+              speed is claimed: the ranks share one card
 Each main path (9, 10, 11, 12, 15, and each run of 13) runs with the launch
 counts set to 0 just before it and read just after; in phase 16 each
 rank counts its own launches, zeroed before its `main`. The last lines of
@@ -202,6 +217,19 @@ TRAIN_B, TRAIN_S = 8, 128           # --batch_size 8 --max_seq_len 128
 # their video at a prompt position, QAV rows carry -1 (no gate2 block)
 TRAIN_VS = (5, 1, 9, 0, 5, 3, 2, 5) * 2 + (-1,) * TRAIN_B
 TRAIN_SHAPE = (3 * TRAIN_B, TRAIN_S, 32, 128)   # --vaq --qav: 24 sequences
+# The attention shapes of phase 16's (e)-(g) (B, S, H, Dh) with their
+# video_start: a --pp 2 stage runs 2 microbatches, rows {t, t+2, ...}, of
+# the training encode's 24 stacked rows, of the cached eval's batch of 8
+# (a val batch of 4 there) and of the generation's batch of 32; --tp 2
+# generation prefills all 32 rows at 16 heads
+PP_TRAIN_SHAPE = (3 * TRAIN_B // 2, TRAIN_S, 32, 128)
+PP_TRAIN_VS = TRAIN_VS[0::2]
+PP_SHAPES = {"train, pp 2 microbatch": (PP_TRAIN_SHAPE, PP_TRAIN_VS),
+             "prefill, pp 2 microbatch": ((4, TRAIN_S, 32, 128),
+                                          (5, -1, 0, 40)),
+             "gen prefill, pp 2 microbatch": ((16, 128, 32, 128),
+                                              TRAIN_VS[:16]),
+             "gen prefill, tp 2": ((32, 128, 16, 128), TRAIN_VS[:8] * 4)}
 
 K1_SOURCE = "flipped_tpu_torch/csrc/flash_text_fwd.cu"
 K1_REPLACES = "flipped_tpu/model/pallas/flash_attention.py:59"
@@ -227,6 +255,9 @@ K1_CASES = [
     (2, 255, 8, 128, (7, 0)),
     # phase 16's eval prefill at --tp 2: one dp rank's batch, 16 heads
     (4, 128, 16, 128, (5, -1, 0, 40)),
+    # phase 16's --pp 2 stage microbatches and its generation prefill at
+    # --tp 2 (PP_SHAPES)
+    *((*shape, vs) for shape, vs in PP_SHAPES.values()),
 ]
 # K1 on q, k, v that are slices of one (B, S, 3, H, Dh) tensor, as a fused
 # projection hands them: strides that are not those of a (B, S, H, Dh)
@@ -264,7 +295,8 @@ K2_REPLACES = "flipped_tpu/model/pallas/flash_attention.py:174"
 # prefill (the MUSIC-AVQA recipe's batch 32)
 K1_SHAPES = {"train": TRAIN_SHAPE, "prefill": (8, 128, 32, 128),
              "dense": (40, 128, 32, 128), "gen prefill": (32, 128, 32, 128),
-             "prefill, tp 2": (4, 128, 16, 128)}
+             "prefill, tp 2": (4, 128, 16, 128),
+             **{k: shape for k, (shape, _) in PP_SHAPES.items()}}
 ADAPTER_LEN = 10
 N_TRAIN_ITEMS = 64                  # 8 updates at batch 8; 16 val examples
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, dense bf16
@@ -281,6 +313,7 @@ K2_CASES = [
     (*TRAIN_SHAPE, TRAIN_VS),
     (1, 650, 32, 128, (4,)),
     (*TP_TRAIN_SHAPE, TP_TRAIN_VS),
+    (*PP_TRAIN_SHAPE, PP_TRAIN_VS),
 ]
 # Tolerance of K2 against its plain version, from where the two differ.
 # Both take the same bf16 operands. The kernel reads P as exp(s - lse) with
@@ -3162,18 +3195,51 @@ P16_RUNS = (
 # block's 32 gates, may carry noise of the order of itself.)
 P16_SR_NOISE = 2.0
 P16_LOSS_REL = 2.0 ** -7
+# (e)-(g): pipeline parallelism, and generation under --sp and --tp (run,
+# label, ranks, mesh flags, train, generate). (e) trains at 7B's full depth
+# (--pp needs every block an adapter block: adapter_layer = n_layers), then
+# generates on the MUSIC-AVQA recipe (batch 32, S 128); (f) is the JAX dry
+# run's pp leg and (g) generation under sp and tp, both at 7B width with the
+# depth cut to P16_PP_LAYERS blocks by a params.json (`p16_params_json`).
+# Each pp stage runs its blocks on every tick of the GPipe schedule, 2
+# microbatches + 1 bubble tick (P16_TICKS), and each rank counts its
+# launches so.
+P16_PP_RUNS = (
+    ("e", "--pp 2, all 32 blocks: train, then generation", 2,
+     ("--pp", "2"), True, True),
+    ("f", "--pp 2 --sp 2 --tp 2, 8 blocks", 8,
+     ("--pp", "2", "--sp", "2", "--tp", "2"), True, False),
+    ("g", "--sp 2 --tp 2 generation, 8 blocks", 4,
+     ("--sp", "2", "--tp", "2"), False, True))
+P16_PP_LAYERS = 8
+P16_TICKS = 3
+P16_GEN_ITEMS = 128             # one generation batch of 32 val rows
+# A rank's generation against the single rank's, teacher-forced: the ranks'
+# decode steps are fed the single rank's tokens, so every step of every row
+# sees the single rank's context, and at every step of every row the rank's
+# logits lie within GEN_LOGIT_REL of the row's largest |logit| of the single
+# rank's over the whole vocabulary (GEN_LOGIT_REL: the bound of a cached
+# decode against a re-forward at 7B; the layouts' bf16 roundings, other GEMM
+# shapes and tp's split sums, move the logits as those do). A row whose
+# argmax is the single rank's token at every step is one whose free greedy
+# run generates the single rank's tokens; the count is printed, not held.
+
 # (a)'s questions: this many words ahead of each question put the answer's
 # labels and the options' rows past row LONG_S / 2 (rows 2463-2472 of 4096)
 P16_LONG_WORDS = 2400
 
 
-def p16_spec(root, run, argv, share=True, nccl_check=False):
-    """Write one rank group's spec; → (spec path, out path of rank r)."""
+def p16_spec(root, run, argv, share=True, nccl_check=False,
+             evaluate=None, forced=None):
+    """Write one rank group's spec: the train command `argv` and, after
+    it, the generation command `evaluate` (either may be None), teacher-
+    forced by the record saved at `forced`; → the spec's path."""
     os.makedirs(root, exist_ok=True)
     path = os.path.join(root, f"spec_{run}.json")
     with open(path, "w") as f:
-        json.dump({"argv": list(argv), "share": share,
-                   "nccl_check": nccl_check,
+        json.dump({"argv": argv and list(argv), "share": share,
+                   "evaluate": evaluate and list(evaluate),
+                   "nccl_check": nccl_check, "forced": forced,
                    "out": os.path.join(root, f"{run}_rank{{rank}}.pt")}, f)
     return path
 
@@ -3300,6 +3366,7 @@ def p16_recording(torch, fa, qm, rec):
         model, cfg, tok = orig[0](*a, **kw)
         rec["model"] = model
         rec["frozen0"] = frozen_checksums(torch, model)
+        rec["frozen_bytes"] = frozen_bytes(model)
         return model, cfg, tok
 
     def make_step(*a, **kw):
@@ -3341,9 +3408,124 @@ def p16_recording(torch, fa, qm, rec):
             setattr(fa, n, wrapped[k])
 
 
+def frozen_bytes(model) -> int:
+    """The bytes of the frozen leaves a rank holds."""
+    return sum(p.numel() * p.element_size() for p in model.parameters()
+               if not p.requires_grad)
+
+
+@contextlib.contextmanager
+def p16_gen_recording(torch, rec, forced=None):
+    """Around `cli.evaluate.main --is_generation_task`: the frozen bytes of
+    the model it builds and the generated tokens. Without `forced` (the
+    single rank) each `lm_logits` call's last-position logits, f32 on the
+    host, (steps, rows, vocab): the first token's call, then each decode
+    step's. With `forced` (a rank; the single rank's record) each decode
+    step is fed the single rank's token of its row and step, and each
+    call's logits are held against the single rank's at the same step:
+    the largest |difference| over the vocabulary ('err'), the single
+    rank's largest |logit| ('amax') and the rank's argmax ('argmax'), each
+    (steps, rows)."""
+    from flipped_tpu_torch.cli import evaluate
+
+    orig = (evaluate.build_eval_state, evaluate.make_val_steps)
+    keys = ("logits",) if forced is None else ("err", "amax", "argmax")
+    rec.update({k: [] for k in keys}, generated=[])
+    built = []
+    at = {"on": False, "step": 0, "rows": None, "seen": 0, "dp": (1, 0)}
+
+    def build(*a, **kw):
+        model, cfg, tok = orig[0](*a, **kw)
+        rec["frozen_bytes"] = frozen_bytes(model)
+        built.append(model)
+        if model.mesh is not None:
+            at["dp"] = (model.mesh.size("dp"), model.mesh.index("dp"))
+        lm, decode = model.lm_logits, model.decode_step
+
+        def logits(h):
+            out = lm(h)
+            if not at["on"]:
+                return out
+            last = out[:, -1].float()
+            if forced is None:
+                rec["logits"][-1].append(last.cpu())
+            else:
+                want = forced["logits"][at["step"], at["rows"]].to(
+                    last.device)
+                rec["err"][-1].append((last - want).abs().amax(-1).cpu())
+                rec["amax"][-1].append(want.abs().amax(-1).cpu())
+                rec["argmax"][-1].append(last.argmax(-1).cpu())
+            at["step"] += 1
+            return out
+
+        def decode_step(token, *rest):
+            if forced is not None and at["on"]:
+                token = forced["generated"][at["rows"], at["step"] - 1].to(
+                    token.device)
+            return decode(token, *rest)
+        model.lm_logits, model.decode_step = logits, decode_step
+        return model, cfg, tok
+
+    def val_steps(*a, **kw):
+        eval_step, gen_step = orig[1](*a, **kw)
+
+        def watched(batch):
+            b = batch["vqa_tokens"].shape[0]
+            dp, d = at["dp"]
+            at["step"], at["seen"] = 0, at["seen"] + b
+            at["rows"] = torch.arange(at["seen"] - b, at["seen"]) * dp + d
+            for k in keys:
+                rec[k].append([])
+            at["on"] = True
+            try:
+                out = gen_step(batch)
+            finally:
+                at["on"] = False
+            rec["generated"].append(out["generated"].cpu())
+            return out
+        return eval_step, watched
+
+    evaluate.build_eval_state, evaluate.make_val_steps = build, val_steps
+    try:
+        yield rec
+    finally:
+        evaluate.build_eval_state, evaluate.make_val_steps = orig
+        for model in built:
+            del model.lm_logits, model.decode_step  # the wrappers' cycles
+        built.clear()
+        for k in keys:
+            rec[k] = (torch.cat([torch.stack(b) for b in rec[k]], 1)
+                      if rec[k] else None)
+        rec["generated"] = (torch.cat(rec["generated"])
+                            if rec["generated"] else None)
+
+
+def p16_generate(torch, fa, qm, argv, forced=None):
+    """`cli.evaluate.main(argv)` recorded (`p16_gen_recording`, teacher-
+    forced by `forced` where given), with its launches, seconds and peak;
+    → the record."""
+    from flipped_tpu_torch.cli import evaluate
+    from flipped_tpu_torch.core.config import get_args_parser
+
+    on_card = torch.cuda.is_available()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa, qm)
+    t0 = time.perf_counter()
+    with p16_gen_recording(torch, {}, forced) as rec:
+        rec["stats"] = evaluate.main(get_args_parser().parse_args(argv))
+    if on_card:
+        torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["launches"] = read_counts(fa, qm)
+    rec["peak"] = torch.cuda.max_memory_allocated() if on_card else 0
+    return rec
+
+
 def p16_rank(spec_path) -> int:
     """One rank of a phase-16 group: `cli.train.main` on the spec's argv,
-    recorded (`p16_recording`), saved for the parent."""
+    recorded (`p16_recording`), then `cli.evaluate.main` on its evaluate
+    argv (`p16_generate`), saved for the parent."""
     import torch
     import torch.distributed as dist
 
@@ -3360,28 +3542,36 @@ def p16_rank(spec_path) -> int:
         spec = json.load(f)
     faulthandler.dump_traceback_later(max(spec["timeout"] - 20, 10),
                                       exit=True)
-    args = get_args_parser().parse_args(spec["argv"])
+    args = get_args_parser().parse_args(spec["argv"] or spec["evaluate"])
     # the argv's --device: cuda here; a rehearsal on the CPU passes cpu
     device = init_distributed_mode(args.device, share_device=spec["share"])
     on_card = device.type == "cuda"
     rank = dist.get_rank()
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
-    zero_counts(fa, qm)
-    t0 = time.perf_counter()
-    with p16_recording(torch, fa, qm, {}) as rec:
-        model, history = train_cli.main(args)
-    if on_card:
-        torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    same = frozen_checksums(torch, model) == rec.pop("frozen0")
-    out = {"metrics": rec["metrics"], "scores": rec["scores"],
-           "offsets": rec["offsets"], "at_val": rec["at_val"],
-           "launches": read_counts(fa, qm), "history": history,
-           "frozen_same": same, "seconds": seconds,
-           "peak": torch.cuda.max_memory_allocated() if on_card else 0,
-           "backend": dist.get_backend(),
-           "grads": rec["grads"]}
+    out = {"backend": dist.get_backend()}
+    if spec["argv"]:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts(fa, qm)
+        t0 = time.perf_counter()
+        with p16_recording(torch, fa, qm, {}) as rec:
+            model, history = train_cli.main(args)
+        if on_card:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        same = frozen_checksums(torch, model) == rec.pop("frozen0")
+        out.update(metrics=rec["metrics"], scores=rec["scores"],
+                   offsets=rec["offsets"], at_val=rec["at_val"],
+                   launches=read_counts(fa, qm), history=history,
+                   frozen_same=same, seconds=seconds,
+                   peak=torch.cuda.max_memory_allocated() if on_card else 0,
+                   frozen_bytes=rec["frozen_bytes"], grads=rec["grads"])
+        del model, rec
+        if on_card:
+            torch.cuda.empty_cache()
+    if spec.get("evaluate"):
+        forced = torch.load(spec["forced"]) if spec.get("forced") else None
+        out["gen"] = p16_generate(torch, fa, qm, spec["evaluate"], forced)
+        del forced
     if spec["nccl_check"]:
         t = torch.full((4,), float(rank + 1), device=device)
         dist.all_reduce(t)
@@ -3466,14 +3656,17 @@ def p16_reference(torch, fa, qm, argv):
 
 
 def p16_hold(torch, ref, ranks, mesh, blocks, quantize, long, n_val,
-             noise=None):
+             noise=None, rank_blocks=None, eval_k1=None):
     """Every rank of one run against the single rank's record (the bounds
     at P16_LOSS_REL); `n_val` val items, in order, the dp row d's shard
     holding items d, d + dp, ...; `noise` the single rank's stochastic
-    rounding noise of each gradient (w8a8d), a norm per leaf."""
+    rounding noise of each gradient (w8a8d), a norm per leaf;
+    `rank_blocks` the block forwards of a rank an update where they are
+    not `blocks` (a pp stage's blocks times the schedule's ticks), and
+    `eval_k1` the K1 launches of a rank's val loop, when checked."""
     dp, sp = mesh.get("dp", 1), mesh.get("sp", 1)
     streaming = long or sp > 1
-    per = per_update(quantize, blocks, streaming=streaming)
+    per = per_update(quantize, rank_blocks or blocks, streaming=streaming)
     ref_per = per_update(quantize, blocks, streaming=long)
     n_up = len(ref["metrics"])
     if n_up != 2 or ref["at_val"] != {k: v * n_up for k, v in
@@ -3484,7 +3677,9 @@ def p16_hold(torch, ref, ranks, mesh, blocks, quantize, long, n_val,
         raise AssertionError("single rank: a frozen weight changed")
     want = ref["metrics"]
     print(f"  single rank: {ref['seconds']:.2f} s, peak "
-          f"{ref['peak'] / 2**30:.3f} GiB, metrics {want}", flush=True)
+          f"{ref['peak'] / 2**30:.3f} GiB, frozen leaves "
+          f"{ref['frozen_bytes'] / 2**30:.3f} GiB, metrics {want}",
+          flush=True)
     ref_scores = torch.cat(ref["scores"])[:n_val]
     noise = noise or {}
     for r, out in enumerate(ranks):
@@ -3495,6 +3690,11 @@ def p16_hold(torch, ref, ranks, mesh, blocks, quantize, long, n_val,
                                  f"{at_val}, want 2 x {per}")
         if not out["frozen_same"]:
             raise AssertionError(f"rank {r}: a frozen weight changed")
+        if eval_k1 is not None and (out["launches"]["k1"] - at_val["k1"]
+                                    != eval_k1):
+            raise AssertionError(f"rank {r}: {out['launches']['k1']} K1 "
+                                 f"after {at_val['k1']} in training, want "
+                                 f"{eval_k1} in the val loop")
         loss_rel = max(abs(g[i] - w[i]) / abs(w[i]) for g, w in
                        zip(got, want) for i in range(4) if w[i])
         norm_rel = max(abs(g[4] - w[4]) / w[4] for g, w in zip(got, want))
@@ -3519,7 +3719,9 @@ def p16_hold(torch, ref, ranks, mesh, blocks, quantize, long, n_val,
         score_rel = float(((ours - theirs).abs()
                            / theirs.abs().clamp_min(1e-6)).max())
         print(f"  rank {r}: {out['seconds']:.2f} s, peak "
-              f"{out['peak'] / 2**30:.3f} GiB, {out['backend']}; losses "
+              f"{out['peak'] / 2**30:.3f} GiB, frozen leaves "
+              f"{out['frozen_bytes'] / 2**30:.3f} GiB (the single rank's "
+              f"{ref['frozen_bytes'] / 2**30:.3f}), {out['backend']}; losses "
               f"within {loss_rel:.3g} relative, grad norm {norm_rel:.3g}, "
               f"update 2's gradients at {grad_at[worst]:.3g} of their "
               f"bounds (the farthest of {len(grad_at)}: {worst}, "
@@ -3534,11 +3736,139 @@ def p16_hold(torch, ref, ranks, mesh, blocks, quantize, long, n_val,
                                  f"single-rank run")
 
 
-def parallel_phase(torch, fa, qm, runs="abcd"):
+def p16_hold_gen(ref, ranks, mesh, k1):
+    """Every rank's teacher-forced generation against the single rank's
+    record (see P16_PP_RUNS): the logits of every step of every row within
+    GEN_LOGIT_REL of the single rank's largest |logit|, over the whole
+    vocabulary; its K1 launches (`k1`: the prefill's, the decode has none
+    at --quantize none), seconds, peak and frozen bytes. Prints how many
+    rows' greedy tokens are the single rank's, and where the others part
+    (the single rank's logit gap there, over its largest |logit|)."""
+    dp = mesh.get("dp", 1)
+    print(f"  single rank generation: {ref['seconds']:.2f} s (the 7B build "
+          f"included), peak {ref['peak'] / 2**30:.3f} GiB, frozen leaves "
+          f"{ref['frozen_bytes'] / 2**30:.3f} GiB, launches "
+          f"{ref['launches']}", flush=True)
+    want, logits = ref["generated"], ref["logits"]
+    for r, out in enumerate(ranks):
+        g = out["gen"]
+        if g["launches"]["k1"] != k1 or any(
+                v for k, v in g["launches"].items() if k != "k1"):
+            raise AssertionError(f"rank {r}: generation launches "
+                                 f"{g['launches']}, want {k1} K1")
+        d = r // (len(ranks) // dp)
+        rows = list(range(d, len(want), dp))
+        ratio = g["err"] / (GEN_LOGIT_REL * g["amax"])        # (steps, rows)
+        worst = float(ratio.max())
+        t, b = divmod(int(ratio.argmax()), ratio.shape[1])
+        parts = []
+        for b_, rb in enumerate(rows):
+            off = (g["argmax"][:, b_] != want[rb]).nonzero()
+            if len(off):
+                j = int(off[0])
+                tok, ours = int(want[rb, j]), int(g["argmax"][j, b_])
+                gap = float(logits[j, rb, tok] - logits[j, rb, ours])
+                parts.append((rb, j, gap / float(g["amax"][j, b_])))
+        print(f"  rank {r}: {g['seconds']:.2f} s, peak "
+              f"{g['peak'] / 2**30:.3f} GiB, frozen leaves "
+              f"{g['frozen_bytes'] / 2**30:.3f} GiB; logits of "
+              f"{ratio.numel()} (step, row) pairs, the worst at {worst:.4g} "
+              f"of the bound (row {rows[b]}, step {t}); "
+              f"{len(rows) - len(parts)} of {len(rows)} rows' greedy tokens "
+              f"are the single rank's", flush=True)
+        if parts:
+            print("    parting (row, step, the single rank's gap / its "
+                  "largest |logit|): " + ", ".join(
+                      f"({rb}, {j}, {q:.3g})" for rb, j, q in parts),
+                  flush=True)
+        if not worst <= 1.0:
+            raise AssertionError(f"rank {r}'s generation is not within the "
+                                 f"bounds of the single rank's")
+
+
+def p16_params_json(root, n_layers):
+    """A --llama_model_path whose llama7B/params.json is LLaMA-7B's width
+    at `n_layers` blocks, with an explicit vocab_size (no checkpoint: the
+    weights are drawn from the seed); → the path."""
+    os.makedirs(os.path.join(root, "llama7B"), exist_ok=True)
+    with open(os.path.join(root, "llama7B", "params.json"), "w") as f:
+        json.dump({"dim": 4096, "n_layers": n_layers, "n_heads": 32,
+                   "multiple_of": 256, "norm_eps": 1e-6,
+                   "vocab_size": 32000}, f)
+    return root
+
+
+def p16_pp_argv(kind, root, model_path):
+    """The train (`kind` 'train': --vaq --qav, batch 8, S 128) or
+    generation ('gen': the MUSIC-AVQA recipe, batch 32, S 128) command of
+    runs (e)-(g), without mesh flags."""
+    argv = ["--model", "llama7B", "--data_root", root, "--device", "cuda",
+            "--llama_model_path", model_path, "--epochs", "1",
+            "--output_dir", "", "--quantize", "none", "--max_seq_len",
+            str(TRAIN_S)]
+    if kind == "train":
+        return argv + ["--dataset", "nextqa", "--vaq", "--qav",
+                       "--batch_size", str(TRAIN_B)]
+    return argv + ["--dataset", "musicavqa", "--is_generation_task",
+                   "--batch_size", str(GEN_B), "--max_feats",
+                   str(MAX_FEATS), "--bias", "3", "--tau", "100"]
+
+
+def pipeline_runs(torch, fa, qm, runs, root, data):
+    """Phase 16's (e)-(g) (P16_PP_RUNS), each against the single-rank run
+    of the same commands in this process."""
+    gen_data = os.path.join(root, "data_gen")
+    write_gen_fixtures(gen_data, P16_GEN_ITEMS)
+    cut = p16_params_json(os.path.join(root, "llama_cut"), P16_PP_LAYERS)
+    for run, label, n, mesh_flags, train, gen in P16_PP_RUNS:
+        if run not in runs:
+            continue
+        phase(f"parallelism ({run}): {label}, {n} ranks on one card")
+        t0 = time.perf_counter()
+        mesh = {k.lstrip("-"): int(v) for k, v in zip(mesh_flags[::2],
+                                                       mesh_flags[1::2])}
+        layers = 32 if run == "e" else P16_PP_LAYERS
+        path = os.path.join(WORK, "no_checkpoint") if run == "e" else cut
+        pp = mesh.get("pp", 1)
+        # a rank's block forwards a pass: its stage's blocks on every tick
+        runs_a_pass = layers // pp * (P16_TICKS if pp > 1 else 1)
+        t_argv = p16_pp_argv("train", data, path) if train else None
+        g_argv = p16_pp_argv("gen", gen_data, path) if gen else None
+        ref = p16_reference(torch, fa, qm, t_argv) if train else None
+        gref = p16_generate(torch, fa, qm, g_argv) if gen else None
+        forced = None
+        if gen:
+            forced = os.path.join(root, f"forced_{run}.pt")
+            torch.save({k: gref[k] for k in ("generated", "logits")}, forced)
+        torch.cuda.empty_cache()
+        ranks = p16_spawn(p16_spec(
+            root, run, t_argv and t_argv + list(mesh_flags),
+            evaluate=g_argv and g_argv + list(mesh_flags), forced=forced),
+            n, timeout=600)
+        if train:
+            p16_hold(torch, ref, ranks, mesh, layers, "none", False,
+                     max(P16_ITEMS // 4, 2), rank_blocks=runs_a_pass,
+                     eval_k1=runs_a_pass)
+        if gen:
+            p16_hold_gen(gref, ranks, mesh, runs_a_pass)
+        if run == "e":
+            single = (ref or gref)["frozen_bytes"]
+            half = max(out["frozen_bytes"] for out in ranks) / single
+            if half > 0.55:
+                raise AssertionError(f"a --pp 2 rank holds {half:.3f} of "
+                                     f"the single rank's frozen bytes")
+        print(f"  phase 16 ({run}) took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del ref, gref, ranks
+        torch.cuda.empty_cache()
+
+
+def parallel_phase(torch, fa, qm, runs="abcdefg"):
     """Phase 16: (a) --sp 2 at full 7B depth and S 4096, (b) --dp 2 --sp 2
     --tp 2 and (c) --quantize w8a8d --dp 4 --tp 2 at 7B width and 8
-    blocks, each against its single-rank run; (d) cli.train on one rank
-    under NCCL. `runs` names the runs to make."""
+    blocks, (e)-(g) pipeline parallelism and generation under sp and tp
+    (P16_PP_RUNS), each against its single-rank run; (d) cli.train on one
+    rank under NCCL. `runs` names the runs to make."""
     root = os.path.join(WORK, "phase16")
     data, long_data = (os.path.join(root, d) for d in ("data", "data_long"))
     write_fixtures(data, P16_ITEMS)
@@ -3578,6 +3908,7 @@ def parallel_phase(torch, fa, qm, runs="abcd"):
               flush=True)
         del ref, ranks
         torch.cuda.empty_cache()
+    pipeline_runs(torch, fa, qm, runs, root, data)
     if "d" not in runs:
         return
     phase("parallelism (d): cli.train under torchrun's variables, world "
@@ -3600,7 +3931,8 @@ def parallel_phase(torch, fa, qm, runs="abcd"):
 # of the checkout replaces by `pass`, one at a time; phase 16's run (b)
 # must refuse each.
 P16_FAULTS = (
-    ("the dp×sp gradient sum skipped", "        _sum_grads(grads, dpsp)\n"),
+    ("the dp×pp×sp gradient sum skipped",
+     "        _sum_grads(grads, across)\n"),
     ("the tp sum of the head-split gates skipped",
      "        _sum_grads([p.grad for p in partial], tp)\n"))
 
@@ -3656,7 +3988,7 @@ def p16_faults() -> int:
 
 def p16_runs(runs) -> int:
     """`python3 chip_smoke.py --p16-runs RUNS`: phase 16's runs RUNS
-    (letters of a-d) alone, on kernels built from this checkout."""
+    (letters of a-g) alone, on kernels built from this checkout."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -3737,6 +4069,7 @@ def main() -> int:
     k1_times = time_k1(torch, fa)
     k2_time = time_k2(torch, fa)
     time_k2(torch, fa, TP_TRAIN_SHAPE, TP_TRAIN_VS)
+    time_k2(torch, fa, PP_TRAIN_SHAPE, PP_TRAIN_VS)
     stream_times = time_stream(torch, fa)
     time_sp_shapes(torch, fa)
     torch.cuda.empty_cache()

@@ -53,7 +53,7 @@ from __future__ import annotations
 import json
 import os
 from pathlib import Path
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -113,10 +113,12 @@ def checkpoint_shards(model_dir) -> List[Path]:
 
 
 def load_meta_checkpoint(model_dir, names: Optional[Iterable[str]] = None,
-                         device="cpu") -> Iterator[Tuple[str, torch.Tensor]]:
+                         device="cpu", skip: Optional[Callable[[str], bool]]
+                         = None) -> Iterator[Tuple[str, torch.Tensor]]:
     """Yield (name, bf16 tensor on `device`) for each leaf of the merged
     Meta checkpoint under `model_dir` (consolidated.*.pth + params.json),
-    one at a time, in the shards' order; `names` picks a subset. The
+    one at a time, in the shards' order; `names` picks a subset, and a
+    leaf for which `skip(name)` holds is not read. The
     shards are memory-mapped, so a leaf is read when it is merged, and
     `rope.freqs` is dropped (the model computes it). The merge is
     `merge_shards`' and the cast to bf16 the JAX converter's
@@ -131,7 +133,8 @@ def load_meta_checkpoint(model_dir, names: Optional[Iterable[str]] = None,
     wanted = None if names is None else set(names)
     for name in list(shards[0]):
         if "rope.freqs" in name or (wanted is not None
-                                    and name not in wanted):
+                                    and name not in wanted) or (
+                                        skip is not None and skip(name)):
             continue
         dim = table.get(name)
         if len(shards) > 1 and dim is None:

@@ -29,10 +29,19 @@ The audio merges (`--audio --audio_merge sum|concat|attention`, `--audio
 progress lines (`MetricLogger.log_every`); `--trace_dir` is accepted and
 ignored, as JAX's evaluate ignores it, and `--loader` too: the eval reads
 the val split in order with the thread loader. Under torchrun the ranks
-take the train CLI's grid (--dp, --sp, --tp; cli/train.py): each dp row
-scores its own shard of the val split, with one answer window pinned for
-every rank, and the meters and answers are merged across ranks.
-Generation eval runs under dp only.
+take the train CLI's grid (--dp, --pp, --sp, --tp; cli/train.py): each dp
+row scores (or generates for) its own shard of the val split, with one
+answer window pinned for every rank, and the meters and answers are
+merged across ranks. Under pp the cached scorer's prefill and chunk
+extend, and the generation's prefill and decode, cross the stages
+(model/pipeline.py), e.g. on two cards:
+
+    torchrun --nproc_per_node 2 -m flipped_tpu_torch.cli.evaluate \
+        --model llama7B --dataset musicavqa --is_generation_task --pp 2 ...
+
+Generation runs under sp and tp too: every sp rank prefills and decodes
+the whole prompt, and a tp rank decodes its heads against a cache of its
+heads.
 """
 from __future__ import annotations
 
@@ -47,7 +56,7 @@ import torch
 from ..ckpt.manager import CheckpointManager
 from ..core.config import get_args_parser, run_config_from_args
 from ..core.distributed import init_distributed_mode
-from ..core.mesh import SP_AXIS, TP_AXIS, loader_shards, make_mesh
+from ..core.mesh import loader_shards, make_mesh
 from ..data.datasets import build_dataset
 from ..data.pipeline import Loader, pinned_eval_span
 from ..train.builder import build_eval_state
@@ -93,16 +102,6 @@ def generation_correct(gen_step, tokenizer, batch: Dict, tb, valid: int,
         prediction = out["prediction"].cpu().numpy()[:valid]
         correct = (prediction == batch["answer"][:valid]).astype(np.float32)
     return correct, rows
-
-
-def check_generation_mesh(run_cfg, mesh) -> None:
-    """Generation eval runs under dp only: refuse it on an sp or tp
-    grid."""
-    if run_cfg.train.is_generation_task and (
-            mesh.size(SP_AXIS) > 1 or mesh.size(TP_AXIS) > 1):
-        raise NotImplementedError(
-            "--is_generation_task runs under --dp only; --sp and --tp "
-            "generation are not ported (ROADMAP [9])")
 
 
 def shard_leader(mesh, n_shards: int) -> bool:
@@ -174,7 +173,6 @@ def main(args) -> Dict[str, float]:
     device = init_distributed_mode(run_cfg.device)
     setup_for_distributed()
     mesh = make_mesh(run_cfg.mesh)
-    check_generation_mesh(run_cfg, mesh)
     # a single rank builds as before the grid existed
     model, cfg, tokenizer = build_eval_state(
         run_cfg, device, seed=run_cfg.train.seed,

@@ -9,17 +9,21 @@ on a grid of torch.distributed ranks.
 The port of flipped_tpu/cli/train.py (reference train.py + engine.py):
 process group → rank grid → loaders → model build → optimizer → epoch loop
 {train_one_epoch, `val_one_epoch`}. Under torchrun (or SLURM, OpenMPI;
-core/distributed.py) --dp, --sp and --tp lay the ranks out (core/mesh.py),
-one card a rank over NCCL, or gloo under --device cpu:
+core/distributed.py) --dp, --pp, --sp and --tp lay the ranks out
+(core/mesh.py), one card a rank over NCCL, or gloo under --device cpu:
 
     torchrun --nproc_per_node 8 -m flipped_tpu_torch.cli.train \
         --model llama7B --dp 2 --sp 2 --tp 2 --batch_size 4 --vaq --qav ...
+    torchrun --nproc_per_node 2 -m flipped_tpu_torch.cli.train \
+        --model llama7B --pp 2 --pp_microbatches 4 --batch_size 8 ...
 
 Each dp row reads its own shard of the data (`--batch_size` rows a shard,
-so the global batch is batch_size · dp), the sp ranks keep S/sp rows of
-the sequence each, the tp ranks H/tp heads and ffn_hidden/tp columns
-(model/parallel.py), and the step sums the gradients over dp×sp.
-Generation eval (--is_generation_task) runs under dp only.
+so the global batch is batch_size · dp), the pp ranks hold L/pp blocks
+each and pass --pp_microbatches microbatches through them in a GPipe
+schedule (model/pipeline.py), the sp ranks keep S/sp rows of the sequence
+each, the tp ranks H/tp heads and ffn_hidden/tp columns
+(model/parallel.py), and the step sums the gradients over dp×pp×sp.
+Generation eval (--is_generation_task) runs on every grid.
 
 Each train step runs the three objectives stacked in one encode, K1
 forward and K2 backward in every block (above S = 2048 K5 forward and
@@ -97,8 +101,8 @@ from ..train.optim import make_optimizer
 from ..train.step import make_train_step
 from ..utils.logging import setup_for_distributed, write_log_line
 from ..utils.metrics import MetricLogger, SmoothedValue
-from .evaluate import (batch_to_device, check_generation_mesh,
-                       make_val_steps, shard_leader, val_one_epoch)
+from .evaluate import (batch_to_device, make_val_steps, shard_leader,
+                       val_one_epoch)
 
 
 def trace_file(trace_dir: str, epoch: int) -> str:
@@ -179,7 +183,6 @@ def main(args):
     device = init_distributed_mode(run_cfg.device)
     setup_for_distributed()
     mesh = make_mesh(run_cfg.mesh)
-    check_generation_mesh(run_cfg, mesh)
     np.random.seed(run_cfg.train.seed + mesh.rank)
     # a single rank builds as before the grid existed
     model, cfg, tokenizer = build_train_state(

@@ -4,11 +4,12 @@ flipped_tpu/core/config.py).
 The dataclasses and flags keep the JAX package's names and defaults, so a
 reference run script translates one to one. Every training option runs on
 one card: the audio merges, both remat policies, --trace_dir and both
-loaders. The mesh flags --dp, --sp and --tp lay the ranks of a
+loaders. The mesh flags --dp, --pp, --sp and --tp lay the ranks of a
 torch.distributed run out on a (dp, pp, sp, tp) grid (`MeshConfig`,
-core/mesh.py); --pp above 1 is refused by `check_jax_only_flags` naming
-ROADMAP [9]. `quant_flags` decodes a --quantize mode as the JAX package
-does.
+core/mesh.py), and --pp_microbatches sets the pipeline's microbatch count
+(model/pipeline.py); `validate_pp` refuses what the pipeline cannot run,
+with JAX's messages. `quant_flags` decodes a --quantize mode as the JAX
+package does.
 """
 from __future__ import annotations
 
@@ -89,6 +90,15 @@ MODEL_PRESETS = {
 
 # The JAX package's --quantize grammar (core/config.py:292-296); every mode
 # runs on one card.
+# the trainables, by parameter name (train/optim.py); the rest is frozen
+TRAINABLE_MARKERS = ("gate", "adapter", "temporal_emb", "visual_proj",
+                     "audio_proj", "video_audio_cross_attn")
+
+
+def is_trainable(name: str) -> bool:
+    return any(m in name for m in TRAINABLE_MARKERS)
+
+
 QUANTIZE_CHOICES = ("none", "int8", "w8a8", "int8g", "w8a8g", "int8o",
                     "w8a8o", "int8r", "w8a8r", "int4", "w4a8", "int4r",
                     "w4a8r", "w8a8d", "w8a8rd")
@@ -197,14 +207,40 @@ def check_train_ported(train: "TrainConfig") -> None:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The rank grid (JAX: core/config.py:185-205): dp data parallel (-1:
-    every rank the other axes leave), pp pipeline stages (not ported), sp
-    sequence parallel, tp tensor parallel (core/mesh.py)."""
+    """The rank grid (JAX: core/config.py:185-210): dp data parallel (-1:
+    every rank the other axes leave), pp pipeline stages, sp sequence
+    parallel, tp tensor parallel (core/mesh.py); pp_microbatches the
+    GPipe schedule's microbatch count (0: pp), shrunk to divide each
+    rank's rows (model/pipeline.py `pick_microbatches`)."""
 
     dp: int = -1
     pp: int = 1
     sp: int = 1
     tp: int = 1
+    pp_microbatches: int = 0
+
+
+def validate_pp(mesh_cfg: MeshConfig, cfg: ModelConfig,
+                is_generation_task: bool = False) -> None:
+    """Refuse a configuration the pipeline cannot run, with JAX's messages
+    (flipped_tpu/model/pipeline.py:89-106): pp must divide n_layers, and
+    every layer must be an adapter layer (a stage of skipped blocks would
+    be empty). Generation runs under pp (the decode crosses the stage
+    ring)."""
+    pp = max(1, mesh_cfg.pp)
+    if pp <= 1:
+        return
+    if cfg.n_layers % pp:
+        raise ValueError(
+            f"--pp {pp} must divide n_layers={cfg.n_layers} evenly "
+            f"(stages would be ragged)")
+    if cfg.adapter_layer != cfg.n_layers:
+        raise ValueError(
+            f"--pp requires adapter_layer == n_layers "
+            f"(got {cfg.adapter_layer} != {cfg.n_layers}): the reference's "
+            f"layer-window SKIPS early blocks entirely (model.py:338), which "
+            f"would leave pipeline stages empty")
+    del is_generation_task
 
 
 @dataclass
@@ -220,23 +256,13 @@ class RunConfig:
     device: str = "cuda"
 
 
-def check_jax_only_flags(args: argparse.Namespace) -> None:
-    """Refuse the one mesh axis the port does not run: --pp above 1, naming
-    ROADMAP [9]. --dp, --sp and --tp make the rank grid (core/mesh.py
-    `make_mesh`, which raises when it needs more ranks than the run has);
-    --pp_microbatches is accepted and unused. --num_workers is the worker
-    count of `--loader grain` (data/pipeline.py) and --trace_dir the train
-    CLI's profiler trace."""
-    if args.pp > 1:
-        raise NotImplementedError(
-            f"--pp {args.pp}: pipeline parallelism is not ported yet "
-            f"(ROADMAP [9], pp)")
-
 
 def get_args_parser() -> argparse.ArgumentParser:
     """The JAX parser (core/config.py:227-325) with the same names and
-    defaults, plus --device. The mesh and tracing flags are accepted and
-    checked by `check_jax_only_flags`."""
+    defaults, plus --device. --dp, --pp, --sp and --tp make the rank grid
+    (core/mesh.py `make_mesh`, which raises when it needs more ranks than
+    the run has); --num_workers is the worker count of `--loader grain`
+    (data/pipeline.py) and --trace_dir the train CLI's profiler trace."""
     p = argparse.ArgumentParser("flipped_tpu_torch", add_help=False)
     p.add_argument("--batch_size", default=8, type=int)
     p.add_argument("--epochs", default=5, type=int)
@@ -308,7 +334,6 @@ def validate_audio_flags(audio: bool, audio_only: bool,
 
 
 def run_config_from_args(args: argparse.Namespace) -> RunConfig:
-    check_jax_only_flags(args)
     merge = validate_audio_flags(args.audio, args.audio_only, args.audio_merge)
     name = args.model.replace("_adapter", "")
     if name not in MODEL_PRESETS:
@@ -337,7 +362,8 @@ def run_config_from_args(args: argparse.Namespace) -> RunConfig:
         remat_group=args.remat_group, quantize=args.quantize,
         lm_head_chunk=args.lm_head_chunk,
         flash_attention=not args.no_flash)
-    mesh = MeshConfig(dp=args.dp, pp=args.pp, sp=args.sp, tp=args.tp)
+    mesh = MeshConfig(dp=args.dp, pp=args.pp, sp=args.sp, tp=args.tp,
+                      pp_microbatches=args.pp_microbatches)
     return RunConfig(model=model, data=data, train=train, mesh=mesh,
                      llama_model_path=args.llama_model_path,
                      model_name=args.model,

@@ -6,12 +6,17 @@ the collectives. The port runs one process a rank and spells the same
 layout out: `make_mesh` lays the ranks on a (dp, pp, sp, tp) grid, row-major
 with tp innermost, exactly as JAX reshapes `devices[:dp*pp*sp*tp]`, and
 makes one torch.distributed process group per axis line, plus the dp×sp
-group over which the trainables' gradients are summed (train/step.py).
+group over which the loss counts are summed and the dp×pp×sp group over
+which the trainables' gradients are (train/step.py).
 
 Axes:
   dp — data parallel: each dp row reads its own loader shard
        (`loader_shards`) and the gradients are summed over it.
-  pp — pipeline stages: not ported (core/config.py refuses --pp > 1).
+  pp — pipeline stages: stage s runs blocks [s·L/pp, (s+1)·L/pp)
+       (`stage_layers`, where JAX's P('pp') on the stacked layer axis puts
+       them) in a GPipe schedule (model/pipeline.py). A rank keeps the
+       frozen leaves of its own stage's blocks only, and every trainable
+       (`keeps_leaf`), so a checkpoint is the same at any pp.
   sp — sequence parallel: the residual stream keeps S/sp rows a rank
        (model/llama.py); attention all-gathers K/V over the axis
        (model/kernels/flash_attention.py `sp_flash_adapter_attention`).
@@ -30,15 +35,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .config import MeshConfig
+from .config import MeshConfig, is_trainable
 
 DP_AXIS = "dp"
 PP_AXIS = "pp"
 SP_AXIS = "sp"
 TP_AXIS = "tp"
 AXES = (DP_AXIS, PP_AXIS, SP_AXIS, TP_AXIS)
-# the group of the gradient reduction (train/step.py) and of the loss counts
+# the slices of the grid that have groups besides the axis lines: dp×sp,
+# that of the loss counts and metrics (train/objectives.py, train/step.py),
+# and the ranks of one tp index, that of the trainables' gradient sum
 DPSP = "dpsp"
+GRADS = "grads"
+_SLICES = {DPSP: (DP_AXIS, SP_AXIS), GRADS: (DP_AXIS, PP_AXIS, SP_AXIS)}
 
 
 class Mesh:
@@ -48,7 +57,8 @@ class Mesh:
     each axis to its size, `coords` to this rank's index on it;
     `group(axis)` is the process group of this rank's line along `axis`
     (None where the axis has one rank or no group was made), and
-    `group(DPSP)` that of its (pp, tp) slice."""
+    `group(DPSP)` and `group(GRADS)` those of its dp×sp and dp×pp×sp
+    slices."""
 
     def __init__(self, ranks: np.ndarray, rank: int,
                  groups: Optional[Dict[str, object]] = None):
@@ -62,8 +72,8 @@ class Mesh:
         self._groups = groups or {}
 
     def size(self, axis: str) -> int:
-        if axis == DPSP:
-            return self.shape[DP_AXIS] * self.shape[SP_AXIS]
+        if axis in _SLICES:
+            return int(np.prod([self.shape[a] for a in _SLICES[axis]]))
         return self.shape[axis]
 
     def index(self, axis: str) -> int:
@@ -110,7 +120,8 @@ def make_mesh(cfg: Optional[MeshConfig] = None, world_size: Optional[int] =
     """The grid over this run's ranks (torch.distributed's world, else one
     rank) and, in a process group, its groups. Every rank makes every
     group in the same order, as torch.distributed requires: each axis's
-    lines in row-major order, then the dp×sp slices."""
+    lines in row-major order, then the dp×sp slices, then the dp×pp×sp
+    ones (the dp×sp group again when pp is 1)."""
     cfg = cfg or MeshConfig()
     joined = dist.is_initialized()
     n = world_size if world_size is not None else (
@@ -126,14 +137,45 @@ def make_mesh(cfg: Optional[MeshConfig] = None, world_size: Optional[int] =
                 g = dist.new_group(line)
                 if rank in line:
                     groups[axis] = g
-        dpsp = np.moveaxis(ranks, (1, 3), (0, 1))      # (pp, tp, dp, sp)
-        if ranks.shape[0] * ranks.shape[2] > 1:
-            for line in dpsp.reshape(-1, dpsp.shape[2] * dpsp.shape[3]):
+        for name, axes in _SLICES.items():
+            axes = [AXES.index(a) for a in axes]
+            if name == GRADS and ranks.shape[1] == 1:
+                if DPSP in groups:
+                    groups[GRADS] = groups[DPSP]
+                continue
+            rest = [a for a in range(len(AXES)) if a not in axes]
+            moved = np.moveaxis(ranks, rest + axes, range(len(AXES)))
+            width = int(np.prod([ranks.shape[a] for a in axes]))
+            if width == 1:
+                continue
+            for line in moved.reshape(-1, width):
                 line = sorted(map(int, line))
                 g = dist.new_group(line)
                 if rank in line:
-                    groups[DPSP] = g
+                    groups[name] = g
     return Mesh(ranks, rank, groups)
+
+
+def stage_layers(mesh: Mesh, n_layers: int) -> range:
+    """The blocks of this rank's pipeline stage: [s·L/pp, (s+1)·L/pp), the
+    layers JAX's P('pp') on the stacked (n_layers, ...) axis puts on
+    stage s (flipped_tpu/core/mesh.py:157-164)."""
+    per = n_layers // mesh.size(PP_AXIS)
+    s = mesh.index(PP_AXIS)
+    return range(s * per, (s + 1) * per)
+
+
+def keeps_leaf(name: str, mesh: Mesh, n_layers: int) -> bool:
+    """Whether this rank holds state-dict leaf `name`: every trainable
+    (the adapter rows and gates of all stages included, ~4.6M parameters
+    at 7B, so that the optimizer and the checkpoints are those of one
+    rank), and of the frozen leaves all but those of another stage's
+    blocks (`layers.N.*`). JAX stores the stages' leaves stacked instead,
+    its trainables too (a divergence, ROADMAP Queue 3)."""
+    if is_trainable(name) or mesh.size(PP_AXIS) == 1 or not name.startswith(
+            "layers."):
+        return True
+    return int(name.split(".")[1]) in stage_layers(mesh, n_layers)
 
 
 def loader_shards(mesh: Mesh) -> tuple:
@@ -195,8 +237,3 @@ def shard_leaf(name: str, t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     n = mesh.size(TP_AXIS)
     return t.chunk(n, dim=dim)[mesh.index(TP_AXIS)].clone()
 
-
-def shard_state_dict(full: Dict[str, torch.Tensor],
-                     mesh: Mesh) -> Dict[str, torch.Tensor]:
-    """Cut a full state dict to this rank's pieces."""
-    return {name: shard_leaf(name, t, mesh) for name, t in full.items()}

@@ -60,6 +60,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import ModelConfig
+from ..core.mesh import stage_layers
 from .attention import (adapter_gated_attention, chunk_extend_attention,
                         decode_attention)
 from .int4 import int4_matmul, int4_matmul_grouped
@@ -71,6 +72,7 @@ from .kernels.flash_attention import (flash_adapter_attention,
 from .kernels.quant_matmul import dequant
 from .layers import apply_rope, apply_rope_at, precompute_rope, rms_norm
 from .parallel import copy_to, gather_from, seq_gather
+from . import pipeline
 
 
 def _empty(shape, dtype, device) -> nn.Parameter:
@@ -441,7 +443,15 @@ class FlippedVQAModel(nn.Module):
     those rows (`SeqShard`). Where S does not divide by sp, `seq_cut`
     warns with JAX's text and every sp rank runs the whole sequence through
     the single-rank flash kernels. The KV-cache paths (prefill, extend,
-    decode) run the whole sequence on every sp rank, as JAX's do."""
+    decode) run the whole sequence on every sp rank, as JAX's do.
+
+    `prefill`, `extend_logits` and `decode_step` sweep the blocks through
+    model/pipeline.py, and `encode` does with pp > 1 on the mesh (its own
+    loop takes --remat_group, which the pipeline does not). Under pp a
+    rank runs only its stage's blocks (`stage_blocks`), with their
+    adapter rows, in the GPipe schedule (`pp_microbatches` microbatches,
+    0: pp); the cache holds the stage's layers. The frozen leaves of the
+    other stages' blocks are empty (`dropped`: their full shapes)."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
                  frozen_dtype=torch.bfloat16, trainable_dtype=torch.float32,
@@ -457,6 +467,8 @@ class FlippedVQAModel(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         self.mesh = None            # set by model/parallel.py
+        self.pp_microbatches = 0
+        self.dropped = {}
         self.remat = remat
         self.remat_group = remat_group
         self.remat_policy = remat_policy
@@ -514,6 +526,16 @@ class FlippedVQAModel(nn.Module):
         adapters = self.adapter_query.weight.view(cfg.adapter_layer,
                                                   cfg.adapter_len, cfg.dim)
         return list(zip(self.layers.values(), adapters))
+
+    def stage_blocks(self):
+        """`_active_blocks` of this rank's pipeline stage (all of them
+        without pp): the layers `core.mesh.stage_layers` names, each with
+        its adapter rows."""
+        blocks = self._active_blocks()
+        if not pipeline.is_pipelined(self):
+            return blocks
+        return [blocks[i] for i in stage_layers(self.mesh,
+                                                self.cfg.n_layers)]
 
     def _rope(self, end: int):
         return precompute_rope(self.cfg.head_dim, end, self.cfg.rope_theta,
@@ -583,6 +605,9 @@ class FlippedVQAModel(nn.Module):
         if seq is not None and seq.reason is None:
             rows = slice(seq.offset, seq.offset + seq.length)
             h, rope_cos, rope_sin = h[:, rows], rope_cos[rows], rope_sin[rows]
+        if pipeline.is_pipelined(self):
+            return self.norm(pipeline.encode_blocks(
+                self, h, rope_cos, rope_sin, video_start, seq))
         remat = self.remat and torch.is_grad_enabled()
         # the remat unit: under 'qkv' it keeps its attention outputs
         unit = keep_attention if self.remat_policy == "qkv" else (lambda f: f)
@@ -648,19 +673,17 @@ class FlippedVQAModel(nn.Module):
         (h_normed (B,S,D), cache_k (L,B,cache_len,H,Dh), cache_v), zero
         past S (JAX: llama.py:699-716). Each layer's K/V is written into
         the one cache tensor, never held twice."""
-        b, s = tokens.shape
+        b = tokens.shape[0]
         cfg = self.cfg
         h = self._embed_and_splice(tokens, video_feature, splice_index)
         rope_cos, rope_sin = self._rope(cache_len)
-        heads = next(iter(self.layers.values())).attention.n_local_heads
-        shape = (len(self.layers), b, cache_len, heads, cfg.head_dim)
+        blocks = self.stage_blocks()
+        heads = blocks[0][0].attention.n_local_heads
+        shape = (len(blocks), b, cache_len, heads, cfg.head_dim)
         cache_k = torch.zeros(shape, dtype=self.dtype, device=tokens.device)
         cache_v = torch.zeros_like(cache_k)
-        for i, (block, adapter) in enumerate(self._active_blocks()):
-            h, k, v = block.prefill(h, rope_cos, rope_sin, adapter,
-                                    video_start)
-            cache_k[i, :, :s] = k
-            cache_v[i, :, :s] = v
+        h = pipeline.prefill_blocks(self, h, rope_cos, rope_sin,
+                                    video_start, cache_k, cache_v)
         return self.norm(h), cache_k, cache_v
 
     def extend_logits(self, tokens, cache_k, cache_v, prefix, video_start):
@@ -671,9 +694,8 @@ class FlippedVQAModel(nn.Module):
         h = self.tok_embeddings(tokens.reshape(b, n_opt * chunk_len)).to(
             self.dtype)
         rope_cos, rope_sin = self._rope(cache_k.shape[2])
-        for i, (block, adapter) in enumerate(self._active_blocks()):
-            h = block.extend(h, rope_cos, rope_sin, adapter, video_start,
-                             cache_k[i], cache_v[i], prefix, n_opt)
+        h = pipeline.extend_blocks(self, h, rope_cos, rope_sin, video_start,
+                                   cache_k, cache_v, prefix, n_opt)
         logits = self.lm_logits(self.norm(h))
         return logits.view(b, n_opt, chunk_len, self.cfg.vocab_size)
 
@@ -684,9 +706,8 @@ class FlippedVQAModel(nn.Module):
         place; the same tensors are returned."""
         h = self.tok_embeddings(token[:, None]).to(self.dtype)
         rope_cos, rope_sin = self._rope(cache_k.shape[2])
-        for i, (block, adapter) in enumerate(self._active_blocks()):
-            h = block.decode(h, rope_cos, rope_sin, adapter, video_start,
-                             cache_k[i], cache_v[i], pos)
+        h = pipeline.decode_blocks(self, h, rope_cos, rope_sin, video_start,
+                                   cache_k, cache_v, pos)
         return self.lm_logits(self.norm(h))[:, 0], cache_k, cache_v
 
     def forward(self, tokens, video, audio, video_start, splice_index):

@@ -16,23 +16,39 @@ out as autograd Functions over core/collectives.py.
   its rows, as one card does.
 - `seq_gather` all-gathers the sequence rows of an sp group, its backward a
   reduce-scatter (the --no_flash attention and the dense scorer under sp).
+- `ring_shift`, `from_last` and `tie` carry the pipeline's activations
+  between stages (model/pipeline.py): the ring shift over the pp group,
+  its backward the reverse ring (the transpose of JAX's `ppermute`); the
+  last stage's output on every stage, its backward the last stage's own
+  cotangent, handed to the last stage, and zeros elsewhere (the train
+  step backprops the loss of the last stage alone, model/pipeline.py
+  `loss_weight`, so the other stages' cotangents are zero and the
+  transpose of JAX's masked psum needs no collective); and `tie(x, y)`,
+  x with y joined to the graph at a zero gradient, so that stage 0, which
+  feeds from the batch, still takes the reverse ring of the value it
+  receives and every rank issues the same exchanges in the same order,
+  forward and backward.
 
 `parallelize(model, mesh)` cuts a full model to this rank's pieces, leaf by
-leaf (`core.mesh.shard_leaf`), and marks the modules that run split: the
-bf16 `Linear`s of the split table (wq/wk/wv/w1/w3 by output, wo/w2 by
-input, the head by vocabulary), the embedding, and the attention heads
-(an Attention runs H/tp heads when its four projections split). Quantized
-leaves replicate under tp, as in JAX (int8.py:272-300): a quantized block
-runs K3/K7/K8 forward and K4/K9/K10 backward on the full weights with no
-collective, redundantly within its tp group.
+leaf (`core.mesh.shard_leaf`), frees the frozen leaves of other pipeline
+stages' blocks (`core.mesh.keeps_leaf`; `model.dropped` keeps their full
+shapes), and marks the modules that run split: the bf16 `Linear`s of the
+split table (wq/wk/wv/w1/w3 by output, wo/w2 by input, the head by
+vocabulary), the embedding, and the attention heads (an Attention runs
+H/tp heads when its four projections split). Quantized leaves replicate
+under tp, as in JAX (int8.py:272-300): a quantized block runs K3/K7/K8
+forward and K4/K9/K10 backward on the full weights with no collective,
+redundantly within its tp group. `materialize` allocates a model built on
+the meta device with the stage's leaves only (train/builder.py).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ..core import collectives as C
-from ..core.mesh import TP_AXIS, Mesh, shard_leaf
+from ..core.mesh import TP_AXIS, Mesh, keeps_leaf, shard_leaf, split_dim
 
 
 class _CopyTo(torch.autograd.Function):
@@ -80,6 +96,58 @@ class _SeqGather(torch.autograd.Function):
                 None)
 
 
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return C.ring_shift(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return C.ring_shift(g, ctx.group, -1), None
+
+
+class _FromLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return C.from_last(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        last = C.group_size(ctx.group) - 1
+        if torch.distributed.get_rank(ctx.group) != last:
+            return torch.zeros_like(g), None
+        return g, None
+
+
+class _Tie(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.like = (y.shape, y.dtype, y.device)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.like
+        return g, torch.zeros(shape, dtype=dtype, device=device)
+
+
+def ring_shift(x, group):
+    """x to the next stage of the pp ring; → the previous stage's x."""
+    return x if group is None else _RingShift.apply(x, group)
+
+
+def from_last(x, group):
+    """The last pp stage's x on every stage."""
+    return x if group is None else _FromLast.apply(x, group)
+
+
+def tie(x, y):
+    """x, with y in the graph at a zero gradient."""
+    return _Tie.apply(x, y)
+
+
 def copy_to(x, group):
     return x if group is None else _CopyTo.apply(x, group)
 
@@ -123,32 +191,42 @@ _MODES = {"wq": "col", "wk": "col", "wv": "col", "wo": "row", "w1": "col",
 
 @torch.no_grad()
 def parallelize(model, mesh: Mesh):
-    """Keep this rank's piece of every leaf of the full `model` and mark
-    what runs split; → model. Leaf by leaf: each full tensor is replaced
-    by its piece before the next is cut, so no rank holds two full copies.
-    An attention splits when its heads divide by tp; an FFN when its
-    hidden dim does; the head and the embedding when theirs do. Sets
-    `model.mesh`, which the sequence cut (sp), the losses and the train
-    step read."""
+    """Keep this rank's piece of every leaf of the full `model`, free the
+    frozen leaves of other pipeline stages, and mark what runs split;
+    → model. Leaf by leaf: each full tensor is replaced by its piece before
+    the next is cut, so no rank holds two full copies. An attention splits
+    when its heads divide by tp; an FFN when its hidden dim does; the head
+    and the embedding when theirs do. Sets `model.mesh`, which the
+    pipeline, the sequence cut (sp), the losses and the train step read."""
     from .llama import Attention, Embedding, FeedForward, Linear
 
     model.mesh = mesh
+    full = {}
+    for name, p in list(model.named_parameters()):
+        full[name] = model.dropped.get(name, tuple(p.shape))
+        if name in model.dropped:
+            continue
+        if not keeps_leaf(name, mesh, model.cfg.n_layers):
+            model.dropped[name] = tuple(p.shape)
+            p.data = p.data.new_empty(0)
+            continue
+        piece = shard_leaf(name, p.data, mesh)
+        if piece is not p.data:
+            p.data = piece
     tp = mesh.size(TP_AXIS)
     group = mesh.group(TP_AXIS)
     if tp == 1:
         return model
-    for name, p in list(model.named_parameters()):
-        piece = shard_leaf(name, p.data, mesh)
-        if piece is not p.data:
-            p.data = piece
+    split = lambda w: (w not in model.dropped
+                       and split_dim(w, full[w], mesh) is not None)
     modules = dict(model.named_modules())
     for name, mod in modules.items():
         leaf = name.rsplit(".", 1)[-1]
         if isinstance(mod, Linear) and not mod.quantized \
-                and leaf in _MODES and _is_split(mod, leaf, model.cfg):
+                and leaf in _MODES and split(f"{name}.weight"):
             mod.tp = TensorSplit(_MODES[leaf], group)
         elif isinstance(mod, Embedding) and leaf == "tok_embeddings" \
-                and mod.weight.shape[1] != model.cfg.dim:
+                and split(f"{name}.weight"):
             mod.tp_group = group
     for mod in modules.values():
         if isinstance(mod, Attention) and mod.wq.tp is not None:
@@ -161,15 +239,21 @@ def parallelize(model, mesh: Mesh):
     return model
 
 
-def _is_split(mod, leaf: str, cfg) -> bool:
-    """Whether the Linear `leaf` holds a piece of its full weight."""
-    full_out = {"wq": cfg.dim, "wk": cfg.dim, "wv": cfg.dim,
-                "w1": cfg.ffn_hidden, "w3": cfg.ffn_hidden,
-                "output": cfg.vocab_size}
-    full_in = {"wo": cfg.dim, "w2": cfg.ffn_hidden}
-    if leaf in full_out:
-        return mod.weight.shape[0] != full_out[leaf]
-    return mod.weight.shape[1] != full_in[leaf]
+def materialize(model, device, mesh=None):
+    """Allocate, uninitialised on `device`, the parameters of a `model`
+    built on the meta device: every leaf this rank keeps under `mesh`
+    (`core.mesh.keeps_leaf`) at its full shape, the others empty, their
+    full shapes in `model.dropped`; → model."""
+    for mod_name, mod in list(model.named_modules()):
+        for leaf, p in list(mod.named_parameters(recurse=False)):
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            held = mesh is None or keeps_leaf(name, mesh, model.cfg.n_layers)
+            if not held:
+                model.dropped[name] = tuple(p.shape)
+            setattr(mod, leaf, nn.Parameter(
+                torch.empty(p.shape if held else (0,), dtype=p.dtype,
+                            device=device), requires_grad=p.requires_grad))
+    return model
 
 
 def tp_partial_parameters(model):

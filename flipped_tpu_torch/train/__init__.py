@@ -5,8 +5,9 @@ from .generation import (MAX_NEW_TOKENS, decode_generated,
 from .objectives import (Losses, ce_ignore_index, compute_objective_losses,
                          fused_forward, option_scores, option_scores_cached,
                          token_ce_unreduced)
-from .optim import (TRAINABLE_MARKERS, Optimizer, wd_mask, is_trainable,
-                    lr_schedule, make_optimizer, trainable_parameters)
+from ..core.config import TRAINABLE_MARKERS, is_trainable
+from .optim import (Optimizer, wd_mask, lr_schedule, make_optimizer,
+                    trainable_parameters)
 from .step import (TrainMetrics, bucket_span, make_eval_step, make_train_step,
                    required_eval_span)
 

@@ -24,10 +24,16 @@ the backbone stays at random init, with the JAX builder's warning.
 Under a mesh every rank builds the same full tree from the seed (random
 weights, or the checkpoint) and then keeps its piece of each tp-split leaf
 (`model.parallel.parallelize`, leaf by leaf through `core.mesh.
-shard_leaf`), so no rank holds two full copies.
+shard_leaf`), so no rank holds two full copies. Under pp (`validate_pp`
+first, as JAX's builder: builder.py:64-68) a rank never allocates the
+frozen leaves of another stage's blocks (`model.parallel.materialize`):
+their random init is drawn into one transient leaf at a time and freed,
+so that the kept leaves are the single rank's, and the checkpoint's are
+not read.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -40,9 +46,10 @@ from ..ckpt.convert import checkpoint_shards, load_meta_checkpoint
 from ..ckpt.quantize import quantize_kernel, randomize_quantized
 from ..ckpt.rotate import Rotation, fold_leaf
 from ..core.config import (MODEL_PRESETS, ModelConfig, RunConfig,
-                           check_train_ported, model_quant_kwargs)
+                           check_train_ported, model_quant_kwargs,
+                           validate_pp)
 from ..model.llama import FlippedVQAModel, Linear
-from ..model.parallel import parallelize
+from ..model.parallel import materialize, parallelize
 from ..text import load_tokenizer
 from .optim import is_trainable, trainable_parameters
 
@@ -88,15 +95,20 @@ def resolve_model_config(run_cfg: RunConfig) -> ModelConfig:
     return cfg
 
 
-def build_model(run_cfg: RunConfig, device, dtype=torch.bfloat16):
+def build_model(run_cfg: RunConfig, device, dtype=torch.bfloat16,
+                mesh=None):
     """→ (model with uninitialised parameters on `device`, trainables
-    marked requires_grad, cfg) (JAX: builder.py:49-75)."""
+    marked requires_grad, cfg) (JAX: builder.py:49-75); under a `mesh`
+    with pp > 1 only the leaves this rank's stage keeps are allocated."""
     quant = model_quant_kwargs(run_cfg.train.quantize)
     cfg = resolve_model_config(run_cfg)
+    validate_pp(run_cfg.mesh, cfg, run_cfg.train.is_generation_task)
     model = FlippedVQAModel(cfg, dtype=dtype, frozen_dtype=dtype,
                             trainable_dtype=torch.float32,
-                            device=torch.device(device),
+                            device=torch.device("meta"),
                             use_flash=run_cfg.train.flash_attention, **quant)
+    materialize(model, torch.device(device), mesh)
+    model.pp_microbatches = run_cfg.mesh.pp_microbatches
     trainable_parameters(model)
     return model, cfg
 
@@ -113,6 +125,22 @@ def lecun_normal_(p: torch.Tensor, g: torch.Generator) -> None:
     p.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
 
 
+@contextlib.contextmanager
+def transient(model: FlippedVQAModel, named):
+    """Give each of the (name, parameter) pairs that `model.dropped`
+    names its full shape for the block, then free it again: the random
+    init draws a dropped leaf's values, so that every kept leaf gets the
+    single rank's."""
+    held = [(p, model.dropped[n]) for n, p in named if n in model.dropped]
+    for p, shape in held:
+        p.data = p.data.new_empty(shape)
+    try:
+        yield
+    finally:
+        for p, _ in held:
+            p.data = p.data.new_empty(0)
+
+
 @torch.no_grad()
 def init_params(model: FlippedVQAModel, seed: int = 0) -> None:
     """Fill every parameter in place, as the Flax initialisers do
@@ -123,33 +151,44 @@ def init_params(model: FlippedVQAModel, seed: int = 0) -> None:
     the norms, zeros for gate1 and -bias for gate2, the identity for
     qav_rot; the quantized leaves by `randomize_quantized` (JAX:
     builder.py:191-196). The generator lives on the parameters' device, so
-    a 7B init never leaves the card."""
+    a 7B init never leaves the card. A leaf of `model.dropped` (another
+    pipeline stage's) is drawn into a transient tensor and freed."""
     g = torch.Generator(device=model.device).manual_seed(seed)
     for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if name == "qav_rot":
-            p.copy_(torch.eye(p.shape[0], dtype=p.dtype, device=p.device))
-        elif leaf in QUANT_LEAVES or leaf == "out_w":
-            continue            # randomize_quantized below
-        elif name.endswith("gate1"):
-            p.zero_()
-        elif name.endswith("gate2"):
-            p.fill_(-model.cfg.bias)
-        elif name.endswith("norm.weight"):
-            p.fill_(1.0)
-        elif name.split(".")[0] in ("tok_embeddings", "adapter_query",
-                                    "temporal_emb"):
-            p.normal_(0.0, 1.0, generator=g)
-        elif leaf == "bias":
-            p.zero_()
-        elif name.startswith("video_audio_cross_attn."):
-            lecun_normal_(p, g)
-        elif leaf == "weight" and p.dim() == 2:
-            bound = 1.0 / math.sqrt(p.shape[1])
-            p.uniform_(-bound, bound, generator=g)
-        else:
-            raise ValueError(f"no initialiser for parameter {name}")
-    randomize_quantized(model, g)
+        with transient(model, [(name, p)]):
+            _init_leaf(model, name, p, g)
+    for name, mod in model.named_modules():
+        if isinstance(mod, Linear) and mod.quantized:
+            with transient(model, [(f"{name}.{n}", p) for n, p in
+                                   mod.named_parameters()]):
+                randomize_quantized(mod, g)
+
+
+def _init_leaf(model: FlippedVQAModel, name: str, p: torch.Tensor,
+               g: torch.Generator) -> None:
+    leaf = name.rsplit(".", 1)[-1]
+    if name == "qav_rot":
+        p.copy_(torch.eye(p.shape[0], dtype=p.dtype, device=p.device))
+    elif leaf in QUANT_LEAVES or leaf == "out_w":
+        return              # randomize_quantized
+    elif name.endswith("gate1"):
+        p.zero_()
+    elif name.endswith("gate2"):
+        p.fill_(-model.cfg.bias)
+    elif name.endswith("norm.weight"):
+        p.fill_(1.0)
+    elif name.split(".")[0] in ("tok_embeddings", "adapter_query",
+                                "temporal_emb"):
+        p.normal_(0.0, 1.0, generator=g)
+    elif leaf == "bias":
+        p.zero_()
+    elif name.startswith("video_audio_cross_attn."):
+        lecun_normal_(p, g)
+    elif leaf == "weight" and p.dim() == 2:
+        bound = 1.0 / math.sqrt(p.shape[1])
+        p.uniform_(-bound, bound, generator=g)
+    else:
+        raise ValueError(f"no initialiser for parameter {name}")
 
 
 def check_dtype_policy(model: FlippedVQAModel, frozen_dtype) -> None:
@@ -202,12 +241,16 @@ def _put(param: torch.Tensor, name: str, value: torch.Tensor) -> None:
 def load_checkpoint(model: FlippedVQAModel, path) -> List[str]:
     """Graft the Meta checkpoint under `path` into the frozen leaves of
     `model`, leaf by leaf on its device: rotated first under an `*r` mode,
-    quantized into a quantized Linear's leaves. → the frozen leaves it did
-    not fill, which keep their values."""
+    quantized into a quantized Linear's leaves; the leaves of
+    `model.dropped` (another pipeline stage's blocks) are not read. → the
+    frozen leaves it did not fill, which keep their values."""
     cfg = model.cfg
     params = dict(model.named_parameters())
     modules = dict(model.named_modules())
-    frozen = {n for n, p in params.items() if not p.requires_grad}
+    frozen = {n for n, p in params.items()
+              if not p.requires_grad and n not in model.dropped}
+    # the modules of another stage's leaves: their checkpoint leaves
+    dropped = {n.rsplit(".", 1)[0] for n in model.dropped}
     device = model.device
     rot = gammas = None
     if model.rotated:
@@ -222,7 +265,9 @@ def load_checkpoint(model: FlippedVQAModel, path) -> List[str]:
                              "output head fold and qav_rot")
         rot = Rotation(cfg.dim, device=device)
     filled = set()
-    for name, t in load_meta_checkpoint(path, device=device):
+    for name, t in load_meta_checkpoint(
+            path, device=device,
+            skip=lambda n: n.rsplit(".", 1)[0] in dropped):
         base = name[:-len(".weight")]
         linear = modules.get(base)
         quantized = isinstance(linear, Linear) and linear.quantized
@@ -251,7 +296,7 @@ def build_eval_state(run_cfg: RunConfig, device, seed: int = 0,
     """→ (model, cfg, tokenizer) with the model's parameters initialised
     and, where there is a checkpoint, its frozen backbone loaded; under a
     `mesh` (core/mesh.py) cut to this rank's pieces."""
-    model, cfg = build_model(run_cfg, device, dtype)
+    model, cfg = build_model(run_cfg, device, dtype, mesh)
     tok_path = tokenizer_path(run_cfg)
     tokenizer = load_tokenizer(tok_path if os.path.exists(tok_path) else "",
                                n_words=cfg.vocab_size)

@@ -1,7 +1,7 @@
 """Partial freeze, AdamW with weight-decay masking, warmup-cosine schedule
 (JAX: flipped_tpu/train/optim.py).
 
-- Trainables by parameter name: gates, adapter, temporal_emb, visual_proj
+- Trainables by parameter name (core/config.py `is_trainable`): gates, adapter, temporal_emb, visual_proj
   and the audio merges' audio_proj and video_audio_cross_attn train in
   f32; the rest stays frozen with requires_grad=False (reference:
   llama_vqa.py:71-77, whose name filter left the audio modules frozen at
@@ -26,14 +26,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from ..core.config import TrainConfig
-
-TRAINABLE_MARKERS = ("gate", "adapter", "temporal_emb", "visual_proj",
-                     "audio_proj", "video_audio_cross_attn")
-
-
-def is_trainable(name: str) -> bool:
-    return any(m in name for m in TRAINABLE_MARKERS)
+from ..core.config import TrainConfig, is_trainable
 
 
 def trainable_parameters(model) -> List[Tuple[str, torch.nn.Parameter]]:

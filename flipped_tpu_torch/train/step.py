@@ -6,16 +6,24 @@ bucketing become plain calls; `bucket_span` is kept so both packages score
 the same answer window.
 
 Under a mesh (model/parallel.py) the step does what GSPMD's partitioned
-program does: the trainables' gradients are summed over the dp×sp group
-once, in one flat all-reduce; the trainables a tp rank uses in part (the
-gates of a head-split attention, `tp_partial_parameters`) are summed over
-tp as well, while those that reach the split layers through `copy_to`
-arrive whole. The trainables are replicated, so after the sums every rank
-holds the same gradients, the same (global) norm and takes the same
-update. The losses are each rank's share of the global token mean
-(train/objectives.py), summed over dp×sp for the metrics. A multi-process
-eval pins one answer window for every rank (`span_len`,
-data/pipeline.py `pinned_eval_span`).
+program does: the trainables a tp rank uses in part (the gates of a
+head-split attention, `tp_partial_parameters`) are summed over tp, while
+those that reach the split layers through `copy_to` arrive whole; then
+every trainable's gradient is summed over the ranks of one tp index
+(dp×pp×sp) once, in one flat all-reduce. Under pp each trainable's
+gradient lies on the stages that use it: a stage's gates and adapter rows
+on that stage (the tp sum comes first, as only that stage's ranks know
+that its heads split), the splice's leaves (visual_proj, temporal_emb,
+the audio leaves) on stage 0, and the heads' on the last stage, whose
+loss alone is backpropagated (model/pipeline.py `loss_weight`); a
+trainable a rank does not use gets a zero gradient, so the one sum over
+dp×pp×sp counts each use once. The trainables are replicated, so after
+the sums every rank holds the same gradients, the same (global) norm and
+takes the same update. The losses are each rank's share of the global
+token mean (train/objectives.py), summed over dp×sp (not over pp: every
+stage computes the same losses) for the metrics. A multi-process eval
+pins one answer window for every rank (`span_len`, data/pipeline.py
+`pinned_eval_span`).
 """
 from __future__ import annotations
 
@@ -25,9 +33,10 @@ import numpy as np
 import torch
 
 from ..core import collectives as C
-from ..core.mesh import DPSP, TP_AXIS
+from ..core.mesh import DPSP, GRADS, TP_AXIS
 from ..data.batching import eval_span
 from ..model.parallel import tp_partial_parameters
+from ..model.pipeline import loss_weight
 from .objectives import (compute_objective_losses, option_scores,
                          option_scores_cached)
 from .optim import Optimizer
@@ -55,8 +64,10 @@ def make_train_step(model, optimizer: Optimizer, vaq: bool, qav: bool,
     clipping."""
     mesh = getattr(model, "mesh", None)
     dpsp = mesh.group(DPSP) if mesh is not None else None
+    across = mesh.group(GRADS) if mesh is not None else None
     tp = mesh.group(TP_AXIS) if mesh is not None else None
     partial = tp_partial_parameters(model) if tp is not None else []
+    weight = loss_weight(model)
 
     def train_step(batch: Dict[str, torch.Tensor]) -> TrainMetrics:
         accum = batch["vqa_tokens"].shape[0]
@@ -66,12 +77,16 @@ def make_train_step(model, optimizer: Optimizer, vaq: bool, qav: bool,
             losses = compute_objective_losses(
                 model, {k: v[i] for k, v in batch.items()}, vaq, qav,
                 lm_chunk=lm_chunk)
-            losses.total.backward()
+            (losses.total * weight).backward()
             per_micro.append(torch.stack([losses.total.detach(),
                                           *(x.detach() for x in losses)]))
+        for p in optimizer.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in optimizer.params]
-        _sum_grads(grads, dpsp)
+        # first over tp, within the stage whose blocks split their heads
         _sum_grads([p.grad for p in partial], tp)
+        _sum_grads(grads, across)
         if accum > 1:
             for g in grads:
                 g.div_(accum)

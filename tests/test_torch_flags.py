@@ -3,10 +3,9 @@
 --no_flash.
 
 A tiny-preset command line carrying each flag runs the train CLI on the CPU,
-or raises: --dp, --tp or --sp above 1 in one process asks for a grid
-larger than its one rank (core/mesh.py's ValueError), and --pp above 1 the
-NotImplementedError that names the ROADMAP item it waits for ([9]); the
-evaluate and profile CLIs refuse the same. --no_flash routes attention
+or raises: --dp, --tp, --sp or --pp above 1 in one process asks for a grid
+larger than its one rank (core/mesh.py's ValueError); the evaluate and
+profile CLIs refuse the same. --no_flash routes attention
 through the einsum `adapter_gated_attention`, and a train step with it
 gives the JAX package's --no_flash losses on the same weights and batch.
 """
@@ -92,7 +91,7 @@ def test_train_cli_runs_with_jax_flags(synth_root, extra):
     (["--dp", "2"], ValueError, r"mesh 2x1x1x1 > 1 ranks"),
     (["--tp", "2"], ValueError, r"mesh 1x1x1x2 > 1 ranks"),
     (["--sp", "4"], ValueError, r"mesh 1x1x4x1 > 1 ranks"),
-    (["--pp", "2"], NotImplementedError, r"\[9\]")])
+    (["--pp", "2"], ValueError, r"mesh 1x2x1x1 > 1 ranks")])
 @pytest.mark.parametrize("cli", ["train", "evaluate", "profile"])
 def test_clis_refuse_mesh_and_trace_naming_the_item(synth_root, extra, error,
                                                     item, cli):

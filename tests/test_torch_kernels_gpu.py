@@ -23,6 +23,11 @@ from flipped_tpu_torch.model.kernels import quant_matmul as qm
 pytestmark = pytest.mark.gpu
 
 
+# a pp 2 stage's training microbatch: rows {t, t+2, ...} of the stacked
+# VQA, VAQ and QAV rows of batch 8
+PP_TRAIN_VS = (5, 9, 5, 2) * 2 + (-1,) * 4
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -33,7 +38,17 @@ def cuda():
 @pytest.mark.parametrize("shape,vs", [((2, 130, 4, 128), (-1, 5)),
                                       ((3, 37, 2, 128), (0, 5, -1)),
                                       # the eval prefill at tp 2: 16 heads
-                                      ((4, 128, 16, 128), (5, -1, 0, 40))])
+                                      ((4, 128, 16, 128), (5, -1, 0, 40)),
+                                      # a pp 2 stage's microbatches: the
+                                      # stacked training encode, the eval
+                                      # and generation prefills
+                                      ((12, 128, 32, 128), PP_TRAIN_VS),
+                                      ((4, 128, 32, 128), (5, -1, 0, 40)),
+                                      ((16, 128, 32, 128), PP_TRAIN_VS[:8]
+                                       * 2),
+                                      # the generation prefill at tp 2
+                                      ((32, 128, 16, 128), PP_TRAIN_VS[:8]
+                                       * 4)])
 def test_flash_text_fwd_matches_plain(cuda, shape, vs):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(*shape, device=cuda, generator=g)
@@ -73,7 +88,9 @@ K2_SHAPES = [((2, 130, 4, 128), (-1, 5)), ((3, 37, 2, 128), (0, 5, -1)),
              ((1, 129, 4, 128), (60,)), ((1, 258, 2, 128), (120,)),
              ((1, 2048, 2, 128), (1000,)),
              # the training encode of one dp rank at tp 2: 16 heads
-             ((12, 128, 16, 128), (5, 1, 9, 0, -1, 3, 2, 5, -1, 7, 0, 4))]
+             ((12, 128, 16, 128), (5, 1, 9, 0, -1, 3, 2, 5, -1, 7, 0, 4)),
+             # a pp 2 stage's training microbatch: 32 heads
+             ((12, 128, 32, 128), PP_TRAIN_VS)]
 
 
 @pytest.mark.parametrize("shape,vs", K2_SHAPES)
@@ -281,7 +298,10 @@ STREAM_EDGE = [(1, 1, 2, 2, 1, (0,)), (2, 1, 300, 2, 200, (5, -1)),
 # heads (tp 2 of 32); S 4096 cut in two, S_q 2048 at q_offset 2048.
 SP_CASES = [(4, 64, 128, 16, 0, (5, -1, 0, 40)),
             (4, 64, 128, 16, 64, (5, -1, 0, 40)),
-            (1, 2048, 4096, 32, 2048, (7,))]
+            (1, 2048, 4096, 32, 2048, (7,)),
+            # a pp 2 stage's microbatch under sp 2 and tp 2
+            (12, 64, 128, 16, 0, PP_TRAIN_VS),
+            (12, 64, 128, 16, 64, PP_TRAIN_VS)]
 
 
 @pytest.mark.parametrize("b,s_q,s_k,h,q_offset,vs",

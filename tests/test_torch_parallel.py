@@ -1,4 +1,5 @@
-"""The port's data, sequence and tensor parallelism against the JAX package.
+"""The port's data, pipeline, sequence and tensor parallelism against the
+JAX package.
 
 In-process: the rank grid and its axis lines against
 `flipped_tpu.core.mesh.make_mesh`'s device array on 8 virtual CPU devices,
@@ -21,11 +22,24 @@ while they run, and the tests collect them:
      weights (`params_from_flax`) and batches; and again with remat under
      the qkv policy and a chunked LM head, against the same JAX run; and
      at S 95, which sp 2 does not divide, against the single-rank port;
-   - w8a8d dp4×tp2: the same eval and step, quantized.
+   - w8a8d dp4×tp2: the same eval and step, quantized;
+   - dp1×pp2×sp2×tp2 (JAX's dry-run pp leg): the dp2×sp2×tp2 eval and
+     step, with the blocks in two pipeline stages, against JAX's
+     `PipelinedModel` under the same mesh;
+   - dp4×pp2 with --pp_microbatches 3, which a dp row's 2 eval rows do
+     not divide: the cached eval and the generated tokens against JAX's
+     pipelined prefill, extend and decode under the same mesh (JAX's
+     partitioner aborts on its pipelined decode under dp2×pp2×tp2);
+   - dp2×sp2×tp2: the generated tokens against JAX's single-device
+     `make_generation_step` and the single-rank port;
+   - w4a8 dp4×pp2: one update and the eval against the single-rank port.
    Each step's update-2 gradients are held, leaf by leaf, against the
    single-rank port's run of the same task in this process.
 2. A 2-rank `cli.train --dp 2 --is_generation_task` on MUSIC-AVQA fixtures,
    against the single-process run of the same command.
+3. A 2-rank `cli.train --pp 2` on NExT-QA fixtures writing its
+   checkpoint, against the single-process run of the same command; the
+   checkpoint then restores into a pp-1 build.
 """
 import functools
 import importlib.util
@@ -55,21 +69,25 @@ from flipped_tpu.data import (add_accum_axis, make_synthetic_items,
                               pack_eval_batch, pack_train_batch)
 from flipped_tpu.model import FlippedVQAModel as JModel
 from flipped_tpu.model.attention import adapter_gated_attention
+from flipped_tpu.model.pipeline import (PipelinedModel, stack_layer_params,
+                                        unstack_layer_params)
 from flipped_tpu.text import MockTokenizer
 from flipped_tpu.train import make_eval_step as jmake_eval_step
 from flipped_tpu.train import make_optimizer as jmake_optimizer
 from flipped_tpu.train import make_train_step as jmake_train_step
 from flipped_tpu.train import partition_params
+from flipped_tpu.train.generation import \
+    make_generation_step as jmake_generation_step
 from flipped_tpu.train.optim import lr_schedule as jlr_schedule
 from flipped_tpu_torch.ckpt import params_from_flax
 from flipped_tpu_torch.ckpt.convert import (flatten_flax,
                                             flax_path_to_torch_name,
                                             needs_transpose)
 from flipped_tpu_torch.core.config import MeshConfig
-from flipped_tpu_torch.core.mesh import (AXES, Mesh, _lines, loader_shards,
-                                         param_pspec, rank_grid,
-                                         shard_state_dict)
-from flipped_tpu_torch.data.synthetic import make_musicavqa
+from flipped_tpu_torch.core.mesh import (AXES, Mesh, _lines, keeps_leaf,
+                                         loader_shards, param_pspec,
+                                         rank_grid, shard_leaf)
+from flipped_tpu_torch.data.synthetic import make_musicavqa, make_nextqa
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "torch_parallel_worker.py"
@@ -79,6 +97,8 @@ KW = dict(dim=32, n_layers=2, n_heads=4, vocab_size=512, multiple_of=16,
 # w8a8d needs dims the quantized kernels' plain versions take (as
 # tests/test_torch_dgrad.py); one block keeps JAX's compile short
 QKW = dict(KW, dim=128, multiple_of=128, n_layers=1, adapter_layer=1)
+# w4a8 in two pipeline stages: two blocks at the quantized dims
+Q4KW = dict(QKW, n_layers=2, adapter_layer=2)
 TCFG = dict(epochs=8, warmup_epochs=1.0, lr=1e-2, weight_decay=0.1)
 STEPS_PER_EPOCH, WORLD_BATCH, ACCUM, N_UPDATES = 4, 8, 2, 2
 # f32 on both sides; the mesh changes only the order of the sums
@@ -105,6 +125,27 @@ SR_NOISE = 2.0
 # boundary), the logits are held to 2.5e-3 of the largest
 QUANT_SCORE_REL = 2.5e-3
 SPAWN_TIMEOUT = 240
+# the pp checkpoint's train command: one update at a nonzero lr (no warmup)
+CKPT_ARGV = ["--model", "tiny", "--dataset", "nextqa", "--max_seq_len",
+             "128", "--epochs", "1", "--debug", "--vaq", "--qav",
+             "--batch_size", "4", "--lr", "1e-2", "--warmup_epochs", "0",
+             "--device", "cpu"]
+# the CLI computes in bf16 on the CPU too: a microbatch's GEMMs round
+# otherwise than the whole batch's (2^-8 relative a rounding); the moments
+# held at chip_smoke.py's GRAD_REL for bf16 gradients (measured 3.0e-3 of
+# visual_proj's norm)
+BF16_GRAD_REL = 2.0 ** -6
+# generation: the similarities of the same tokens' pooled embeddings, f32
+SIM_TOL = dict(rtol=1e-5, atol=1e-5)
+# w4a8's gradients against the single rank's: the model's f32 GEMMs sum in
+# an order that depends on the row count (MKL's blocking), so a rank's
+# microbatch and the single rank's batch may round an activation a ulp
+# apart, and the 8-bit activation quantize then flips a code (the losses
+# still agree to LOSS_TOL); through the straight-through backward a flip
+# moves the adapter's gradient. Measured 1.9e-3 of the leaf's norm at
+# dp4×pp2, and the same at dp4×tp2 without pp; held at 1e-2, where a sum
+# over pp skipped or doubled moves a leaf by a part of itself
+QUANT_GRAD_REL = 1e-2
 # the LM head in chunks of 40 rows: under sp 2 a rank's 48 rows of S 96
 # take a full and a ragged chunk
 LM_CHUNK = 40
@@ -126,14 +167,14 @@ def _single_rank(job):
     return _worker().run_step(job, make_mesh(MeshConfig(dp=1)))
 
 
-def _check_grads(ranks, want, noise=None):
+def _check_grads(ranks, want, noise=None, rel=GRAD_TOL):
     """Each rank's update-2 gradients against `want`'s, leaf by leaf: the
-    difference within GRAD_TOL of the leaf's norm, plus SR_NOISE times the
-    leaf's `noise` norm (w8a8d)."""
+    difference within `rel` (GRAD_TOL) of the leaf's norm, plus SR_NOISE
+    times the leaf's `noise` norm (w8a8d)."""
     for r, out in enumerate(ranks):
         assert out["grads"].keys() == want["grads"].keys(), r
         for name, g in want["grads"].items():
-            bound = GRAD_TOL * float(g.norm()) + SR_NOISE * (
+            bound = rel * float(g.norm()) + SR_NOISE * (
                 noise or {}).get(name, 0.0)
             diff = float((out["grads"][name] - g).norm())
             assert diff <= bound, (r, name, diff, bound)
@@ -200,6 +241,13 @@ def test_loader_shards_match_jax(monkeypatch, shape):
             jmesh_mod.loader_shards(FakeJMesh(grid)), r
 
 
+def shard_state_dict(full, mesh, n_layers):
+    """A full state dict cut to this rank's pieces, leaf by leaf, as
+    `parallelize` cuts a model."""
+    return {name: shard_leaf(name, t, mesh) for name, t in full.items()
+            if keeps_leaf(name, mesh, n_layers)}
+
+
 def test_split_table_matches_param_pspec():
     """Every leaf of a tiny tree: the port's split (torch layout) is JAX's
     `param_pspec` (Flax layout, transposed where the kernel is), and
@@ -229,7 +277,8 @@ def test_split_table_matches_param_pspec():
     shardings = jmesh_mod.param_shardings(jm, params)
     grid = rank_grid(MeshConfig(dp=4, tp=2), 8)
     for r in (0, 1):
-        pieces = shard_state_dict(full, Mesh(grid, int(grid[0, 0, 0, r])))
+        pieces = shard_state_dict(full, Mesh(grid, int(grid[0, 0, 0, r])),
+                                  cfg.n_layers)
         dev = devs[int(grid[0, 0, 0, r])]
         for path, sh in flatten_flax(shardings).items():
             arr = jax.device_put(flat[path], sh)
@@ -453,6 +502,39 @@ def _odd_job(job):
                                            cfg["max_feats"]))
 
 
+def _gen_job(tree, seed=9):
+    """The cached eval and the generation step on 8 val items of `tree`."""
+    cfg = JModelConfig(**KW)
+    tok = MockTokenizer(cfg.vocab_size)
+    items = make_synthetic_items(tok, 8, max_feats=cfg.max_feats,
+                                 max_seq_len=cfg.max_seq_len,
+                                 visual_dim=cfg.visual_dim, split="val",
+                                 seed=seed)
+    return dict(name="gen", kind="gen", cfg=KW, state=params_from_flax(tree),
+                eval_batch=pack_eval_batch(items, cfg.max_feats),
+                eos_id=tok.eos_id)
+
+
+def _w4a8_job(job_q):
+    """`job_q`'s batches on two w4a8 blocks, initialised by the port (the
+    test holds it against the single-rank port only), gate1 0.3 as
+    `_init_params` sets it."""
+    from flipped_tpu_torch.core.config import ModelConfig as TModelConfig
+    from flipped_tpu_torch.core.config import model_quant_kwargs
+    from flipped_tpu_torch.model import FlippedVQAModel as TModel
+    from flipped_tpu_torch.train import init_params
+
+    model = TModel(TModelConfig(**Q4KW), dtype=torch.float32,
+                   frozen_dtype=torch.float32, **model_quant_kwargs("w4a8"))
+    init_params(model, 4)
+    state = model.state_dict()
+    for name in state:
+        if name.endswith("gate1"):
+            state[name] = torch.full_like(state[name], 0.3)
+    return dict(job_q, name="w4a8", cfg=Q4KW, quantize="w4a8", state=state,
+                n_updates=1)
+
+
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory):
     """Start all three groups at once; the tests collect them."""
@@ -460,6 +542,8 @@ def spawned(tmp_path_factory):
     attn = _attention_inputs()
     tree_f32, job_f32 = _step_job(KW, "none", 5)
     tree_q, job_q = _step_job(QKW, "w8a8d", 6)
+    gen_job = _gen_job(tree_f32)
+    w4a8_job = _w4a8_job(job_q)
     (root / "ranks").mkdir()
     attn_task = dict(name="attention", kind="attention",
                      mesh=dict(dp=2, sp=2, tp=2),
@@ -471,9 +555,16 @@ def spawned(tmp_path_factory):
          dict(job_f32, mesh=sp_grid, name="qkv", remat_policy="qkv",
               lm_chunk=LM_CHUNK),
          dict(job_q, mesh=dict(dp=4, tp=2)),
-         dict(_odd_job(job_f32), mesh=sp_grid)], 8, root / "ranks")}
+         dict(_odd_job(job_f32), mesh=sp_grid),
+         dict(job_f32, name="pp_sp_tp", mesh=dict(dp=1, pp=2, sp=2, tp=2)),
+         dict(gen_job, name="pp_gen", mesh=dict(dp=4, pp=2),
+              pp_microbatches=3),
+         dict(gen_job, name="sp_tp_gen", mesh=sp_grid),
+         dict(w4a8_job, mesh=dict(dp=4, pp=2))], 8, root / "ranks")}
     data = root / "data"
     make_musicavqa(str(data), 16, np.random.RandomState(0))
+    nextqa = root / "nextqa"
+    make_nextqa(str(nextqa), 16, np.random.RandomState(1))
     gen_argv = ["--model", "tiny", "--dataset", "musicavqa", "--data_root",
                 str(data), "--max_seq_len", "128", "--epochs", "1",
                 "--debug", "--is_generation_task", "--lr", "0", "--device",
@@ -487,18 +578,33 @@ def spawned(tmp_path_factory):
         cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="1"),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)],
         root / "gen_single")
-    # three threads: XLA compiles with the GIL released, and each thread
+    ckpt = [sys.executable, "-m", "flipped_tpu_torch.cli.train",
+            *CKPT_ARGV, "--data_root", str(nextqa)]
+    groups["ckpt_pp2"] = (_spawn(lambda r: ckpt + [
+        "--pp", "2", "--output_dir", str(root / "ckpt_pp2")], 2),
+        root / "ckpt_pp2")
+    groups["ckpt_single"] = ([subprocess.Popen(
+        ckpt + ["--output_dir", str(root / "ckpt_single")], cwd=ROOT,
+        env=dict(os.environ, OMP_NUM_THREADS="1"), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)], root / "ckpt_single")
+    # six threads: XLA compiles with the GIL released, and each thread
     # has its own mesh context
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(6) as ex:
         futures = {
             "attention": ex.submit(_jax_attention, attn),
             "none": ex.submit(_jax_mesh_run, tree_f32, job_f32,
                               JMeshConfig(dp=2, sp=2, tp=2), "none"),
             "w8a8d": ex.submit(_jax_mesh_run, tree_q, job_q,
-                               JMeshConfig(dp=4, tp=2), "w8a8d")}
+                               JMeshConfig(dp=4, tp=2), "w8a8d"),
+            "pp_sp_tp": ex.submit(_jax_pp_run, tree_f32, job_f32,
+                                  JMeshConfig(dp=1, pp=2, sp=2, tp=2)),
+            "pp_gen": ex.submit(_jax_pp_gen, tree_f32, gen_job,
+                                JMeshConfig(dp=4, pp=2, pp_microbatches=3)),
+            "gen": ex.submit(_jax_gen, tree_f32, gen_job)}
         jax_refs = {k: f.result() for k, f in futures.items()}
     yield dict(groups=groups, attn=attn, jax=jax_refs, f32=job_f32,
-               w8a8d=job_q, odd=_odd_job(job_f32))
+               w8a8d=job_q, odd=_odd_job(job_f32), gen=gen_job,
+               w4a8=w4a8_job, nextqa=nextqa)
     for procs, _ in groups.values():
         for p in procs:
             if p.poll() is None:
@@ -539,6 +645,85 @@ def _jax_mesh_run(tree, job, mesh_cfg, quantize):
             t, o, m = step(t, o, f, b)
             metrics.append([float(x) for x in m])
     return np.array(metrics), jax.device_get(t), scores
+
+
+def _jax_pp_run(tree, job, mesh_cfg):
+    """`_jax_mesh_run` on JAX's `PipelinedModel`: the stacked tree on the
+    mesh, the cached eval, then N_UPDATES of the train step → (metrics,
+    the trainables unstacked, eval scores)."""
+    cfg = JModelConfig(**job["cfg"])
+    mesh = jmesh_mod.make_mesh(mesh_cfg, devices=cpu8())
+    pmodel = PipelinedModel(JModel(
+        cfg, dtype=jnp.float32, frozen_dtype=jnp.float32,
+        trainable_dtype=jnp.float32, use_flash=False,
+        seq_shard=mesh_cfg.sp > 1), mesh_cfg.pp_microbatches)
+    tcfg = JTrainConfig(accum_iter=ACCUM, vaq=True, qav=True, **TCFG)
+    tx = jmake_optimizer(tcfg, STEPS_PER_EPOCH, WORLD_BATCH)
+    step = jmake_train_step(pmodel, tx, vaq=True, qav=True,
+                            lr_fn=jlr_schedule(tcfg, STEPS_PER_EPOCH,
+                                               WORLD_BATCH))
+    trainable, frozen = (stack_layer_params(x, cfg.n_layers)
+                         for x in partition_params(tree))
+    metrics = []
+    with jax.set_mesh(mesh):
+        t = jax.device_put(trainable,
+                           jmesh_mod.param_shardings(mesh, trainable))
+        f = jax.device_put(frozen, jmesh_mod.param_shardings(mesh, frozen))
+        o = jax.jit(tx.init)(t)
+        eb = {k: jax.device_put(v, NamedSharding(mesh, P("dp")))
+              for k, v in job["eval_batch"].items()
+              if isinstance(v, np.ndarray) and v.ndim
+              and k not in ("answer", "qtype", "qid")}
+        scores = np.asarray(jmake_eval_step(pmodel, cached=True)(
+            t, f, eb)["scores"])
+        b = {k: jax.device_put(v, NamedSharding(mesh, P(None, "dp")))
+             for k, v in job["batch"].items()}
+        for _ in range(N_UPDATES):
+            t, o, m = step(t, o, f, b)
+            metrics.append([float(x) for x in m])
+    return (np.array(metrics),
+            unstack_layer_params(jax.device_get(t), cfg.n_layers), scores)
+
+
+def _eval_arrays(job):
+    return {k: v for k, v in job["eval_batch"].items()
+            if isinstance(v, np.ndarray) and v.ndim
+            and k not in ("answer", "qtype", "qid")}
+
+
+def _jax_pp_gen(tree, job, mesh_cfg):
+    """JAX's pipelined cached eval and generation step under the mesh →
+    (scores, generated tokens, similarities)."""
+    cfg = JModelConfig(**job["cfg"])
+    mesh = jmesh_mod.make_mesh(mesh_cfg, devices=cpu8())
+    pmodel = PipelinedModel(JModel(cfg, dtype=jnp.float32,
+                                   frozen_dtype=jnp.float32),
+                            mesh_cfg.pp_microbatches)
+    trainable, frozen = (stack_layer_params(x, cfg.n_layers)
+                         for x in partition_params(tree))
+    with jax.set_mesh(mesh):
+        t = jax.device_put(trainable,
+                           jmesh_mod.param_shardings(mesh, trainable))
+        f = jax.device_put(frozen, jmesh_mod.param_shardings(mesh, frozen))
+        eb = {k: jax.device_put(v, NamedSharding(mesh, P("dp")))
+              for k, v in _eval_arrays(job).items()}
+        scores = np.asarray(jmake_eval_step(pmodel, cached=True)(
+            t, f, eb)["scores"])
+        gen = jmake_generation_step(pmodel, job["eos_id"])(t, f, eb)
+        return (scores, np.asarray(gen["generated"]),
+                np.asarray(gen["similarity"]))
+
+
+def _jax_gen(tree, job):
+    """JAX's generation step on one device → (generated, similarity)."""
+    cfg = JModelConfig(**job["cfg"])
+    jmodel = JModel(cfg, dtype=jnp.float32, frozen_dtype=jnp.float32)
+    trainable, frozen = partition_params(tree)
+    eb = {k: jnp.asarray(v) for k, v in _eval_arrays(job).items()}
+    with jax.default_device(cpu8()[0]):
+        gen = jmake_generation_step(jmodel, job["eos_id"])(trainable,
+                                                           frozen, eb)
+        return np.asarray(gen["generated"]), np.asarray(gen["similarity"])
 
 
 def _check_trainables(ranks, jtrainable, check):
@@ -737,3 +922,152 @@ def test_generation_cli_under_dp2_matches_one_process(spawned):
     for r in (0, 1):
         assert (out_dp2 / "extracted_answers"
                 / f"extracted_answers_epoch0_rank{r}.json").exists()
+
+
+def _dp_rows(ranks, dp, key):
+    """`key` of the dp rows, in order, from each row's first rank; every
+    rank of a row holds the same."""
+    per_row = len(ranks) // dp
+    for r, out in enumerate(ranks):
+        first = ranks[r - r % per_row][key]
+        assert torch.equal(out[key], first), (r, key)
+    return np.concatenate([ranks[i * per_row][key].numpy()
+                           for i in range(dp)])
+
+
+def test_dp1_pp2_sp2_tp2_step_and_eval_match_jax(spawned):
+    """JAX's dry-run pp leg: two updates (accum 2) and one cached eval batch
+    with the blocks in two stages (2 microbatches of the 12 stacked rows
+    and of the 4 eval rows), the sp ranks on K5/K6's plain versions inside
+    the stages and the tp ranks on half the heads: every rank's losses,
+    grad norm, lr and updated trainables, and the scores, against JAX's
+    `PipelinedModel` under the same mesh (LOSS_TOL, PARAM_TOL,
+    SCORE_TOL); update 2's gradients against the single-rank port's
+    (GRAD_TOL): the dp×pp×sp sum counts each use of a trainable once."""
+    metrics, jtrainable, jscores = spawned["jax"]["pp_sp_tp"]
+    assert metrics[0, 0] > 1.0
+    ranks = _collect(spawned["groups"]["ranks"], "pp_sp_tp")
+    for r, out in enumerate(ranks):
+        np.testing.assert_allclose(np.array(out["metrics"]), metrics,
+                                   err_msg=f"rank {r}", **LOSS_TOL)
+        assert out["frozen_same"], r
+        assert out["heads"] == KW["n_heads"] // 2
+        assert out["microbatches"] and set(out["microbatches"]) == {2}, r
+    _check_trainables(ranks, jtrainable,
+                      lambda got, want, msg: np.testing.assert_allclose(
+                          got, want, err_msg=msg, **PARAM_TOL))
+    np.testing.assert_allclose(_scores(ranks, 1), jscores, **SCORE_TOL)
+    _check_grads(ranks, _single_rank(spawned["f32"]))
+
+
+def test_pp_generation_and_cached_eval_match_jax(spawned):
+    """dp4×pp2 with --pp_microbatches 3: a dp row's 2 eval rows take 2
+    microbatches, as JAX's `_pick_microbatches` shrinks it; the cached
+    scores, the generated tokens (equal) and their similarities against
+    JAX's pipelined prefill, extend and decode under the same mesh."""
+    jscores, jgen, jsim = spawned["jax"]["pp_gen"]
+    ranks = _collect(spawned["groups"]["ranks"], "pp_gen")
+    from flipped_tpu.model.pipeline import _pick_microbatches
+
+    for r, out in enumerate(ranks):
+        assert out["microbatches"] == [_pick_microbatches(3, 2, 2)] * len(
+            out["microbatches"]) == [2] * 3, r      # prefill, extend, prefill
+    np.testing.assert_array_equal(_dp_rows(ranks, 4, "generated"), jgen)
+    np.testing.assert_allclose(_dp_rows(ranks, 4, "similarity"), jsim,
+                               **SIM_TOL)
+    np.testing.assert_allclose(_dp_rows(ranks, 4, "scores"), jscores,
+                               **SCORE_TOL)
+
+
+def test_sp_tp_generation_matches_jax_and_one_rank(spawned):
+    """dp2×sp2×tp2 generation: every sp rank prefills and decodes the whole
+    prompt, a tp rank its heads against a cache of its heads. The tokens
+    equal JAX's `make_generation_step` on one device and the single-rank
+    port's."""
+    jgen, jsim = spawned["jax"]["gen"]
+    ranks = _collect(spawned["groups"]["ranks"], "sp_tp_gen")
+    from flipped_tpu_torch.core.mesh import make_mesh
+
+    one = _worker().run_gen(spawned["gen"], make_mesh(MeshConfig(dp=1)))
+    np.testing.assert_array_equal(one["generated"].numpy(), jgen)
+    np.testing.assert_array_equal(_dp_rows(ranks, 2, "generated"), jgen)
+    np.testing.assert_allclose(_dp_rows(ranks, 2, "similarity"), jsim,
+                               **SIM_TOL)
+    np.testing.assert_allclose(_dp_rows(ranks, 2, "scores"),
+                               one["scores"].numpy(), **SCORE_TOL)
+
+
+def test_w4a8_dp4_pp2_step_and_eval_match_one_rank(spawned):
+    """w4a8 in two stages on four dp rows (one microbatch of 3 rows a
+    rank: pp 2 does not divide them): one update and the cached eval
+    against the single-rank port's run of the same job (the int4 plain
+    versions' integer dots are exact, the f32 sums differ only in order:
+    LOSS_TOL, PARAM_TOL, SCORE_TOL; the gradients QUANT_GRAD_REL); frozen
+    leaves unchanged."""
+    want = _single_rank(spawned["w4a8"])
+    ranks = _collect(spawned["groups"]["ranks"], "w4a8")
+    for r, out in enumerate(ranks):
+        np.testing.assert_allclose(out["metrics"], want["metrics"],
+                                   err_msg=f"rank {r}", **LOSS_TOL)
+        assert out["frozen_same"], r
+        for name, got in out["trainable"].items():
+            np.testing.assert_allclose(got.numpy(),
+                                       want["trainable"][name].numpy(),
+                                       err_msg=f"rank {r} {name}",
+                                       **PARAM_TOL)
+    np.testing.assert_allclose(_scores(ranks, 4), want["scores"].numpy(),
+                               **SCORE_TOL)
+    _check_grads(ranks, want, rel=QUANT_GRAD_REL)
+
+
+def test_pp2_checkpoint_matches_one_process_and_resumes_at_pp1(spawned):
+    """`cli.train --pp 2` (one update at lr 1e-2) writes the whole adapter
+    from rank 0. Its AdamW first moments, a tenth of the update's
+    gradients, are the single-process run's within BF16_GRAD_REL of each
+    leaf's norm; its trainables within twice the lr of the single run's
+    (AdamW's first step moves an element by about lr whatever its
+    gradient, so an element whose gradient is within f32 rounding of zero
+    may move either way), and have moved. A pp-1 build restores them, bit
+    for bit, with the optimizer's state (resuming at the update count
+    1)."""
+    from flipped_tpu_torch.ckpt import CheckpointManager
+    from flipped_tpu_torch.core.config import (get_args_parser,
+                                               run_config_from_args)
+    from flipped_tpu_torch.train import build_train_state, make_optimizer
+
+    for key in ("ckpt_pp2", "ckpt_single"):
+        _wait(spawned["groups"][key][0])
+    out_pp2 = spawned["groups"]["ckpt_pp2"][1]
+    load = lambda d: torch.load(d / "checkpoint_last" / "state.pt",
+                                weights_only=True)
+    saved = load(out_pp2)
+    single = load(spawned["groups"]["ckpt_single"][1])
+    assert saved["trainable"].keys() == single["trainable"].keys()
+    moments = lambda st: {n: v["exp_avg"] for n, v in
+                          st["optimizer"]["params"].items()}
+    want = moments(single)
+    assert moments(saved).keys() == want.keys() == saved["trainable"].keys()
+    for name, m in moments(saved).items():
+        diff = float((m - want[name]).norm())
+        assert diff <= BF16_GRAD_REL * float(want[name].norm()), (name,
+                                                                  diff)
+    lr = float(CKPT_ARGV[CKPT_ARGV.index("--lr") + 1])
+    for name, t in saved["trainable"].items():
+        assert float((t - single["trainable"][name]).abs().max()) <= \
+            2 * lr, name
+    run = run_config_from_args(get_args_parser().parse_args(
+        CKPT_ARGV + ["--data_root", str(spawned["nextqa"]),
+                     "--output_dir", str(out_pp2)]))
+    model, _, _ = build_train_state(run, "cpu", seed=run.train.seed)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()
+            if p.requires_grad}
+    opt = make_optimizer(model, run.train, 1, 4)
+    meta = CheckpointManager(str(out_pp2)).restore("checkpoint_last", model,
+                                                   opt)
+    assert meta["epoch"] == 0 and opt.count == 1
+    moved = 0
+    for name, p in model.named_parameters():
+        if p.requires_grad:
+            assert torch.equal(p, saved["trainable"][name]), name
+            moved += not torch.equal(p, init[name])
+    assert moved > 0

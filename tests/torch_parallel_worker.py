@@ -12,12 +12,18 @@ run in order, each on a grid of its own over the same ranks:
   writes its out and the seven grads.
 - kind 'step': the model config, --quantize mode, full f32 state dict, train
   config, global train batch (accum axis first), number of updates and a
-  global eval batch, and optionally a remat policy and an LM-head chunk.
-  The rank cuts the model (`parallelize`) and the batches (`dp_slice`),
-  runs the cached eval on the loaded weights, then the updates, and
-  writes the metrics, its trainables, its eval scores, whether its frozen
-  pieces stayed unchanged, and the sp dispatch's whole-sequence calls
-  and warnings (a sequence sp does not divide).
+  global eval batch, and optionally a remat policy, an LM-head chunk and
+  a pipeline microbatch count. The rank cuts the model (`parallelize`)
+  and the batches (`dp_slice`), runs the cached eval on the loaded
+  weights, then the updates, and writes the metrics, its trainables, its
+  eval scores, whether its frozen pieces stayed unchanged, the sp
+  dispatch's whole-sequence calls and warnings (a sequence sp does not
+  divide), and the pipeline's microbatch counts.
+- kind 'gen': the model config, full f32 state dict, a global eval batch,
+  the eos id and optionally a pipeline microbatch count. The rank runs
+  the cached eval and the generation step on its dp rows and writes the
+  scores, the generated tokens and similarities, and the microbatch
+  counts.
 OUT_DIR gets rank{r}.pt: {task name: its results}.
 """
 import os
@@ -35,11 +41,13 @@ from flipped_tpu_torch.core.mesh import (DP_AXIS, SP_AXIS, TP_AXIS,
                                          make_mesh)
 from flipped_tpu_torch.model import FlippedVQAModel
 from flipped_tpu_torch.model.kernels import flash_attention as fa
+from flipped_tpu_torch.model import pipeline
 from flipped_tpu_torch.model.kernels.flash_attention import \
     sp_flash_adapter_attention
 from flipped_tpu_torch.model.parallel import parallelize
 from flipped_tpu_torch.train import (is_trainable, make_eval_step,
-                                     make_optimizer, make_train_step)
+                                     make_generation_step, make_optimizer,
+                                     make_train_step)
 
 F32 = dict(dtype=torch.float32, frozen_dtype=torch.float32,
            trainable_dtype=torch.float32)
@@ -85,10 +93,49 @@ def run_attention(job, mesh):
                                            (q, k, v, ak, av, g1, g2)]}
 
 
-def run_step(job, mesh):
+def load_model(job, mesh):
+    """The job's model on its weights, cut for this rank; → (model, the
+    list the pipeline's microbatch counts are appended to)."""
     model = FlippedVQAModel(ModelConfig(**job["cfg"]), **F32,
-                            **model_quant_kwargs(job["quantize"]))
+                            **model_quant_kwargs(job.get("quantize",
+                                                         "none")))
     model.load_state_dict(job["state"], strict=True)
+    model.pp_microbatches = job.get("pp_microbatches", 0)
+    global _COUNTS
+    _COUNTS = []
+    return model, _COUNTS
+
+
+_COUNTS = []
+_pick = pipeline.pick_microbatches
+
+
+def _counted_pick(*a):
+    _COUNTS.append(_pick(*a))
+    return _COUNTS[-1]
+
+
+pipeline.pick_microbatches = _counted_pick
+
+
+def tensors(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()
+            if isinstance(v, np.ndarray) and v.ndim}
+
+
+def run_gen(job, mesh):
+    """The cached eval and the generation step on this rank's dp rows."""
+    model, counts = load_model(job, mesh)
+    parallelize(model, mesh)
+    batch = tensors(dp_slice(job["eval_batch"], mesh, train=False))
+    scores = make_eval_step(model, cached=True)(batch)["scores"]
+    gen = make_generation_step(model, job["eos_id"])(batch)
+    return {"scores": scores, "generated": gen["generated"],
+            "similarity": gen["similarity"], "microbatches": counts}
+
+
+def run_step(job, mesh):
+    model, counts = load_model(job, mesh)
     if job.get("remat_policy"):
         model.remat, model.remat_policy = True, job["remat_policy"]
     opt = make_optimizer(model, TrainConfig(**job["train"]),
@@ -103,9 +150,8 @@ def run_step(job, mesh):
     try:
         with warnings.catch_warnings(record=True) as seen:
             warnings.simplefilter("always")
-            rows = dp_slice(job["eval_batch"], mesh, train=False)
-            eval_batch = {k: torch.from_numpy(v) for k, v in rows.items()
-                          if isinstance(v, np.ndarray) and v.ndim}
+            eval_batch = tensors(dp_slice(job["eval_batch"], mesh,
+                                          train=False))
             scores = make_eval_step(model, cached=True)(
                 eval_batch)["scores"]
             step = make_train_step(model, opt, vaq=True, qav=True,
@@ -126,15 +172,15 @@ def run_step(job, mesh):
             "sp_whole_calls": len(whole),
             "sp_warnings": sorted({str(w.message) for w in seen
                                    if "sequence-parallel" in str(w.message)}),
-            "heads": model.layers[str(job["cfg"]["n_layers"] - 1)]
-            .attention.n_local_heads}
+            "heads": model.stage_blocks()[-1][0].attention.n_local_heads,
+            "microbatches": counts}
 
 
 def main(job_path, out_dir):
     torch.set_num_threads(1)
     tasks = torch.load(job_path, weights_only=False)
     init_distributed_mode("cpu")
-    run = {"attention": run_attention, "step": run_step}
+    run = {"attention": run_attention, "step": run_step, "gen": run_gen}
     out = {t["name"]: run[t["kind"]](t, make_mesh(MeshConfig(**t["mesh"])))
            for t in tasks}
     torch.save(out, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
