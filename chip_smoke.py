@@ -5,6 +5,8 @@
     python3 chip_smoke.py --p16-runs efg   # phase 16 (some of its runs)
     python3 chip_smoke.py --p16-faults     # phase 16, then run (b) on
                                            # copies with planted faults
+    python3 chip_smoke.py --p17-synth w8a8 # phase 17's study cache of a
+                                           # phase, filled on the CPU
 
 Phases; any failure prints its traceback and exits 1 without a result line:
   1. device   torch and CUDA versions, the card's name and power limit;
@@ -194,8 +196,40 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               held at every step of every row (P16_PP_RUNS), and in (e)
               each rank's frozen bytes about half the single rank's. No
               speed is claimed: the ranks share one card
-Each main path (9, 10, 11, 12, 15, and each run of 13) runs with the launch
-counts set to 0 just before it and read just after; in phase 16 each
+ 17. tools    the port's tools, run where their inputs are: (c) in phase 13,
+              on its fp16 shards: the synthetic tokenizer
+              (scripts/make_synthetic_tokenizer.py) encoding and decoding
+              a prompt with its anchors at 15167, 16492 and 22550, then
+              the shards as model.flax.safetensors (`ckpt.convert.
+              convert_meta_checkpoint`) beside a params.json of
+              vocab_size -1 and that tokenizer, built through
+              `build_eval_state`: every frozen leaf bit for bit the .pth
+              load's, the vocabulary 32000; after phase 14: (b) the trace
+              analyzer (scripts/analyze_trace.py) on phase 15's
+              --trace_dir epoch: a device plane, its classes summing to
+              its busy time within 1%, flash (K1/K2) among them; (a) the
+              quantization parity study (scripts/int8_parity_study.py)
+              through its own phase functions at LLaMA-7B width with 2 of
+              32 blocks (P17_BLOCKS), batch 8, S 128, 2 batches a leg:
+              eval bf16 (twice: drawn, then from its cache, the scores bit
+              for bit equal), w8a8, w8a8g and w4a8, train bf16, w8a8g,
+              w4a8 and w8a8d (the w8a8, w8a8g and w4a8 leaves drawn by
+              `--synth_only` processes on the CPU meanwhile), each leg's
+              kernels launched (K1, K3, K7, K8; K1, K2, K7, K4, K8, K9,
+              K3, K10), every score and loss finite, both reports finite,
+              flip rates in [0, 1], each leg's host seconds printed; (d)
+              the sweep's --dry_run over scripts/params.txt (one
+              flipped_tpu_torch.cli.train command a row), the mel
+              extractor on two 16 kHz wavs, all three fixture datasets
+              and one `cli.train --dataset vlep --sub --qav --debug`
+              update at 7B, batch 8; then every (M, K, N) that (a)'s legs
+              and (d)'s update handed K3, K7, K4, K10, K8 and K9, on the
+              first inputs they gave it there, held against the plain
+              version as in phase 14. Its seconds are printed (its
+              budget: 200 s)
+Each main path (9, 10, 11, 12, 15, each run of 13, each leg of 17 (a) and
+17 (d)'s update) runs with the launch counts set to 0 just before it and
+read just after; in phase 16 each
 rank counts its own launches, zeroed before its `main`. The last lines of
 stdout are the nvidia-smi line, a JSON line of the kernels and the contract line {"ok": true, "device": ...}.
 """
@@ -490,7 +524,8 @@ QUANT_MAIN = {"wq/wk/wv/wo": (TRAIN_M, 4096, 4096),
 # K3 timed at the w1/w3 shape of the eval too: the cached scorer's prefill
 # (batch 8 x S 128 rows) and its chunk extend (8 x 5 options x 8 tokens).
 # Every shape any main path hands K3, K7 or K4 is also held against the
-# plain version after the paths have run (`catch_quant_inputs`). K8's w4a8
+# plain version after the paths have run (`catch_quant_inputs`; phase 17's
+# at the end of phase 17). K8's w4a8
 # branch, the w4a8 eval's GEMM, is timed at the same two shapes.
 K3_EVAL = {"eval prefill w1/w3": (TRAIN_B * TRAIN_S, 4096, 11008),
            "eval extend w1/w3": (320, 4096, 11008)}
@@ -2669,7 +2704,7 @@ def export_checkpoint(torch, data_root, ckpt_dir):
 
 def check_loaded_none(torch, data_root, ckpt_root, half):
     """Build at --quantize none from the shards: every frozen leaf is
-    bf16(fp16(original)) bit for bit."""
+    bf16(fp16(original)) bit for bit; → those leaves."""
     from flipped_tpu_torch.core.config import run_config_from_args
     from flipped_tpu_torch.train.builder import build_eval_state
 
@@ -2688,6 +2723,7 @@ def check_loaded_none(torch, data_root, ckpt_root, half):
           f"{memory_line(mem, model)} (the exported fp16 state stays on "
           f"the card beside it); {len(frozen)} frozen leaves bit for bit "
           f"bf16(fp16(original))", flush=True)
+    return frozen
 
 
 def held_codes(torch, model, ckpt_dir):
@@ -2777,9 +2813,10 @@ def log_lines(out):
         return [json.loads(line) for line in f]
 
 
-def check_checkpoints(torch, fa, qm, data_root):
-    """The checkpoint path at 7B (phase 12 of the module docstring); the
-    shards and the runs' output are deleted at its end."""
+def check_checkpoints(torch, fa, qm, data_root, p17_times):
+    """The checkpoint path at 7B (phase 13 of the module docstring), and
+    phase 17 (c) on its shards (its seconds into `p17_times`); the shards
+    and the runs' output are deleted at its end."""
     import shutil
 
     from flipped_tpu_torch.cli import evaluate
@@ -2797,8 +2834,15 @@ def check_checkpoints(torch, fa, qm, data_root):
     shutil.rmtree(out, ignore_errors=True)
     try:
         half = export_checkpoint(torch, data_root, ckpt_dir)
-        check_loaded_none(torch, data_root, ckpt_root, half)
+        loaded = check_loaded_none(torch, data_root, ckpt_root, half)
         del half
+        torch.cuda.empty_cache()
+        phase("tools (phase 17 (c)): the synthetic tokenizer, and the "
+              "shards as model.flax.safetensors")
+        t0 = time.perf_counter()
+        p17_safetensors(torch, data_root, ckpt_dir, loaded)
+        p17_times["c"] = time.perf_counter() - t0
+        del loaded
         torch.cuda.empty_cache()
 
         base = ("--vaq", "--qav", "--quantize", "w8a8", "--debug",
@@ -3142,9 +3186,324 @@ def audio_and_trainer(torch, fa, qm, caught, video_step):
         "train --trace_dir", N_TRACE_ITEMS // TRAIN_B, none)
     check_trace(trace_file(trace_dir, 0), len(watch["model"].layers),
                 min(4, N_TRACE_ITEMS // TRAIN_B - 1))
+    os.makedirs(P17_OUT, exist_ok=True)        # phase 17 (b) analyzes it
+    os.replace(trace_file(trace_dir, 0), P17_TRACE)
     shutil.rmtree(trace_dir, ignore_errors=True)
     del watch
     torch.cuda.empty_cache()
+
+
+# --- phase 17: the tools -----------------------------------------------------
+# (a) The quantization parity study (flipped_tpu_torch/scripts/
+# int8_parity_study.py) at LLaMA-7B width (dim 4096, 32 heads, FFN 11008,
+# vocab 32000, S 128, batch 8) with the depth cut to 2 of 32 blocks
+# (adapter_layer 2: only the last 2 blocks exist and run): the numpy draw of
+# a full-depth leg is about 6.7e9 samples on the host. Its own phase
+# functions run with that config: eval legs (2 batches) at bf16 (K1), w8a8
+# (K3), w8a8g (K7) and w4a8 (K8), train legs (2 updates) at bf16 (K2),
+# w8a8g (K4), w4a8 (K9) and w8a8d (K10), then both reports. The bf16 eval
+# leg runs twice, drawing and filling its cache, then reading it: the
+# scores bit for bit equal. The w8a8, w8a8g and w4a8 leaves are drawn
+# meanwhile by `--synth_only` processes on the CPU (P17_SYNTH), so the
+# draws overlap; the train legs read the cache of the eval leg with the
+# same leaves (w8a8d w8a8's). The legs, and (d)'s update, run under
+# `catch_quant_inputs` into a dict of phase 17's own, and every shape they
+# handed a quant kernel (the w8a8g eval's K7 at the prefill's M 1024 and
+# the extends' M, which no earlier path gives it, among them) is held
+# against the plain version on the study's own inputs (`check_caught`,
+# each of P17_QUANT_KERNELS handed something).
+P17_BLOCKS = 2
+P17_STEPS, P17_BATCH = 2, 8
+P17_SYNTH = ("w8a8", "w8a8g", "w4a8")
+P17_EVAL_LEGS = (("bf16", ("k1",)), ("w8a8", ("k1", "k3")),
+                 ("w8a8g", ("k1", "k7")), ("w4a8", ("k1", "k8")))
+P17_TRAIN_LEGS = (("bf16", ("k1", "k2")), ("w8a8g", ("k7", "k4")),
+                  ("w4a8", ("k8", "k9")), ("w8a8d", ("k3", "k10")))
+P17_QUANT_KERNELS = ("k3", "k7", "k4", "k10", "k8a", "k9")
+P17_OUT = os.path.join(WORK, "p17")
+P17_TRACE = os.path.join(P17_OUT, "train_epoch0.pt.trace.json")
+P17_ANCHORS = {"Video": 15167, "Question": 16492, "Answer": 22550}
+P17_PROMPT = ("Video: <frames>\nQuestion: what does the dog do?\n"
+              "Answer: it runs")
+
+
+def p17_config(study):
+    import argparse
+    import dataclasses
+
+    return dataclasses.replace(study._config(argparse.Namespace(
+        preset="7b")), adapter_layer=P17_BLOCKS)
+
+
+def p17_args(study, phase, mode="eval", *extra):
+    return study.get_args_parser().parse_args(
+        ["--phase", phase, "--mode", mode, "--preset", "7b", "--steps",
+         str(P17_STEPS), "--batch", str(P17_BATCH), "--out",
+         os.path.join(P17_OUT, "study"), "--cache",
+         os.path.join(P17_OUT, "cache"), *extra])
+
+
+def p17_synth(phase) -> int:
+    """`--p17-synth PHASE`: fill the study's cache for PHASE on the CPU at
+    phase 17's config."""
+    sys.path.insert(0, ROOT)
+    from flipped_tpu_torch.scripts import int8_parity_study as study
+
+    study.run_synth(p17_args(study, phase, "eval", "--synth_only",
+                             "--device", "cpu"), p17_config(study))
+    return 0
+
+
+def p17_leg(torch, fa, qm, study, phase, mode, want, caught):
+    """One leg through the study's own phase function, its quant kernels'
+    inputs to `caught`: → (its result, launches); each of `want` launched,
+    every score or loss finite."""
+    import numpy as np
+
+    run = study.run_phase if mode == "eval" else study.run_train_phase
+    zero_counts(fa, qm)
+    with catch_quant_inputs(caught):
+        res = run(p17_args(study, phase, mode), p17_config(study))
+    torch.cuda.synchronize()
+    launches = read_counts(fa, qm)
+    values = (res["scores"] if mode == "eval"
+              else np.asarray(res["loss"] + res["grad_norm"]))
+    print(f"study {mode} {phase}: synthesis {res['synth_s']:.3f} s, "
+          f"compute {res['compute_s']:.3f} s (host clock); launches "
+          f"{launches}; " + (f"scores {tuple(res['scores'].shape)}"
+                             if mode == "eval" else
+                             f"loss {res['loss']}, grad_norm "
+                             f"{res['grad_norm']}"), flush=True)
+    idle = [k for k in want if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"study {mode} {phase}: {idle} not launched")
+    if not np.isfinite(values).all():
+        raise AssertionError(f"study {mode} {phase}: non-finite values")
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def p17_finite(rep, what):
+    import numpy as np
+
+    vals = [v for v in _leaves(rep) if not isinstance(v, str)]
+    if not vals or not np.isfinite(vals).all():
+        raise AssertionError(f"{what}: empty or non-finite fields")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def p17_study(torch, fa, qm, caught):
+    """Phase 17 (a), the quant kernels' inputs to `caught`; → {leg:
+    launches}."""
+    import argparse
+
+    import numpy as np
+
+    from flipped_tpu_torch.scripts import int8_parity_study as study
+
+    for d in ("study", "cache"):
+        shutil.rmtree(os.path.join(P17_OUT, d), ignore_errors=True)
+    os.makedirs(P17_OUT, exist_ok=True)
+    procs = []
+    for ph in P17_SYNTH:
+        log = open(os.path.join(P17_OUT, f"synth_{ph}.log"), "w")
+        procs.append((ph, log, time.perf_counter(), subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--p17-synth", ph],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)))
+    launches = {}
+    try:
+        first, launches["eval bf16"] = p17_leg(torch, fa, qm, study, "bf16",
+                                               "eval", ("k1",), caught)
+        again, _ = p17_leg(torch, fa, qm, study, "bf16", "eval", ("k1",),
+                           caught)
+        same = np.array_equal(first["scores"], again["scores"])
+        print(f"  bf16 scores from the cache bit for bit the fresh leg's: "
+              f"{same} (synthesis {first['synth_s']:.3f} s drawn, "
+              f"{again['synth_s']:.3f} s from the cache)", flush=True)
+        if not same:
+            raise AssertionError("the cached bf16 leg's scores differ")
+        for ph, log, t0, proc in procs:
+            rc = proc.wait(timeout=900)
+            log.close()
+            print(f"  --synth_only {ph} on the CPU: exit {rc}, "
+                  f"{time.perf_counter() - t0:.1f} s since its start",
+                  flush=True)
+            if rc != 0:
+                with open(log.name) as f:
+                    print(f.read()[-3000:], flush=True)
+                raise AssertionError(f"--synth_only {ph} failed")
+        for ph, want in P17_EVAL_LEGS[1:]:
+            _, launches[f"eval {ph}"] = p17_leg(torch, fa, qm, study, ph,
+                                                "eval", want, caught)
+        for ph, want in P17_TRAIN_LEGS:
+            _, launches[f"train {ph}"] = p17_leg(torch, fa, qm, study, ph,
+                                                 "train", want, caught)
+    finally:
+        for _, log, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    out = argparse.Namespace(out=os.path.join(P17_OUT, "study"))
+    rep, rep_train = study.report(out), study.report_train(out)
+    print(f"study report: {json.dumps(rep)}", flush=True)
+    print(f"study report_train: {json.dumps(rep_train)}", flush=True)
+    p17_finite(rep, "report")
+    p17_finite(rep_train, "report_train")
+    got = rep["gaussian"]
+    if sorted(got) != sorted(p for p, _ in P17_EVAL_LEGS[1:]) or not all(
+            0.0 <= r["argmin_flip_rate"] <= 1.0 for r in got.values()):
+        raise AssertionError("report: legs missing or a flip rate outside "
+                             "[0, 1]")
+    shutil.rmtree(os.path.join(P17_OUT, "cache"), ignore_errors=True)
+    return launches
+
+
+def p17_trace():
+    """Phase 17 (b): the analyzer on phase 15's `--trace_dir` epoch."""
+    from flipped_tpu_torch.scripts import analyze_trace as at
+
+    summary = at.analyze(at.load_events(P17_TRACE))
+    if not summary:
+        raise AssertionError("the analyzer found no device plane")
+    at.print_report(summary, 10)
+    for dev, s in summary.items():
+        total = sum(s["by_class"].values())
+        print(f"  device {dev}: classes sum to {total:.3f} ms of "
+              f"{s['busy_ms']:.3f} ms busy", flush=True)
+        if abs(total - s["busy_ms"]) > 0.01 * s["busy_ms"]:
+            raise AssertionError("the classes do not sum to the busy time")
+        if "flash (K1/K2)" not in s["by_class"]:
+            raise AssertionError("no flash (K1/K2) class in the trace")
+    os.remove(P17_TRACE)
+
+
+def p17_safetensors(torch, data_root, ckpt_dir, loaded):
+    """Phase 17 (c): the synthetic tokenizer, then phase 13's fp16 Meta
+    shards converted to `model.flax.safetensors` (beside Meta's params.json
+    with its vocab_size -1, and that tokenizer) and built from there: every
+    frozen leaf bit for bit the .pth load's (`loaded`)."""
+    from flipped_tpu_torch.ckpt.convert import convert_meta_checkpoint
+    from flipped_tpu_torch.core.config import run_config_from_args
+    from flipped_tpu_torch.scripts import make_synthetic_tokenizer as mst
+    from flipped_tpu_torch.text import load_tokenizer
+    from flipped_tpu_torch.train.builder import build_eval_state
+
+    root = os.path.join(P17_OUT, "st")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        tok_path = os.path.join(root, "tokenizer.model")
+        mst.write(tok_path)
+        tok = load_tokenizer(tok_path)
+        ids = tok.encode(P17_PROMPT, bos=True, eos=False)
+        back = tok.decode(ids)
+        print(f"tokenizer: {tok.n_words} pieces, {type(tok).__name__}; "
+              f"anchors {P17_ANCHORS} in the prompt's ids: "
+              f"{all(i in ids for i in P17_ANCHORS.values())}; decodes "
+              f"back: {back == P17_PROMPT}", flush=True)
+        if (tok.n_words != 32000 or back != P17_PROMPT
+                or not all(i in ids for i in P17_ANCHORS.values())):
+            raise AssertionError("the synthetic tokenizer")
+        model_dir = os.path.join(root, "llama7B")
+        os.makedirs(model_dir)
+        t0 = time.perf_counter()
+        convert_meta_checkpoint(ckpt_dir, os.path.join(
+            model_dir, "model.flax.safetensors"), device="cuda")
+        secs = time.perf_counter() - t0
+        with open(os.path.join(model_dir, "params.json"), "w") as f:
+            json.dump({**META_7B, "vocab_size": -1}, f)
+        size = os.path.getsize(os.path.join(model_dir,
+                                            "model.flax.safetensors"))
+        (model, cfg, _), build_s, mem = timed_build(torch, lambda: (
+            build_eval_state(run_config_from_args(cli_args(
+                data_root, "--llama_model_path", root)),
+                torch.device("cuda"))))
+        frozen = {n: p for n, p in model.named_parameters()
+                  if not p.requires_grad}
+        same = set(frozen) == set(loaded) and all(
+            torch.equal(p, loaded[n]) for n, p in frozen.items())
+        print(f"safetensors: converted in {secs:.3f} s ({size / 2**30:.3f} "
+              f"GiB), loaded in {build_s:.3f} s (init included), "
+              f"{memory_line(mem, model)}; vocab_size -1 → "
+              f"{cfg.vocab_size}; {len(frozen)} frozen leaves bit for bit "
+              f"the .pth load's: {same}", flush=True)
+        if not same or cfg.vocab_size != 32000:
+            raise AssertionError("the safetensors load differs from the "
+                                 ".pth load, or its vocabulary")
+        del model, frozen
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def p17_host_tools(torch, fa, qm, caught):
+    """Phase 17 (d): the sweep's dry run, the mel extractor, all three
+    fixture datasets and one VLEP update (its quant kernels' inputs, if
+    any, to `caught`)."""
+    import numpy as np
+
+    from flipped_tpu_torch.cli import train as train_cli
+    from flipped_tpu_torch.data import synthetic
+    from flipped_tpu_torch.preprocess.extract import (extract_audio_mels,
+                                                      write_wav)
+
+    with open(os.path.join(ROOT, "scripts", "params.txt")) as f:
+        rows = [r for r in f if r.strip() and not r.lstrip().startswith("#")]
+    out = subprocess.run([sys.executable, "-m",
+                          "flipped_tpu_torch.scripts.sweep", "--dry_run"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    runs = [line for line in out.stdout.splitlines()
+            if line.startswith("run: ")]
+    good = sum(" -m flipped_tpu_torch.cli.train " in r for r in runs)
+    print(f"sweep --dry_run: exit {out.returncode}, {len(runs)} commands "
+          f"for {len(rows)} rows of scripts/params.txt, {good} of "
+          f"flipped_tpu_torch.cli.train; first: {runs[:1]}", flush=True)
+    if out.returncode != 0 or good != len(rows) or len(runs) != len(rows):
+        raise AssertionError(f"the sweep's dry run: {out.stderr[-2000:]}")
+
+    wavs, mels = os.path.join(P17_OUT, "wavs"), os.path.join(P17_OUT, "mels")
+    os.makedirs(wavs, exist_ok=True)
+    for name, seconds in (("long", 12.0), ("short", 0.5)):
+        t = np.arange(int(seconds * 16000)) / 16000
+        write_wav(os.path.join(wavs, f"{name}.wav"),
+                  0.5 * np.sin(2 * np.pi * 440 * t))
+    n = extract_audio_mels(wavs, mels)
+    arrs = [np.load(os.path.join(mels, f)) for f in sorted(os.listdir(mels))]
+    print(f"extract_audio_mels: {n} clips, shapes "
+          f"{[a.shape for a in arrs]}", flush=True)
+    if n != 2 or any(a.shape != (3, 128, 1024) or not np.isfinite(a).all()
+                     for a in arrs):
+        raise AssertionError("the mel extractor")
+
+    root = os.path.join(P17_OUT, "data")
+    synthetic.main(["--root", root, "--n", "16"])
+    found = {d: sorted(os.listdir(os.path.join(root, d)))
+             for d in ("nextqa", "musicavqa", "vlep")}
+    print(f"fixtures: {found}", flush=True)
+    zero_counts(fa, qm)
+    t0 = time.perf_counter()
+    with catch_quant_inputs(caught):
+        _, history = train_cli.main(cli_args(
+            root, "--dataset", "vlep", "--sub", "--qav", "--epochs", "1",
+            "--debug", "--output_dir", ""))
+    torch.cuda.synchronize()
+    launches = read_counts(fa, qm)
+    print(f"train --dataset vlep --sub --qav --debug (batch {TRAIN_B}, S "
+          f"{TRAIN_S}, 7B): {time.perf_counter() - t0:.3f} s, launches "
+          f"{launches}, history {json.dumps(history)}", flush=True)
+    if not math.isfinite(history[0]["train_loss"]) or launches["k1"] == 0 \
+            or launches["k2"] == 0:
+        raise AssertionError("the VLEP update")
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(P17_OUT, "data"), ignore_errors=True)
 
 
 # --- phase 16: data, sequence and tensor parallelism -------------------------
@@ -4115,7 +4474,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     phase("checkpoints: 7B Meta shards, load, train, resume, evaluate")
-    check_checkpoints(torch, fa, qm, data_root)
+    p17_times = {}
+    check_checkpoints(torch, fa, qm, data_root, p17_times)
 
     for quantize, extra, debug in LONG_RUNS:
         phase(f"train, long context: --quantize {quantize} {' '.join(extra)}"
@@ -4153,6 +4513,32 @@ def main() -> int:
     matmul.allow_bf16_reduced_precision_reduction = reduced
     del caught
     torch.cuda.empty_cache()
+
+    phase("tools (phase 17 (a), (b), (d)): the parity study at 7B width, "
+          "the trace analyzer, the sweep, mels, fixtures and VLEP")
+    t0 = time.perf_counter()
+    p17_trace()
+    p17_times["b"] = time.perf_counter() - t0
+    p17_caught = {k: {} for k in QUANT_KERNELS}
+    t0 = time.perf_counter()
+    study_launches = p17_study(torch, fa, qm, p17_caught)
+    p17_times["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p17_host_tools(torch, fa, qm, p17_caught)
+    p17_times["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    print("phase 17: the quant kernels vs plain at (a)'s and (d)'s shapes",
+          flush=True)
+    matmul.allow_bf16_reduced_precision_reduction = False
+    check_caught(torch, qm, p17_caught, quant_err, P17_QUANT_KERNELS)
+    matmul.allow_bf16_reduced_precision_reduction = reduced
+    del p17_caught
+    torch.cuda.empty_cache()
+    p17_times["check"] = time.perf_counter() - t0
+    print(f"phase 17 took {sum(p17_times.values()):.1f} s: "
+          + ", ".join(f"({k}) {v:.1f}" for k, v in sorted(p17_times.items()))
+          + f"; the study's launches by leg {json.dumps(study_launches)}",
+          flush=True)
 
     t16 = time.perf_counter()
     parallel_phase(torch, fa, qm)
@@ -4218,6 +4604,8 @@ if __name__ == "__main__":
             code = p16_runs(sys.argv[2])
         elif sys.argv[1:2] == ["--p16-faults"]:
             code = p16_faults()
+        elif sys.argv[1:2] == ["--p17-synth"]:
+            code = p17_synth(sys.argv[2])
         else:
             code = main()
     except Exception:

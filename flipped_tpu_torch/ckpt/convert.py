@@ -9,6 +9,17 @@ output) concatenate on dim 0, row-parallel ones (wo, w2) and
 tok_embeddings on dim 1, norms are the same in every shard.
 `export_meta_checkpoint` writes the shards from a state_dict.
 
+The JAX converter's `model.flax.safetensors` (JAX convert.py:96-135: the
+merged bf16 leaves under Flax paths, kernels (in, out), `rope.freqs`
+dropped, the params.json in the header's `__metadata__["params"]`) is read
+and written here without the safetensors package, which the card's image
+lacks: the format is an 8-byte little-endian header length, that many
+bytes of JSON ({key: {"dtype", "shape", "data_offsets"}}), then the raw
+little-endian tensor bytes. `load_flax_safetensors` memory-maps the file
+and yields the port's names and layout one leaf at a time, as
+`load_meta_checkpoint` does for the shards; `convert_meta_checkpoint`
+writes the file from Meta's shards, one merged leaf at a time.
+
 The port's parameter names are the reference state_dict names, which the
 JAX package maps to Flax paths with `torch_name_to_flax_path` and
 `needs_transpose` (ckpt/convert.py:76-91). This module is the inverse, for
@@ -51,7 +62,9 @@ shared memory (ckpt/quantize.py); kernel_q4 likewise, for K8 and K9.
 from __future__ import annotations
 
 import json
+import mmap
 import os
+import struct
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
@@ -144,6 +157,131 @@ def load_meta_checkpoint(model_dir, names: Optional[Iterable[str]] = None,
         yield name, _merge_leaf([s[name].to(device) for s in pieces],
                                 -1 if dim is None else dim).to(
                                     torch.bfloat16)
+
+
+SAFETENSORS_NAME = "model.flax.safetensors"
+
+
+def safetensors_header(path) -> Tuple[dict, int]:
+    """(the header's JSON, the offset of the tensor bytes) of a safetensors
+    file; a file too short for its header raises ValueError."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        head = f.read(8)
+        if len(head) < 8:
+            raise ValueError(f"{path} is not a safetensors file: {size} "
+                             f"bytes, shorter than its 8-byte header length")
+        n = struct.unpack("<Q", head)[0]
+        if 8 + n > size:
+            raise ValueError(f"{path} is not a safetensors file: a header "
+                             f"of {n} bytes in {size}")
+        return json.loads(f.read(n)), 8 + n
+
+
+def safetensors_params(path) -> Optional[dict]:
+    """The params.json the JAX converter keeps in the header's metadata."""
+    meta = safetensors_header(path)[0].get("__metadata__") or {}
+    return json.loads(meta["params"]) if "params" in meta else None
+
+
+def torch_name_to_flax_path(name: str) -> str:
+    """'layers.3.attention.wq.weight' → 'layers_3/attention/wq/kernel' for
+    the leaves of a Meta checkpoint (JAX convert.py:76-87): the matmul
+    weights become (in, out) `kernel`s, tok_embeddings its `embedding`."""
+    if name == "tok_embeddings.weight":
+        return "tok_embeddings/embedding"
+    parts = name.split(".")
+    if parts[0] == "layers":
+        parts = [f"layers_{parts[1]}"] + parts[2:]
+    module = parts[-2] if len(parts) > 1 else ""
+    if parts[-1] == "weight" and module in ("wq", "wk", "wv", "wo", "w1",
+                                            "w2", "w3", "output"):
+        parts[-1] = "kernel"
+    return "/".join(parts)
+
+
+def load_flax_safetensors(path, names: Optional[Iterable[str]] = None,
+                          device="cpu", skip: Optional[Callable[[str], bool]]
+                          = None) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Yield (name, bf16 tensor on `device`) for each leaf of a
+    `model.flax.safetensors` file, in the file's order, in the port's names
+    and (out, in) layout (`flax_path_to_torch_name`, `needs_transpose`);
+    `names` picks a subset, and a leaf for which `skip(name)` holds is not
+    read. The file is memory-mapped, so a leaf is read when it is copied
+    to `device`."""
+    header, start = safetensors_header(path)
+    wanted = None if names is None else set(names)
+    with open(path, "rb") as f:
+        buf = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    for key, info in header.items():
+        if key == "__metadata__":
+            continue
+        name = flax_path_to_torch_name(key)
+        if (wanted is not None and name not in wanted) or (
+                skip is not None and skip(name)):
+            continue
+        if info["dtype"] != "BF16":
+            raise ValueError(f"{path}: {key} is {info['dtype']}; the JAX "
+                             f"converter writes every leaf in BF16")
+        dtype = torch.bfloat16
+        a, b = info["data_offsets"]
+        shape = tuple(info["shape"])
+        raw = (torch.frombuffer(buf, dtype=dtype, offset=start + a,
+                                count=(b - a) // dtype.itemsize)
+               if b > a else torch.empty(0, dtype=dtype))
+        t = raw.view(shape).to(device=device, copy=True)
+        del raw
+        yield name, (t.t().contiguous() if needs_transpose(key) else t)
+
+
+def convert_meta_checkpoint(model_dir, out_path, device="cuda") -> dict:
+    """Meta's `consolidated.*.pth` shards (+ params.json) under `model_dir`
+    → a bf16 safetensors file with Flax-path keys at `out_path`, the
+    params.json in its metadata (JAX convert.py:96-117: the same keys,
+    shapes and values; `rope.freqs` dropped). The shards are
+    memory-mapped and the leaves merged, transposed and cast on `device`
+    (the card unless the caller asks for the CPU) one at a time, so the
+    host holds about one leaf. → the params."""
+    model_dir = Path(model_dir)
+    with open(model_dir / "params.json") as f:
+        params = json.load(f)
+    paths = checkpoint_shards(model_dir)
+    if not paths:
+        raise FileNotFoundError(f"no consolidated.*.pth under {model_dir}")
+    table = split_dim_table(params["n_layers"])
+    shards = [torch.load(p, map_location="cpu", weights_only=True,
+                         mmap=True) for p in paths]
+    entries, offset = {}, 0
+    for name in shards[0]:
+        dim = table.get(name)
+        if "rope.freqs" in name or (len(shards) > 1 and dim is None):
+            continue
+        shape = list(shards[0][name].shape)
+        if len(shards) > 1 and dim >= 0:
+            shape[dim] = sum(s[name].shape[dim] for s in shards)
+        key = torch_name_to_flax_path(name)
+        if needs_transpose(key):
+            shape = shape[::-1]
+        size = 2 * int(np.prod(shape))
+        entries[key] = (name, dim, {"dtype": "BF16", "shape": shape,
+                                    "data_offsets": [offset, offset + size]})
+        offset += size
+    header = {"__metadata__": {"params": json.dumps(params)},
+              **{k: v[2] for k, v in entries.items()}}
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(out_path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for key, (name, dim, _) in entries.items():
+            pieces = shards if len(shards) > 1 and dim >= 0 else shards[:1]
+            t = _merge_leaf([s[name].to(device) for s in pieces],
+                            -1 if dim is None else dim).to(torch.bfloat16)
+            if needs_transpose(key):
+                t = t.t()
+            f.write(t.contiguous().cpu().view(torch.uint8).numpy().data)
+            del t
+    return params
 
 
 def export_meta_checkpoint(state: Dict[str, torch.Tensor], n_shards: int,

@@ -1,16 +1,17 @@
-"""Synthetic NExT-QA and MUSIC-AVQA fixtures, shaped like the reference's
-artifacts.
+"""Synthetic NExT-QA, MUSIC-AVQA and VLEP fixtures, shaped like the
+reference's artifacts.
 
 The port's own writer of what `scripts/make_synthetic_data.py` writes for
 NExT-QA (train/val CSVs) and MUSIC-AVQA (`avqa-{train,val}.json`), each
 with its `clipvitl14.pth` video features and its ImageBind-shaped audio
 features (`audio_imagebind.pth`, (10, 1024) a video, which the sum, concat
 and audio-only merges read, and `audio_imagebind_clip.pth`, (1, 1024),
-which the attention merge reads), from the port's own vocabulary
-(`data.batching._WORDS`), so runs and tests of the port need nothing of
-the JAX package. `main` draws NExT-QA, then MUSIC-AVQA, from one
-RandomState, in the script's order, and the feature files from their own
-seeds, so the files equal the script's:
+which the attention merge reads), and for VLEP (`vlep_{train,dev}_release.
+jsonl`, `vlep_subtitles.jsonl` and the video features, for `--sub`), from
+the port's own vocabulary (`data.batching._WORDS`), so runs and tests of
+the port need nothing of the JAX package. `main` draws NExT-QA, then
+MUSIC-AVQA, then VLEP, from one RandomState, in the script's order, and the
+feature files from their own seeds, so the files equal the script's:
 
     python -m flipped_tpu_torch.data.synthetic --root ./data --n 32
 """
@@ -86,8 +87,32 @@ def make_musicavqa(root, n, rs: np.random.RandomState):
     _media(d, [f"mv{i}" for i in range(n)])
 
 
+def make_vlep(root, n, rs: np.random.RandomState):
+    """`n` train rows and max(n // 4, 2) dev rows over `n` videos, their
+    subtitles and video features under root/vlep, drawn from `rs` as the
+    script's `make_vlep` draws them."""
+    d = os.path.join(root, "vlep")
+    os.makedirs(d, exist_ok=True)
+    for split, count in (("train", n), ("dev", max(n // 4, 2))):
+        data = [dict(vid_name=f"vl{i % n}",
+                     events=[f"{rs.choice(_WORDS)} happens",
+                             f"{rs.choice(_WORDS)} stops"],
+                     answer=int(rs.randint(2)), ts=[0.0, 6.0])
+                for i in range(count)]
+        with open(os.path.join(d, f"vlep_{split}_release.jsonl"), "w") as f:
+            f.write("\n".join(json.dumps(x) for x in data))
+    subs = [dict(vid_name=f"vl{i}",
+                 sub=[dict(start=0, end=4,
+                           text=" ".join(rs.choice(_WORDS, 8)))])
+            for i in range(n)]
+    with open(os.path.join(d, "vlep_subtitles.jsonl"), "w") as f:
+        f.write("\n".join(json.dumps(x) for x in subs))
+    _features(os.path.join(d, "clipvitl14.pth"), [f"vl{i}" for i in range(n)])
+
+
 def main(argv=None):
-    ap = argparse.ArgumentParser("synthetic NExT-QA and MUSIC-AVQA fixtures")
+    ap = argparse.ArgumentParser("synthetic NExT-QA, MUSIC-AVQA and VLEP "
+                                 "fixtures")
     ap.add_argument("--root", default="./data")
     ap.add_argument("--n", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
@@ -95,7 +120,9 @@ def main(argv=None):
     rs = np.random.RandomState(args.seed)
     make_nextqa(args.root, args.n, rs)
     make_musicavqa(args.root, args.n, rs)
-    print(f"synthetic NExT-QA and MUSIC-AVQA written under {args.root}")
+    make_vlep(args.root, args.n, rs)
+    print(f"synthetic NExT-QA, MUSIC-AVQA and VLEP written under "
+          f"{args.root}")
 
 
 if __name__ == "__main__":

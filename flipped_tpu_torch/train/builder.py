@@ -16,10 +16,13 @@ under an `*r` mode the rotation is folded into it (`ckpt.rotate`); a
 quantized Linear is quantized from it there (`ckpt.quantize.
 quantize_kernel`), so a quantized run never holds the bf16 backbone on the
 card. A frozen leaf the checkpoint lacks keeps its random init, with a
-warning; extra checkpoint keys are ignored. A directory with only the JAX
-converter's `model.flax.safetensors` raises: the port reads the .pth
-shards (the card's image has no safetensors package). With no checkpoint
-the backbone stays at random init, with the JAX builder's warning.
+warning; extra checkpoint keys are ignored. A directory with the JAX
+converter's `model.flax.safetensors` and no shards loads from that file the
+same way (`ckpt.convert.load_flax_safetensors`, without the safetensors
+package, which the card's image lacks), its config from a params.json
+beside it, else from the preset, as in JAX; where both are there the
+shards are read. With no checkpoint the backbone stays at random init,
+with the JAX builder's warning.
 
 Under a mesh every rank builds the same full tree from the seed (random
 weights, or the checkpoint) and then keeps its piece of each tp-split leaf
@@ -42,7 +45,8 @@ from typing import List, Optional
 
 import torch
 
-from ..ckpt.convert import checkpoint_shards, load_meta_checkpoint
+from ..ckpt.convert import (SAFETENSORS_NAME, checkpoint_shards,
+                            load_flax_safetensors, load_meta_checkpoint)
 from ..ckpt.quantize import quantize_kernel, randomize_quantized
 from ..ckpt.rotate import Rotation, fold_leaf
 from ..core.config import (MODEL_PRESETS, ModelConfig, RunConfig,
@@ -203,17 +207,22 @@ def check_dtype_policy(model: FlippedVQAModel, frozen_dtype) -> None:
 
 
 def find_checkpoint(run_cfg: RunConfig) -> Optional[Path]:
-    """The directory of Meta shards to load, or None (synthetic run)."""
+    """The directory of Meta shards, or of the JAX converter's
+    `model.flax.safetensors`, to load, or None (synthetic run)."""
     path = model_dir(run_cfg)
-    if checkpoint_shards(path):
+    if checkpoint_shards(path) or (path / SAFETENSORS_NAME).exists():
         return path
-    if list(path.glob("*.safetensors")):
-        raise ValueError(
-            f"{path} holds safetensors but no consolidated.*.pth: the port "
-            f"reads Meta's .pth shards with torch.load (the card's image "
-            f"has no safetensors package); point --llama_model_path at the "
-            f"directory of the .pth shards and their params.json")
     return None
+
+
+def checkpoint_leaves(path, names=None, device="cpu", skip=None):
+    """(name, bf16 tensor on `device`) for each leaf of the checkpoint
+    under `path`, in the port's names and layout: Meta's shards, else the
+    converted safetensors file."""
+    if checkpoint_shards(path):
+        return load_meta_checkpoint(path, names, device, skip)
+    return load_flax_safetensors(Path(path) / SAFETENSORS_NAME, names,
+                                 device, skip)
 
 
 def _quantize_args(linear: Linear) -> dict:
@@ -239,7 +248,8 @@ def _put(param: torch.Tensor, name: str, value: torch.Tensor) -> None:
 
 @torch.no_grad()
 def load_checkpoint(model: FlippedVQAModel, path) -> List[str]:
-    """Graft the Meta checkpoint under `path` into the frozen leaves of
+    """Graft the checkpoint under `path` (Meta's shards or the converted
+    safetensors file, `checkpoint_leaves`) into the frozen leaves of
     `model`, leaf by leaf on its device: rotated first under an `*r` mode,
     quantized into a quantized Linear's leaves; the leaves of
     `model.dropped` (another pipeline stage's blocks) are not read. → the
@@ -258,14 +268,14 @@ def load_checkpoint(model: FlippedVQAModel, path) -> List[str]:
               "(--quantize *r)")
         norms = [f"layers.{i}.{k}.weight" for i in range(cfg.n_layers)
                  for k in ("attention_norm", "ffn_norm")]
-        gammas = dict(load_meta_checkpoint(path, norms + ["norm.weight"],
-                                           device))
+        gammas = dict(checkpoint_leaves(path, norms + ["norm.weight"],
+                                        device))
         if "norm.weight" not in gammas:
             raise ValueError("final norm.weight missing — needed for the "
                              "output head fold and qav_rot")
         rot = Rotation(cfg.dim, device=device)
     filled = set()
-    for name, t in load_meta_checkpoint(
+    for name, t in checkpoint_leaves(
             path, device=device,
             skip=lambda n: n.rsplit(".", 1)[0] in dropped):
         base = name[:-len(".weight")]
@@ -311,7 +321,7 @@ def build_eval_state(run_cfg: RunConfig, device, seed: int = 0,
         print("WARNING: no LLaMA checkpoint found — frozen backbone stays "
               "randomly initialized (synthetic mode)")
     else:
-        print(f"loading the Meta checkpoint under {path}")
+        print(f"loading the checkpoint under {path}")
         missing = load_checkpoint(model, path)
         if missing:
             print(f"WARNING: checkpoint is missing {len(missing)} frozen "

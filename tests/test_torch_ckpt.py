@@ -419,9 +419,13 @@ def test_restore_is_strict(synth_root, straight_run, tmp_path):
 
 
 def test_safetensors_only_directory_raises(tmp_path):
+    """A directory holding only `model.flax.safetensors` loads from it
+    (tests/test_torch_tools.py), so what raises here is a file too short
+    for its header: an empty one is refused, not read as no leaves."""
     (tmp_path / "tiny").mkdir()
     (tmp_path / "tiny" / "model.flax.safetensors").write_bytes(b"")
-    with pytest.raises(ValueError, match="safetensors"):
+    with pytest.raises(ValueError, match="is not a safetensors file: 0 "
+                       "bytes, shorter than its 8-byte header length"):
         port_build(str(tmp_path), "none")
 
 

@@ -1,7 +1,10 @@
 """flipped_tpu_torch stands alone: importing every module of the port, and
 everything chip_smoke.py imports, pulls in neither jax, flax, optax nor any
 module of the JAX package `flipped_tpu` (the machine with the card has no
-jax, and the port keeps its own copies of the host layers)."""
+jax, and the port keeps its own copies of the host layers), nor
+safetensors, transformers or sentencepiece, which that machine lacks too
+(the port reads and writes the safetensors format itself, and imports
+transformers only inside the CLIP extractor)."""
 import ast
 import importlib.util
 import pkgutil
@@ -16,8 +19,10 @@ ROOT = Path(__file__).resolve().parents[1]
 CHECK = (
     "import sys\n"
     "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax',\n"
-    "             'flipped_tpu') or m.startswith(('jax.', 'jaxlib', 'flax.',\n"
-    "             'optax.', 'flipped_tpu.')))\n"
+    "             'flipped_tpu', 'safetensors', 'transformers',\n"
+    "             'sentencepiece') or m.startswith(('jax.', 'jaxlib',\n"
+    "             'flax.', 'optax.', 'flipped_tpu.', 'safetensors.',\n"
+    "             'transformers.', 'sentencepiece.')))\n"
     "assert not bad, bad\n"
     "print('ok')\n")
 
@@ -43,7 +48,8 @@ def test_port_imports_without_jax():
     assert "flipped_tpu_torch.cli.train" in names
     assert "flipped_tpu_torch.data.pipeline" in names
     for module in ("core.distributed", "core.mesh", "core.collectives",
-                   "model.parallel"):
+                   "model.parallel", "scripts.int8_parity_study",
+                   "scripts.analyze_trace", "preprocess.mel", "cli.plot"):
         assert f"flipped_tpu_torch.{module}" in names
     _run("".join(f"import {n}\n" for n in names) + CHECK)
 
