@@ -51,8 +51,12 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               bounds stated at K4_REL and K8_WO_REL, at odd-M unit shapes,
               the wgmma kernels' tile edges (QUANT_EDGE, and K3's, K7's
               and K8 w4a8's own at K3_EDGE, K7_EDGE and K8A_EDGE) and every
-              7B main-path shape (K10 on 2-D and 3-D cotangents);
-              then through the autograd Functions int8_matmul,
+              7B main-path shape (K10 on 2-D and 3-D cotangents); K8's
+              decode route (csrc/int4_decode.cu, x of at most 64 rows)
+              at every DECODE_SHAPES entry and at M 1 and 64, each branch
+              twice with the same bits, every launch counted on that route
+              (`check_k8_decode`); then through the autograd Functions
+              int8_matmul,
               int8_matmul_grouped, int4_matmul, int4_matmul_grouped and
               int8_matmul_dgrad at the w1/w3 shape
   8. timing   K1 and K2, kernel and plain version: device time by CUDA-graph
@@ -65,8 +69,9 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               same way at the three 3072-row shapes, and K3 and K8 w4a8 at
               the eval's prefill and extend shapes, with the yardsticks
               `time_quant` names; K3, K7 and K8's two branches at the
-              decode shapes (M 32, DECODE_SHAPES) beside a bf16 `F.linear`
-              on the dequantized weight. K5, K6a and K6b at the long
+              decode shapes (M 32 and the adapter's M 10, DECODE_SHAPES)
+              beside a bf16 `F.linear` on the dequantized weight. K5, K6a
+              and K6b at the long
               training shape (B 3, S 4096), against SDPA's forward (K5) and
               its backward alone on a saved forward (K6a + K6b), with SDPA
               without the mask as an aside; K1 and K2 at 16 heads, and K5,
@@ -95,10 +100,12 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               batch of 32): `cli.train.main --debug` (one update, then the
               val loop generates: 32 val rows with unique qids in
               extracted_answers_epoch0.json, val_counting in log.txt), then
-              `cli.evaluate.main` at --quantize none, w8a8 and w4a8: the
-              launches per batch `gen_per_batch` derives from the code (32
-              K1 in the prefill; 9 K3 or K8 per block in the prefill and in
-              each of the 30 decode steps), similarities finite; s per
+              `cli.evaluate.main` at --quantize none, w8a8, w4a8 and int4:
+              the launches per batch `gen_per_batch` derives from the code
+              (32 K1 in the prefill; 9 K3 or K8 per block in the prefill
+              and in each of the 30 decode steps, K8's on the adapter rows
+              and in the decode steps by its decode route, "k8d"),
+              similarities finite; (int4 untimed) s per
               batch, prefill ms and decode ms per token (CUDA events), peak
               memory and the decode step's bytes bound; the cached decode's
               logits against a re-forward of prompt and generated tokens,
@@ -397,7 +404,10 @@ N_LONG_ITEMS = 4                    # 4 updates at batch 1; 2 val examples
 # rows, one batch; at --quantize none, w8a8 and w4a8
 GEN_B, GEN_S = 32, 128
 N_GEN_ITEMS = 128
-GEN_RUNS = ("none", "w8a8", "w4a8")
+GEN_RUNS = ("none", "w8a8", "w4a8", "int4")
+# the runs whose generated batch is also timed (`time_gen`); int4 generates
+# its batch and is held to the re-forward, untimed
+GEN_TIMED = ("none", "w8a8", "w4a8")
 # Tolerance of the generation checks at 7B in bf16, as a share of each
 # row's largest |logit|. The cached decode and the re-forward (or K1's
 # prefill and the plain attention's) compute the same function and round
@@ -532,13 +542,22 @@ K3_EVAL = {"eval prefill w1/w3": (TRAIN_B * TRAIN_S, 4096, 11008),
 # the shape of each kernel's row in the kernels line: the largest per call
 QUANT_ROW_SHAPE = "w1/w3"
 # The generation eval's decode steps hand K3, K7 and K8 one row per
-# example: M = the batch's 32 rows at the three block shapes. Timed in the
-# timing phase beside a bf16 `F.linear` on the dequantized weight
-# (`time_decode_shape`); the paths' own inputs at these shapes are held
+# example: M = the batch's 32 rows at the three block shapes, and the
+# adapter prefix's 10 rows through wk/wv (each step, and the prefill).
+# Timed in the timing phase beside a bf16 `F.linear` on the dequantized
+# weight (`time_decode_shape`); K8 takes its decode route there (x of at
+# most quant_matmul.DECODE_MAX_M rows, csrc/int4_decode.cu), held against
+# its plain version at each of these shapes and at M 1 and 64
+# (`check_k8_decode`); the paths' own inputs at these shapes are held
 # against the plain versions in the last phase.
 DECODE_SHAPES = {"decode wq/wk/wv/wo": (32, 4096, 4096),
                  "decode w1/w3": (32, 4096, 11008),
-                 "decode w2": (32, 11008, 4096)}
+                 "decode w2": (32, 11008, 4096),
+                 "decode adapter wk/wv": (ADAPTER_LEN, 4096, 4096)}
+# the decode route's rows in the kernels line: its most frequent shape (4
+# of the 9 calls a block and step)
+DECODE_ROW_SHAPE = "decode wq/wk/wv/wo"
+K8D_SOURCE = "flipped_tpu_torch/csrc/int4_decode.cu"
 # K3 and K7 against their plain versions: bitwise. Both compute the same
 # IEEE operations in the same order (explicit __fmul_rn/__fadd_rn/__fdiv_rn
 # in the kernels, one op per tensor pass in the plain versions, exact integer
@@ -579,6 +598,8 @@ K8_WO_REL = 2.0 ** -7
 
 # the quant kernels' keys: K8's two branches are held and timed apart
 QUANT_KERNELS = ("k3", "k7", "k4", "k8a", "k8w", "k9", "k10")
+# the worst |kernel - plain| a kernel showed: K8's decode route's apart
+QUANT_ERR_KEYS = QUANT_KERNELS + ("k8ad", "k8wd")
 # (--quantize, one update only): 8 updates where the mode's kernels carry
 # the epoch's counts, one where an earlier run covers its kernels already
 TRAIN_RUNS = (("none", False), ("w8a8", False), ("w8a8g", True),
@@ -596,8 +617,14 @@ LONG_RUNS = (("none", ("--lm_head_chunk", LM_CHUNK), False),
              ("w8a8", ("--lm_head_chunk", LM_CHUNK), True))
 
 
+# the script's start, for each phase line's seconds
+START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    """A phase's header, with the seconds since the script started (a
+    phase's own seconds are the difference to the next header's)."""
+    print(f"== {name} (at {time.perf_counter() - START:.1f} s)", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -1537,7 +1564,8 @@ def hold_quant(torch, qm, kern, a, kq, scale, worst, extra=None):
     """One kernel call against its plain version on the same inputs (a is x,
     or g for K4, K9 and K10; kq is kq4 for K8 and K9): K3, K7, K8 w4a8 and
     K10 bitwise, K4, K8 weight-only and K9 within their bounds. Updates
-    worst[kern] with |kernel - plain| and returns a line for the log."""
+    worst[kern] (K8's decode route: worst[kern + "d"]) with |kernel -
+    plain| and returns a line for the log."""
     out = quant_call(qm, kern, False)(a, kq, scale, extra)
     torch.cuda.synchronize()
     ref = quant_call(qm, kern, True)(a, kq, scale, extra)
@@ -1549,7 +1577,10 @@ def hold_quant(torch, qm, kern, a, kq, scale, worst, extra=None):
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"{kern} non-finite at {where}")
     err = float((out.double() - ref.double()).abs().max())
-    worst[kern] = max(worst[kern], err)
+    decode = (kern in ("k8a", "k8w") and k // scale.shape[0] == qm.GROUP
+              and a.numel() // a.shape[-1] <= qm.DECODE_MAX_M)
+    key = kern + ("d" if decode else "")
+    worst[key] = max(worst[key], err)
     label = kern.upper()
     if kern in ("k4", "k8w", "k9"):
         ratio, _ = (k4_ratio(torch, qm, out, ref, a, kq, scale)
@@ -1617,6 +1648,40 @@ def check_quant(torch, qm, worst):
         print(f"quant K8 w4a8 edge (M {m}, K {k}, N {n}, group {group}): "
               + hold_quant(torch, qm, "k8a", one_row(x, 450 + i), kq4, sg,
                            worst), flush=True)
+
+
+def check_k8_decode(torch, qm, worst):
+    """K8's decode route at every DECODE_SHAPES entry and at M 1 and 64 of
+    the wq shape: each branch called twice (the same bits both times) and
+    held against its plain version (`hold_quant`: w4a8 bitwise,
+    weight-only within K8_WO_REL), every call through int4_decode.cu
+    (`int4_matmul.decode_launches`) and none through int4_fwd.cu."""
+    cases = list(DECODE_SHAPES.items()) + [
+        ("decode M 1", (1, 4096, 4096)),
+        ("decode M 64", (qm.DECODE_MAX_M, 4096, 4096))]
+    for i, (name, (m, k, n)) in enumerate(cases):
+        x, kq4, sg, _ = int4_inputs(torch, m, k, n, 460 + i)
+        if m == 1:                       # int4_inputs zeroes row m // 2
+            gen = torch.Generator(device="cuda").manual_seed(470 + i)
+            x = torch.randn(1, k, device="cuda", generator=gen).to(
+                torch.bfloat16)
+        before = (qm.int4_matmul.launches, qm.int4_matmul.decode_launches)
+        msg = []
+        for kern in ("k8a", "k8w"):
+            call = quant_call(qm, kern, False)
+            first, second = call(x, kq4, sg, None), call(x, kq4, sg, None)
+            torch.cuda.synchronize()
+            again = unequal(torch, first, second)
+            if again:
+                raise AssertionError(f"{kern.upper()} decode at {name}: two "
+                                     f"calls differ in {again} elements")
+            msg.append(hold_quant(torch, qm, kern, x, kq4, sg, worst))
+        after = (qm.int4_matmul.launches, qm.int4_matmul.decode_launches)
+        if after != (before[0], before[1] + 6):
+            raise AssertionError(f"K8 decode at {name}: launches {before} -> "
+                                 f"{after}, want 6 decode and no int4_fwd")
+        print(f"quant {name} (M {m}, K {k}, N {n}), decode route: "
+              + ", ".join(msg) + "; two calls bit for bit equal", flush=True)
 
 
 @contextlib.contextmanager
@@ -1775,7 +1840,8 @@ def quant_bound(m, k, n, scale_floats, dx=False, weight_bytes=None,
 
 def time_k3(torch, qm, m, k, n):
     """K3 and its plain version (`timed`), its bound, and its yardsticks:
-    `torch._int_mm` on operands quantized beforehand (the int8 GEMM alone:
+    `torch._int_mm` (above 16 rows, which it needs) on operands quantized
+    beforehand (the int8 GEMM alone:
     no quantize pass, no scales, int32 out), with B the (N, K) weight as
     stored, i.e. column-major (K, N), the layout cuBLASLt's int8 path
     takes without a copy — and, as an aside, on a row-major copy of it —
@@ -1787,9 +1853,11 @@ def time_k3(torch, qm, m, k, n):
               lambda: qm.int8_fwd_ref(x, kq, scale))
     xq = qm.quantize_act(x)[0].to(torch.int8)
     kq_t, kq_kn = kq.t(), kq.t().contiguous()
-    t["library_ms"] = device_ms(torch, lambda: torch._int_mm(xq, kq_t))
-    t["int_mm_row_major_ms"] = device_ms(torch,
-                                         lambda: torch._int_mm(xq, kq_kn))
+    t["library_ms"] = None          # torch._int_mm takes more than 16 rows
+    if m > 16:
+        t["library_ms"] = device_ms(torch, lambda: torch._int_mm(xq, kq_t))
+        t["int_mm_row_major_ms"] = device_ms(
+            torch, lambda: torch._int_mm(xq, kq_kn))
     w = qm.dequant(kq, scale, torch.bfloat16)
     t["linear_ms"] = device_ms(torch, lambda: F.linear(x, w))
     t["bound_ms"], t["bound_by"] = quant_bound(m, k, n, n)
@@ -1967,11 +2035,29 @@ def attention_counters(fa):
             "k6b": fa.flash_streaming_dkv}
 
 
+class DecodeCount:
+    """`int4_matmul.decode_launches` as a `launches` counter: K8's decode
+    route (csrc/int4_decode.cu), counted apart from int4_fwd.cu's."""
+
+    def __init__(self, qm):
+        self.fn = qm.int4_matmul
+
+    @property
+    def launches(self):
+        return self.fn.decode_launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.decode_launches = value
+
+
 def counters(fa, qm):
-    """Every kernel's wrapper, whose `launches` the main paths are read by."""
+    """Every kernel's wrapper, whose `launches` the main paths are read by:
+    "k8" counts int4_fwd.cu's launches, "k8d" K8's decode route's."""
     return {**attention_counters(fa),
             "k3": qm.int8_fwd, "k7": qm.grouped_matmul, "k4": qm.quant_dx,
-            "k8": qm.int4_matmul, "k9": qm.int4_dx, "k10": qm.int8_dgrad}
+            "k8": qm.int4_matmul, "k8d": DecodeCount(qm), "k9": qm.int4_dx,
+            "k10": qm.int8_dgrad}
 
 
 def read_counts(fa, qm):
@@ -2002,10 +2088,13 @@ def per_update(quantize, blocks, streaming=False, policy="full"):
     backward launches K4 or K9 once each. At 7B width every block matmul
     passes K8's shape guard (model/int4.py). The LM head is weight-only (no
     kernel), chunked or not. A block backward runs K2 once, or K6a and K6b
-    once each in the streaming regime."""
+    once each in the streaming regime. K8's calls on the adapter rows
+    (ADAPTER_LEN of them, at most DECODE_MAX_M) take its decode route
+    ("k8d"), those on the stacked rows int4_fwd.cu ("k8")."""
     fwd = 2 * blocks
     attn = blocks if policy == "qkv" else fwd
     grouped = quantize in ("w8a8g", "w8a8o")
+    int4 = quantize in INT4_MODES
     return {"k1": 0 if streaming else attn,
             "k2": 0 if streaming else blocks,
             "k5": attn if streaming else 0,
@@ -2014,8 +2103,9 @@ def per_update(quantize, blocks, streaming=False, policy="full"):
             "k3": 9 * fwd if quantize in PER_CHANNEL_W8A8 else 0,
             "k7": 9 * fwd if grouped else 0,
             "k4": 9 * blocks if grouped else 0,
-            "k8": 9 * fwd if quantize in INT4_MODES else 0,
-            "k9": 9 * blocks if quantize in INT4_MODES else 0,
+            "k8": 7 * fwd if int4 else 0,
+            "k8d": 2 * fwd if int4 else 0,
+            "k9": 9 * blocks if int4 else 0,
             "k10": 9 * blocks if quantize in ("w8a8d", "w8a8rd") else 0}
 
 
@@ -2233,10 +2323,13 @@ def eval_per_batch(quantize, blocks, long=False):
     """Launches per scored batch of the cached scorer, from the code: its
     prefill and its chunk extend each run every block once; K1 runs in the
     prefill only (K5 at S > MAX_SEQ_FWD = 4096: `long`), and each pass has
-    9 quantized matmuls per block (K3 under w8a8, K8 under w4a8)."""
+    9 quantized matmuls per block (K3 under w8a8, K8 under w4a8: the 2 on
+    the adapter rows by its decode route)."""
     counts = {k: 0 for k in ("k2", "k6a", "k6b", "k3", "k7", "k4", "k8",
-                             "k9", "k10")}
-    if quantize != "none":
+                             "k8d", "k9", "k10")}
+    if quantize in INT4_MODES:
+        counts["k8"], counts["k8d"] = 14 * blocks, 4 * blocks
+    elif quantize != "none":
         counts[forward_kernel(quantize)] = 18 * blocks
     return {"k1": 0 if long else blocks, "k5": blocks if long else 0,
             **counts}
@@ -2347,13 +2440,18 @@ def gen_per_batch(quantize, blocks, long=False):
     and each of the MAX_NEW_TOKENS - 1 decode steps every block once on one
     token a row (plain decode attention, no attention kernel); each of
     those passes has 9 quantized matmuls a block (wq, wk, wv, wo, w1, w3,
-    w2 and the adapter rows' wk, wv: K3 under w8a8, K8 under w4a8); the LM
+    w2 and the adapter rows' wk, wv: K3 under w8a8, K8 under w4a8 and int4,
+    whose decode route takes every call of at most DECODE_MAX_M rows: the
+    adapter rows' in the prefill and all 9 of each decode step); the LM
     head is weight-only."""
     from flipped_tpu_torch.train.generation import MAX_NEW_TOKENS
 
     counts = {k: 0 for k in ("k2", "k6a", "k6b", "k3", "k7", "k4", "k8",
-                             "k9", "k10")}
-    if quantize != "none":
+                             "k8d", "k9", "k10")}
+    if quantize in INT4_MODES:
+        counts["k8"] = 7 * blocks
+        counts["k8d"] = 2 * blocks + 9 * blocks * (MAX_NEW_TOKENS - 1)
+    elif quantize != "none":
         counts[forward_kernel(quantize)] = 9 * blocks * MAX_NEW_TOKENS
     return {"k1": 0 if long else blocks, "k5": blocks if long else 0,
             **counts}
@@ -2426,7 +2524,7 @@ def run_gen_eval(torch, fa, qm, data_root, caught, quantize="none",
     """`cli.evaluate.main --is_generation_task` (`long`: NExT-QA prompts at
     batch 1, S 8192, --debug: one batch) with launches as `gen_per_batch`
     derives them, the quant kernels' inputs to `caught`. → (args, the
-    model the CLI built, its tokenizer)."""
+    model the CLI built, its tokenizer, the launches)."""
     from flipped_tpu_torch.cli import evaluate
 
     built = {}
@@ -2465,7 +2563,7 @@ def run_gen_eval(torch, fa, qm, data_root, caught, quantize="none",
     if stats["batches"] != 1 or launches != want:
         raise AssertionError(f"{stats['batches']} batches, launches "
                              f"{launches}, want 1 and {want}")
-    return args, built["model"], built["tok"]
+    return args, built["model"], built["tok"], launches
 
 
 def gen_batch(torch, args, tokenizer, device="cuda"):
@@ -4419,8 +4517,9 @@ def main() -> int:
     matmul = torch.backends.cuda.matmul
     reduced = matmul.allow_bf16_reduced_precision_reduction
     matmul.allow_bf16_reduced_precision_reduction = False
-    quant_err = {k: 0.0 for k in QUANT_KERNELS}
+    quant_err = {k: 0.0 for k in QUANT_ERR_KEYS}
     check_quant(torch, qm, quant_err)
+    check_k8_decode(torch, qm, quant_err)
     check_quant_autograd(torch, qm, q8)
     check_int4_dgrad_autograd(torch, qm, q4, q8)
 
@@ -4463,12 +4562,14 @@ def main() -> int:
     phase("generation: cli.train on the MUSIC-AVQA recipe")
     run_gen_train(torch, fa, qm, gen_root, caught)
     torch.cuda.empty_cache()
+    gen_launches = {}
     for quantize in GEN_RUNS:
         phase(f"generation eval --quantize {quantize}")
-        args, model, tok = run_gen_eval(torch, fa, qm, gen_root, caught,
-                                        quantize)
+        args, model, tok, gen_launches[quantize] = run_gen_eval(
+            torch, fa, qm, gen_root, caught, quantize)
         tb = gen_batch(torch, args, tok)
-        time_gen(torch, model, tok, tb, f"--quantize {quantize}")
+        if quantize in GEN_TIMED:
+            time_gen(torch, model, tok, tb, f"--quantize {quantize}")
         check_gen_consistency(torch, model, tok, tb, f"--quantize {quantize}")
         del model, tb
         torch.cuda.empty_cache()
@@ -4494,8 +4595,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase(f"generation eval, long context: S {LONG_EVAL_S}")
-    args, model, tok = run_gen_eval(torch, fa, qm, long_root, caught,
-                                    long=True)
+    args, model, tok, _ = run_gen_eval(torch, fa, qm, long_root, caught,
+                                       long=True)
     time_gen(torch, model, tok, gen_batch(torch, args, tok),
              f"bf16, S {LONG_EVAL_S}")
     del model
@@ -4575,6 +4676,12 @@ def main() -> int:
             ("int4_fwd (int4 weight-only)", K8_SOURCE, K8_REPLACES,
              launches["int4"]["k8"], quant_err["k8w"],
              quant_times["k8w"][QUANT_ROW_SHAPE]),
+            ("int4_decode (w4a8)", K8D_SOURCE, K8_REPLACES,
+             gen_launches["w4a8"]["k8d"], quant_err["k8ad"],
+             quant_times["k8a"][DECODE_ROW_SHAPE]),
+            ("int4_decode (int4 weight-only)", K8D_SOURCE, K8_REPLACES,
+             gen_launches["int4"]["k8d"], quant_err["k8wd"],
+             quant_times["k8w"][DECODE_ROW_SHAPE]),
             ("int4_dx", K9_SOURCE, K9_REPLACES, launches["w4a8"]["k9"],
              quant_err["k9"], quant_times["k9"][QUANT_ROW_SHAPE]),
             ("int8_dgrad", K10_SOURCE, K10_REPLACES,

@@ -1,5 +1,5 @@
-"""Time K1, K2, K3, K5, K6a, K6b, K7, K4, K8 (both branches), K9 and K10
-of this checkout and another on one card, in turns.
+"""Time K1, K2, K3, K5, K6a, K6b, K7, K4, K8 (both branches, both routes),
+K9 and K10 of this checkout and another on one card, in turns.
 
     python -m flipped_tpu_torch.cli.ab_kernels <other checkout>
 
@@ -9,14 +9,17 @@ times, by CUDA-graph replay, K1 at the shapes of `chip_smoke.K1_SHAPES`, K2
 at the training shape (B 24, S 128), K5 at the long training shape
 (`LONG_SHAPE`, B 3, S 4096) and K6a, K6b there on K5's lse and D, then
 K3, K7, K4, K8 (w4a8 "k8a", weight-only "k8w"), K9 and K10 at the three
-3072-row 7B shapes and K3 and K8 w4a8 at the eval's w1/w3 shapes
-(`K3_EVAL`), with that checkout's `chip_smoke.py`
-(`k1_inputs`, `k2_inputs`, `stream_inputs`, `quant_inputs`, `int4_inputs`,
-`device_ms`); the two launches of K3, K7, K8 w4a8 and K10 are also timed
+3072-row 7B shapes, K3 and K8 w4a8 at the eval's w1/w3 shapes
+(`K3_EVAL`), and K8 (both branches) at generation's decode shapes
+(`DECODE`: 32 rows through the three block shapes, 10 adapter rows; and
+1, 64, 65 and 128 rows at 4096 -> 4096, around the decode route's limit),
+with that checkout's `chip_smoke.py` (`k1_inputs`, `k2_inputs`,
+`stream_inputs`, `quant_inputs`, `int4_inputs`, `device_ms`); the two launches of K3, K7, K8 w4a8 and K10 are also timed
 apart ("k3 quantize", "k3 gemm", and so on for "k7", "k8a" and "k10":
 device time by kernel name under torch.profiler, the names with
 "quantize" the first: K3's int8_fwd_quantize_kernel, K7's and K8's
-quantize_rows_kernel, K10's int8_dgrad_quantize_kernel). Prints
+quantize_rows_kernel, K10's int8_dgrad_quantize_kernel; at the decode
+shapes K8 w4a8's too). Prints
 the card's name and power limit, then one JSON line per turn: device ms
 by shape and kernel, and under "clocks" the SM clock and power draw that
 nvidia-smi reads right before and right after each kernel's timing, so
@@ -36,6 +39,14 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SHAPES = ("wq/wk/wv/wo", "w1/w3", "w2")
+# generation's K8 calls, and the wq shape on both sides of K8's decode
+# route's limit (quant_matmul.DECODE_MAX_M, 64 rows): (M, K, N)
+DECODE = {"decode wq/wk/wv/wo": (32, 4096, 4096),
+          "decode w1/w3": (32, 4096, 11008),
+          "decode w2": (32, 11008, 4096),
+          "decode adapter wk/wv": (10, 4096, 4096),
+          "wq M 1": (1, 4096, 4096), "wq M 64": (64, 4096, 4096),
+          "wq M 65": (65, 4096, 4096), "wq M 128": (128, 4096, 4096)}
 
 
 def launch_split(torch, kern, fn, n=20) -> dict:
@@ -142,6 +153,13 @@ def time_checkout(root: str) -> dict:
         for kern, call in calls.items():
             out[name][kern] = timed(f"{name} {kern}", call)
             out[name].update(launch_split(torch, kern, call))
+    for name, (m, k, n) in DECODE.items():
+        x4, kq4, sg4, _ = cs.int4_inputs(torch, m, k, n, 410)
+        calls = {"k8a": lambda: qm.int4_matmul(x4, kq4, sg4, True),
+                 "k8w": lambda: qm.int4_matmul(x4, kq4, sg4, False)}
+        out[name] = {kern: timed(f"{name} {kern}", call)
+                     for kern, call in calls.items()}
+        out[name].update(launch_split(torch, "k8a", calls["k8a"]))
     out["clocks"] = clocks
     return out
 

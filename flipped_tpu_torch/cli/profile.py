@@ -22,8 +22,9 @@ its weights included), device busy seconds per step (the union of kernel
 intervals) and its share of the profiled window's wall time, kernel
 launches per step, device time by kernel class (bf16 and f32 GEMMs, the
 port's flash kernels K1/K2 and the streaming K5/K6, its int8 GEMMs K3/K7,
-its quantized dx K4, K8's two GEMMs, K9, K10's quantize pass and GEMM,
-other), and the top kernels by device time. The activation quantize
+its quantized dx K4, K8's GEMMs (int4_fwd.cu's two and the decode
+route's int4_decode.cu), K9, K10's quantize pass and GEMM, other), and the
+top kernels by device time. The activation quantize
 pass that K7 and K8's w4a8 branch share counts in the K3/K7 class.
 `--quantize` builds the model it names, as the CLIs do, and the audio
 flags (`--audio --audio_merge ...`, `--audio --audio_only`) the merge
@@ -69,7 +70,9 @@ def kernel_class(name: str) -> str:
         return "int8 GEMM (K3/K7)"
     if "quant_dx" in low:
         return "quant dx (K4)"
-    if "int4_w4a8" in low or "int4_wo" in low:
+    # K8: int4_fwd.cu's two kernels and the decode route's
+    # (int4_decode_kernel, int4_decode_sum_kernel)
+    if "int4_w4a8" in low or "int4_wo" in low or "int4_decode" in low:
         return "int4 GEMM (K8)"
     if "int4_dx" in low:
         return "int4 dx (K9)"

@@ -10,6 +10,7 @@
 | K7 int8_grouped_fwd | flipped_tpu/model/pallas/quant_matmul.py:55 | csrc/int8_grouped_fwd.cu | quant_matmul.grouped_matmul |
 | K4 quant_dx | flipped_tpu/model/pallas/quant_matmul.py:316 | csrc/quant_dx.cu | quant_matmul.quant_dx |
 | K8 int4_fwd | flipped_tpu/model/pallas/quant_matmul.py:160 | csrc/int4_fwd.cu | quant_matmul.int4_matmul |
+| K8 int4_decode (x of at most 64 rows) | flipped_tpu/model/pallas/quant_matmul.py:160 | csrc/int4_decode.cu | quant_matmul.int4_matmul |
 | K9 int4_dx | flipped_tpu/model/pallas/quant_matmul.py:701 | csrc/int4_dx.cu | quant_matmul.int4_dx |
 | K10 int8_dgrad | flipped_tpu/model/pallas/quant_matmul.py:449 | csrc/int8_dgrad.cu | quant_matmul.int8_dgrad |
 

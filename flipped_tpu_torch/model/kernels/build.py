@@ -102,6 +102,11 @@ class KernelLibrary:
             + [ctypes.c_int] * 5              # M N K group act_quant
             + [ctypes.c_void_p])              # stream
         self.lib.int4_fwd.restype = ctypes.c_int
+        self.lib.int4_decode.argtypes = (
+            [ctypes.c_void_p] * 7             # x kq4 scale_g xq xs part out
+            + [ctypes.c_int] * 6              # M N K group act_quant splits
+            + [ctypes.c_void_p])              # stream
+        self.lib.int4_decode.restype = ctypes.c_int
         self.lib.int4_dx.argtypes = (
             [ctypes.c_void_p] * 4             # g kq4 scale_g dx
             + [ctypes.c_int] * 4              # M N K group

@@ -15,10 +15,11 @@
   f32 accumulation, rounded through bf16: the w8a8g/w8a8o backward.
 
 - K8 `int4_matmul` replaces `int4_matmul_grouped_pallas` → `_int4_kernel`
-  (:160-275); CUDA source csrc/int4_fwd.cu. act_quant=True (w4a8) is K7 on
-  the unpacked codes; act_quant=False (int4) runs bf16 products on the raw
-  codes and scales each group's partial product: Σ_g d_g·s_g in f32, the
-  groups in order.
+  (:160-275); CUDA source csrc/int4_fwd.cu, and csrc/int4_decode.cu for x
+  of at most DECODE_MAX_M rows at group 128 (generation's decode steps, the
+  adapter prefix). act_quant=True (w4a8) is K7 on the unpacked codes;
+  act_quant=False (int4) runs bf16 products on the raw codes and scales
+  each group's partial product: Σ_g d_g·s_g in f32, the groups in order.
 - K9 `int4_dx` replaces `int4_dx_pallas` → `_int4_dx_kernel` (:701-766);
   CUDA source csrc/int4_dx.cu: K4 on the unpacked codes.
 - K10 `int8_dgrad` replaces `int8_dgrad_pallas` → `_dgrad_kernel`
@@ -39,7 +40,9 @@ For each wrapper:
   `quant_dx_ref`, `int4_matmul_ref`, `int4_dx_ref`, `int8_dgrad_ref`), which
   is what the CPU tests hold against the JAX package;
 - `<wrapper>.launches` counts kernel launches; only the CUDA branch adds
-  to it.
+  to it. `int4_matmul` counts its two routes apart: `launches` the calls
+  that launch int4_fwd.cu's kernels, `decode_launches` those that launch
+  int4_decode.cu's.
 
 The plain versions compute each int8 dot exactly, as a float64 product of
 integers (|Σ| ≤ 127²·K < 2^53; an f32 sum is not exact above K ≈ 1040), so
@@ -58,6 +61,12 @@ EPS = 1e-8                    # scale floor: all-zero rows quantize to 0
 INV127 = float.fromhex("0x1.020408p-7")  # float32(1/127), exact in f32
 GROUP = 128                   # the group width K7 and K4 are built for
 MASK32 = 0xFFFFFFFF
+# K8 takes its decode route (csrc/int4_decode.cu) up to this many rows of x
+# (at the model's group of 128; other groups take int4_fwd.cu)
+DECODE_MAX_M = 64
+# the weight-only decode route splits the groups into runs until its
+# 64-column tiles times the runs reach this many blocks (the H100's SMs)
+DECODE_FILL = 132
 
 
 def _lead(x: torch.Tensor):
@@ -396,10 +405,22 @@ def _check_int4(name, a, kq4, scale_g, a_dim):
     return n, k, group
 
 
+def decode_splits(n: int, k: int, act_quant: bool) -> int:
+    """Runs of 128-wide groups a 64-column tile of the decode route is cut
+    into: 1 for w4a8 (its f32 fold takes the groups in order); for the
+    weight-only branch as many as bring the tiles times the runs to
+    DECODE_FILL blocks, at most one a group."""
+    if act_quant:
+        return 1
+    tiles = -(-(n // 2) // 32)
+    return max(1, min(k // GROUP, DECODE_FILL // tiles))
+
+
 def int4_matmul(x, kq4, scale_g, act_quant: bool):
     """K8, the packed-int4 forward: x (..., K), kq4 (N/2, K) packed,
     scale_g (G, N) f32 → (..., N) in x.dtype; act_quant=True is w4a8, False
-    the weight-only int4."""
+    the weight-only int4. x of at most DECODE_MAX_M rows takes the decode
+    route at group 128."""
     if x.device.type == "cpu":
         return int4_matmul_ref(x, kq4, scale_g, act_quant)
     _device_ok("int4_matmul", x)
@@ -414,14 +435,27 @@ def int4_matmul(x, kq4, scale_g, act_quant: bool):
         xq = xs = x2                  # unused by the weight-only branch
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
-        _launch("int4_fwd", x2.data_ptr(), kq4.data_ptr(),
-                scale_g.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-                out.data_ptr(), m, n, k, group, int(act_quant))
-    int4_matmul.launches += 1
+        if m <= DECODE_MAX_M and group == GROUP:
+            if scale_g.data_ptr() % 16:    # the decode route's TMA needs it
+                scale_g = scale_g.clone()
+            splits = decode_splits(n, k, act_quant)
+            part = (torch.empty((splits, m, n), dtype=torch.float32,
+                                device=x.device) if splits > 1 else out)
+            _launch("int4_decode", x2.data_ptr(), kq4.data_ptr(),
+                    scale_g.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+                    part.data_ptr(), out.data_ptr(), m, n, k, group,
+                    int(act_quant), splits)
+            int4_matmul.decode_launches += 1
+        else:
+            _launch("int4_fwd", x2.data_ptr(), kq4.data_ptr(),
+                    scale_g.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+                    out.data_ptr(), m, n, k, group, int(act_quant))
+            int4_matmul.launches += 1
     return out.reshape(*lead, n)
 
 
 int4_matmul.launches = 0
+int4_matmul.decode_launches = 0
 
 
 def int4_dx(g, kq4, scale_g):

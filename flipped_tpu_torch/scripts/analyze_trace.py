@@ -9,7 +9,8 @@ time (the union of its kernel intervals), the wall span of the profiled
 steps (the `train step N` annotations, else `ProfilerStep#N`, else the
 first kernel's start to the last one's end), the top kernels, and a rollup
 by class. The classes are `cli.profile.kernel_class`'s, so both tools name
-a kernel the same way.
+a kernel the same way (K8's decode route, int4_decode_kernel and
+int4_decode_sum_kernel, under "int4 GEMM (K8)" with int4_fwd.cu's).
 
     python -m flipped_tpu_torch.scripts.analyze_trace DIR_OR_FILE [--top 25]
 

@@ -60,6 +60,9 @@ from flipped_tpu_torch.train import (check_dtype_policy, init_params,
 
 # (leading dims, K, N): every one passes the kernel guard
 SHAPES = [((2, 12), 256, 256), ((37,), 384, 512), ((3, 5, 4), 1024, 256)]
+# the decode route's leads (at most quant_matmul.DECODE_MAX_M rows: one a
+# sequence at decode, the 10 adapter rows), small K and N
+DECODE_SHAPES = [((1,), 128, 256), ((10,), 256, 256), ((32,), 128, 256)]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 W4_MAX = 8.0                  # |code| of a signed nibble
@@ -72,7 +75,8 @@ def _case(lead, k, n, seed):
     rs = np.random.RandomState(seed)
     x = rs.randn(*lead, k).astype(np.float32)
     x[..., 3] *= 25.0
-    x.reshape(-1, k)[1] = 0.0
+    if x.size > k:
+        x.reshape(-1, k)[1] = 0.0
     codes = rs.randint(-8, 8, (k, n)).astype(np.int8)
     sg = ((rs.rand(k // 128, n) + 0.5) / (7.0 * np.sqrt(k))).astype(
         np.float32)
@@ -121,7 +125,7 @@ def test_pack_and_unpack_match_jax():
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("lead,k,n", SHAPES)
+@pytest.mark.parametrize("lead,k,n", SHAPES + DECODE_SHAPES)
 def test_int4_matmul_ref_w4a8_matches_jax(lead, k, n, dtype):
     """Plain K8 with act_quant against `int4_matmul_grouped_pallas` in
     interpret mode and the jitted `_grouped_matmul_impl` on the unpacked
@@ -159,11 +163,12 @@ def test_int4_matmul_ref_w4a8_matches_jax(lead, k, n, dtype):
         bound = (flip_bound * (1 + rtol)
                  + rtol * np.abs(want).reshape(-1, n) + 1e-6)
         assert (err <= bound).all(), float((err / bound).max())
-    assert not got.reshape(-1, n)[1].any()
+    if x.size > k:
+        assert not got.reshape(-1, n)[1].any()
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("lead,k,n", SHAPES)
+@pytest.mark.parametrize("lead,k,n", SHAPES + DECODE_SHAPES)
 def test_int4_matmul_ref_weight_only_matches_jax(lead, k, n, dtype):
     """Plain K8 weight-only against `int4_matmul_grouped_pallas`
     (act_quant=False) in interpret mode and JAX's XLA form `_wo_xla_impl`.
@@ -195,7 +200,8 @@ def test_int4_matmul_ref_weight_only_matches_jax(lead, k, n, dtype):
     assert (np.abs(got - pal) <= bound).all()
     bound = 2.0 ** -8 * mag + 2.0 ** -7 * np.abs(xla) + 1e-6
     assert (np.abs(got - xla) <= bound).all()
-    assert not got[1].any()
+    if x.size > k:
+        assert not got[1].any()
 
 
 @pytest.mark.parametrize("lead,k,n", SHAPES)
@@ -277,14 +283,34 @@ def test_int4_autograd_matches_jax_vjp(interpret, lead, k, n, act_quant):
 
 
 def test_wrappers_count_nothing_on_the_cpu():
-    """A CPU tensor takes the plain version and launches nothing."""
-    x, _, packed, sg, g = _case((8,), 256, 256, 6)
-    before = (qm.int4_matmul.launches, qm.int4_dx.launches)
-    tq4, tsg = _port(packed), torch.from_numpy(sg)
-    qm.int4_matmul(torch.from_numpy(x), tq4, tsg, True)
-    qm.int4_matmul(torch.from_numpy(x), tq4, tsg, False)
-    qm.int4_dx(torch.from_numpy(g), tq4, tsg)
-    assert (qm.int4_matmul.launches, qm.int4_dx.launches) == before
+    """A CPU tensor takes the plain version and launches nothing, on
+    either of K8's routes (8 rows: its decode route's on the card; 80: its
+    other)."""
+    counts = lambda: (qm.int4_matmul.launches, qm.int4_matmul.decode_launches,
+                      qm.int4_dx.launches)
+    before = counts()
+    for rows in (8, 80):
+        x, _, packed, sg, g = _case((rows,), 256, 256, 6)
+        tq4, tsg = _port(packed), torch.from_numpy(sg)
+        qm.int4_matmul(torch.from_numpy(x), tq4, tsg, True)
+        qm.int4_matmul(torch.from_numpy(x), tq4, tsg, False)
+        qm.int4_dx(torch.from_numpy(g), tq4, tsg)
+    assert counts() == before
+
+
+@pytest.mark.parametrize("n,k,act_quant,want", [
+    (4096, 4096, False, 2),      # 64 tiles: two runs of 16 groups
+    (4096, 11008, False, 2),     # w2: two runs of 43 groups
+    (11008, 4096, False, 1),     # w1/w3: 172 tiles fill the card
+    (2048, 4096, False, 4),      # wq at --tp 2: 32 tiles
+    (256, 256, False, 2),        # never more runs than groups
+    (256, 128, False, 1),
+    (4096, 4096, True, 1)])      # w4a8: its fold takes groups in order
+def test_decode_splits(n, k, act_quant, want):
+    """The decode route cuts the weight-only branch's 128-wide groups into
+    runs until its 64-column tiles times the runs reach DECODE_FILL (132,
+    the H100's SMs); w4a8 keeps one run."""
+    assert qm.decode_splits(n, k, act_quant) == want
 
 
 # --- the model ---------------------------------------------------------------

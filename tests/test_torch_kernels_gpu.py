@@ -599,19 +599,49 @@ def _mma_bound(ref, a, w, terms):
             ) * (1 + 2.0 ** -8)
 
 
-@pytest.mark.parametrize("m,k,n", [(10, 256, 256), (37, 384, 528),
-                                   (130, 1024, 1040)])
+def _k8_routes():
+    """(launches of int4_fwd.cu, of the decode route int4_decode.cu)."""
+    return qm.int4_matmul.launches, qm.int4_matmul.decode_launches
+
+
+def _k8_route_moved(before, m, calls, group=128):
+    """`calls` K8 launches since `before`, all on the route M rows take:
+    the decode route up to DECODE_MAX_M rows at group 128, int4_fwd.cu
+    otherwise."""
+    moved = tuple(a - b for a, b in zip(_k8_routes(), before))
+    decode = m <= qm.DECODE_MAX_M and group == qm.GROUP
+    return moved == ((0, calls) if decode else (calls, 0))
+
+
+# x rows around the decode route (at most DECODE_MAX_M, 64) and past it
+DECODE_M = (1, 10, 32, 64, 65)
+
+
+@pytest.mark.parametrize("m", DECODE_M + (130,))
+@pytest.mark.parametrize("k,n", [(128, 256), (256, 256), (384, 400),
+                                 (1024, 1040), (11008, 144)])
 def test_int4_matmul_matches_plain(cuda, m, k, n):
-    """K8: the w4a8 branch bit for bit equal to its plain version (the same
-    IEEE operations on exact integer dots), the weight-only branch within
-    the bound of its f32 group sums."""
+    """K8 on both routes (x of 1 to 64 rows: the decode route; 65 and 130:
+    int4_fwd.cu), contractions of 1, 2, 3, 8 and 86 groups, N/2 of 128,
+    200, 520 and 72 (200 and 72 not multiples of the decode route's 32
+    packed rows): the w4a8 branch bit for bit equal to its plain version
+    (the same IEEE operations on exact integer dots), the weight-only
+    branch within the bound of its f32 group sums, each branch's two calls
+    on the same inputs bit for bit equal, every launch on the route its
+    rows take."""
     x, codes, kq4, sg, _ = _int4_inputs(cuda, m, k, n, 7)
-    before = qm.int4_matmul.launches
+    if m == 1:                        # _int4_inputs zeroes row m // 2
+        x = torch.randn(1, k, device=cuda).to(torch.bfloat16)
+    before = _k8_routes()
     out8 = qm.int4_matmul(x.view(1, m, k), kq4, sg, True)
+    again8 = qm.int4_matmul(x.view(1, m, k), kq4, sg, True)
     out4 = qm.int4_matmul(x, kq4, sg, False)
+    again4 = qm.int4_matmul(x, kq4, sg, False)
     torch.cuda.synchronize()
-    assert qm.int4_matmul.launches == before + 2
+    assert _k8_route_moved(before, m, 4)
     assert out8.shape == (1, m, n)
+    assert torch.equal(_bits(out8), _bits(again8))
+    assert torch.equal(_bits(out4), _bits(again4))
     assert torch.equal(_bits(out8[0]), _bits(qm.int4_matmul_ref(x, kq4, sg,
                                                                 True)))
     ref = qm.int4_matmul_ref(x, kq4, sg, False)
@@ -620,7 +650,27 @@ def test_int4_matmul_matches_plain(cuda, m, k, n):
          ).view(n, k)
     bound = _mma_bound(ref, x, w, k + 2 * groups)
     assert bool(((out4.double() - ref.double()).abs() <= bound).all())
-    assert bool((out4[m // 2] == 0).all())
+    if m > 1:
+        assert bool((out4[m // 2] == 0).all())
+
+
+def test_int4_decode_route_raises_without_its_kernel(cuda, monkeypatch):
+    """No fallback: where the kernels cannot be built (or a launch fails),
+    K8's decode route raises on a CUDA tensor instead of taking the plain
+    version or int4_fwd.cu."""
+    from flipped_tpu_torch.model.kernels import build
+
+    x, _, kq4, sg, _ = _int4_inputs(cuda, 32, 256, 256, 26)
+
+    def no_build(force=False):
+        raise build.KernelBuildError("nvcc not found")
+
+    monkeypatch.setattr(build, "build", no_build)
+    before = _k8_routes()
+    for act_quant in (True, False):
+        with pytest.raises(build.KernelBuildError):
+            qm.int4_matmul(x, kq4, sg, act_quant)
+    assert _k8_routes() == before
 
 
 @pytest.mark.parametrize("m,k,n", [(10, 256, 256), (130, 1024, 1040)])
@@ -687,7 +737,8 @@ def test_int4_and_dgrad_autograd_functions_on_card(cuda):
     x, codes, kq4, sg, dy = _int4_inputs(cuda, 40, 256, 256, 11)
     kq = torch.randint(-127, 128, (256, 256), device=cuda, dtype=torch.int8)
     scale = torch.full((256,), 1e-3, device=cuda)
-    counts = lambda: (qm.int4_matmul.launches, qm.int4_dx.launches,
+    # 40 rows: K8 on its decode route
+    counts = lambda: (qm.int4_matmul.decode_launches, qm.int4_dx.launches,
                       qm.int8_fwd.launches, qm.int8_dgrad.launches)
     before = counts()
     xa, xb, xc = (x.detach().requires_grad_() for _ in range(3))
@@ -713,20 +764,26 @@ def test_int4_and_dgrad_autograd_functions_on_card(cuda):
 EDGE_M = (1, 65, 320, 1000)
 
 
-@pytest.mark.parametrize("m", EDGE_M)
+@pytest.mark.parametrize("m", DECODE_M + EDGE_M[2:])
 @pytest.mark.parametrize("n,k,group", [(112, 128, 128), (144, 128, 128),
                                        (400, 512, 256), (112, 11008, 128),
                                        (144, 11008, 128)])
 def test_int4_weight_only_edge_tiles(cuda, m, n, k, group):
+    """K8's weight-only branch at the tiles' edges of both routes (the
+    decode route's 32 packed rows, 128-deep steps and runs of groups; a
+    group of 256 on int4_fwd.cu at every M), within the bound of its f32
+    sums, two calls bit for bit equal, on the route its rows take."""
     x, codes, kq4, sg, _ = _int4_inputs(cuda, m, k, n, 12)
     if m == 1:                        # _int4_inputs zeroes row m // 2
         x = torch.randn(1, k, device=cuda).to(torch.bfloat16)
     groups = k // group
     sg = sg[:groups].contiguous()
-    before = qm.int4_matmul.launches
+    before = _k8_routes()
     out = qm.int4_matmul(x, kq4, sg, False)
+    again = qm.int4_matmul(x, kq4, sg, False)
     torch.cuda.synchronize()
-    assert qm.int4_matmul.launches == before + 1
+    assert _k8_route_moved(before, m, 2, group)
+    assert torch.equal(_bits(out), _bits(again))
     ref = qm.int4_matmul_ref(x, kq4, sg, False)
     w = (codes.double().view(n, groups, group) * sg.t().double()[:, :, None]
          ).view(n, k)
@@ -977,10 +1034,10 @@ def _grouped_int4(cuda, m, k, n, group, seed):
 def test_int4_w4a8_edge_tiles_bitwise(cuda, m, nh, k, group):
     x, kq4, sg = _grouped_int4(cuda, m, k, 2 * nh, group, 22)
     x = _edge_rows(x, m)
-    before = qm.int4_matmul.launches
+    before = _k8_routes()
     out = qm.int4_matmul(x, kq4, sg, True)
     torch.cuda.synchronize()
-    assert qm.int4_matmul.launches == before + 1
+    assert _k8_route_moved(before, m, 1, group)
     assert torch.equal(_bits(out),
                        _bits(qm.int4_matmul_ref(x, kq4, sg, True)))
 

@@ -36,6 +36,13 @@ def _function(src: str, name: str) -> str:
      "__nv_bfloat16 const*, ...)", "int8 dgrad (K10)"),
     ("void (anonymous namespace)::int4_wo_kernel(CUtensorMap_st, ...)",
      "int4 GEMM (K8)"),
+    ("void (anonymous namespace)::int4_decode_kernel<32, true, true>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "__nv_bfloat16*, float*, int, int, int, int)", "int4 GEMM (K8)"),
+    ("void (anonymous namespace)::int4_decode_kernel<64, false, false>("
+     "CUtensorMap_st, ...)", "int4 GEMM (K8)"),
+    ("void (anonymous namespace)::int4_decode_sum_kernel(float const*, "
+     "__nv_bfloat16*, int, long long)", "int4 GEMM (K8)"),
     ("void (anonymous namespace)::quant_dx_kernel(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, int, int, int, int)",
      "quant dx (K4)"),
@@ -578,8 +585,9 @@ def test_shared_memory_opt_in_is_per_device():
     users = [p.name for p in sorted(CSRC.glob("*.cu*"))
              if "hopper::smem_opt_in(" in p.read_text()]
     assert users == ["dx_wgmma.cuh", "flash_bwd_wgmma.cuh",
-                     "flash_fwd_wgmma.cuh", "int4_fwd.cu", "int8_fwd.cu",
-                     "int8_grouped_fwd.cu", "wgmma_int8.cuh"], users
+                     "flash_fwd_wgmma.cuh", "int4_decode.cu", "int4_fwd.cu",
+                     "int8_fwd.cu", "int8_grouped_fwd.cu",
+                     "wgmma_int8.cuh"], users
 
 
 @pytest.mark.parametrize("source,fn", [
@@ -634,3 +642,119 @@ def test_build_log_scan_names_the_source(line, found):
     assert hits == ([("int4_fwd.cu", line)] if found else [])
     smoke = (Path(build.__file__).parents[3] / "chip_smoke.py").read_text()
     assert "wgmma_serialisation_warnings(lib.log)" in smoke
+
+
+# --- K8's decode route (csrc/int4_decode.cu) ----------------------------------
+
+def _decode_a_rows(packed, hi_form):
+    """Host emulation of the decode kernel's A operand for one step: its
+    warpgroup's 64 A rows from the 32 packed rows of `packed` (32, 128
+    bytes), every thread's fragments (warp w, lane 4g + t: packed rows p0 =
+    16 (w & 1) + g and p0 + 8, the high nibbles in warps 2 and 3) put back
+    at the (row, k) the wgmma's fragment layout gives them. `hi_form` is
+    "s8" (w4a8: each byte's nibble moved to its top, the signed byte 16 c,
+    4 bytes a register, m64nNk32) or "bf16" (weight-only: nibble_pair_bf16
+    after the shift by 4 for the high nibbles, m64nNk16)."""
+    a = np.zeros((64, 128), dtype=np.float64)
+    for w in range(4):
+        sh = 4 if w >= 2 else 0
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            p0 = 16 * (w & 1) + g
+            for j in range(4):
+                row = p0 + 8 * (j & 1)
+                arow = 16 * w + g + 8 * (j & 1)
+                if hi_form == "s8":
+                    for ks in range(4):
+                        c = 32 * ks + 16 * (j >> 1) + 4 * t
+                        word = int.from_bytes(bytes(packed[row, c:c + 4]),
+                                              "little")
+                        word = ((word << (4 - sh)) & 0xF0F0F0F0)
+                        vals = np.frombuffer(word.to_bytes(4, "little"),
+                                             dtype=np.int8)
+                        a[arow, c:c + 4] = vals
+                else:
+                    for ks in range(8):
+                        c = 16 * ks + 8 * (j >> 1) + 2 * t
+                        v = int(packed[row, c]) | (int(packed[row, c + 1])
+                                                   << 8)
+                        u = (v & 0xFF) | ((v >> 8) << 16)   # byte_perm 0x4140
+                        u = ((u >> sh) & 0x000F000F) ^ 0x43084308
+                        pair = (_bf16([u & 0xFFFF, u >> 16])
+                                - _bf16(0x4308))
+                        a[arow, c:c + 2] = pair
+    return a
+
+
+@pytest.mark.parametrize("hi_form,scale", [("s8", 16.0), ("bf16", 1.0)])
+def test_decode_a_rows_are_both_nibbles_of_32_packed_rows(hi_form, scale):
+    """int4_decode.cu's A operand: a warpgroup's 64 A rows come from both
+    nibbles of 32 packed rows, the low nibbles first (output columns j0 ..
+    j0 + 31), then the high ones (N/2 + j0 ..), equal to unpack_int4's
+    rows; the w4a8 form's bytes are 16 times the codes (exact: the fold
+    takes xs / 16)."""
+    from flipped_tpu_torch.model.kernels import quant_matmul as qm
+
+    rng = np.random.default_rng(5)
+    nh, k, j0 = 96, 128, 32
+    packed = rng.integers(-128, 128, (nh, k), dtype=np.int8)
+    codes = qm.unpack_int4(torch.from_numpy(packed)).numpy()
+    a = _decode_a_rows(packed[j0:j0 + 32].view(np.uint8), hi_form)
+    want = np.concatenate([codes[j0:j0 + 32], codes[nh + j0:nh + j0 + 32]])
+    assert np.array_equal(a, scale * want.astype(np.float64))
+
+
+def test_decode_fold_of_16d_equals_the_plain_fold():
+    """The w4a8 fold on 16 d: float(16 d) by the integer-add-and-subtract
+    conversion (0x4B400000 + 16 d, minus 1.5 * 2^23: exact while |16 d| <
+    2^22, up to groups of 256), times xs / 16, times s, each rounded in f32,
+    equals (float(d) * xs) * s bit for bit: scaling by 16 commutes with
+    every rounding, and xs / 16 is exact (xs >= 1e-8)."""
+    rng = np.random.default_rng(6)
+    lim = 127 * 8 * 256
+    d = np.concatenate([rng.integers(-lim, lim + 1, 200000),
+                        [lim, -lim, 0, 1, -1]]).astype(np.int64)
+    xs = np.concatenate([
+        (rng.random(200000) * 0.1).astype(np.float32), np.float32([
+            1e-8, 1e-8, 1e-8, 3e-3, 1.0])]).astype(np.float32)
+    xs = np.maximum(xs, np.float32(1e-8))
+    s = (rng.random(d.size).astype(np.float32) + np.float32(0.5)) \
+        / np.float32(7 * 64)
+    f16 = (_f32_bits((0x4B400000 + 16 * d).astype(np.uint32))
+           - np.float32(12582912.0))
+    assert np.array_equal(f16, (16 * d).astype(np.float32))
+    got = (f16 * (xs * np.float32(0.0625))) * s
+    want = (d.astype(np.float32) * xs) * s
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_decode_loop_is_tma_fed_wgmma_in_k7s_order():
+    """int4_decode.cu: RS wgmmas m64nNk32 (s8) and m64nNk16 (bf16) for N =
+    8, 16, 32 and 64, a step's first with scale-d 0; a producer lane's TMA
+    boxes (x or xq, the packed weight, the scales) into an mbarrier ring;
+    each step waits for the previous step's wgmmas (wgmma_wait<0>) before
+    it issues its own, then folds the previous step while they run (K7's
+    order, which keeps ptxas from serialising the wgmmas); the w4a8 fold
+    is (float(d) * xs) * s added to acc, and block-level groups are added
+    in order across the two warpgroups."""
+    src = (CSRC / "int4_decode.cu").read_text()
+    for n in (8, 16, 32, 64):
+        for form in (f"m64n{n}k32.s32.s8.s8", f"m64n{n}k16.f32.bf16.bf16"):
+            assert f"wgmma.mma_async.sync.aligned.{form}" in src, form
+    issue = " ".join(src[src.index("auto issue = [&]"):].split())
+    issue = issue[:issue.index("};")]
+    assert issue.index("dec_s8_rs_zero(d, a[0], desc)") \
+        < issue.index("dec_s8_rs(d, a[ks]")
+    assert "dec_bf16_rs_zero(d, a[0], desc)" in issue
+    step = " ".join(src[src.index("auto step = [&]"):].split())
+    step = step[:step.index("};")]
+    assert step.index("wgmma_wait<0>()") < step.index("issue(") \
+        < step.index("absorb(")
+    assert "wgmma_wait<1>" not in src
+    fold = " ".join(src[src.index("auto fold = [&]"):].split())
+    assert ("term[r] = __fmul_rn(__fmul_rn(f, xv[e & 1]), sv[e >> 1]);"
+            in fold)
+    assert "acc[r] = __fadd_rn(acc[r], term[r]);" in fold
+    assert "acc[r] = __fadd_rn(acc[r], xch[" in fold
+    assert src.count("tma_load_3d(") >= 4
+    assert "mbar_wait(&empty[s]" in src and "mma.sync" not in src
