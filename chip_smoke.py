@@ -52,10 +52,11 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               the wgmma kernels' tile edges (QUANT_EDGE, and K3's, K7's
               and K8 w4a8's own at K3_EDGE, K7_EDGE and K8A_EDGE) and every
               7B main-path shape (K10 on 2-D and 3-D cotangents); K8's
-              decode route (csrc/int4_decode.cu, x of at most 64 rows)
-              at every DECODE_SHAPES entry and at M 1 and 64, each branch
-              twice with the same bits, every launch counted on that route
-              (`check_k8_decode`); then through the autograd Functions
+              decode route (csrc/int4_decode.cu, x of at most 64 rows) and
+              K3's and K7's (csrc/int8_decode.cu) at every DECODE_SHAPES
+              entry, at M 1 and 64 and at phase 16's tp-split shapes, each
+              twice with the same bits, every launch counted on its route
+              (`check_decode_routes`); then through the autograd Functions
               int8_matmul,
               int8_matmul_grouped, int4_matmul, int4_matmul_grouped and
               int8_matmul_dgrad at the w1/w3 shape
@@ -86,13 +87,16 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               per update that `per_update` derives from the code (bf16: 64
               K1, 32 K2; w8a8: 576 K3 more; w8a8g and w8a8o: 576 K7 and 288
               K4 more; the int4 modes: 576 K8 and 288 K9 more; w8a8d: 576
-              K3 and 288 K10 more), frozen weights bitwise unchanged, no
+              K3 and 288 K10 more; of the 576 forward GEMMs the 128 on the
+              adapter rows by the decode routes: "k3d", "k7d", "k8d"),
+              frozen weights bitwise unchanged, no
               trainable moved by update 1 (lr 0) and every trainable moved
               by update 2; the step without remat (the bench default) timed
               at none, w8a8, w4a8, w8a8d, int4 and w8a8g
  10. eval     the classification eval at 7B width through
               `flipped_tpu_torch.cli.evaluate.main` at --quantize none, w8a8
-              and w4a8: 32 K1 (and 576 K3 under w8a8, 576 K8 under w4a8)
+              and w4a8: 32 K1 (and 576 K3 under w8a8, 576 K8 under w4a8,
+              128 of them on the adapter rows by the decode routes)
               launches per scored batch, every score finite; one batch
               through the cached and the dense eval steps, which must agree
  11. gen      generation eval on the MUSIC-AVQA recipe at 7B width (batch
@@ -100,12 +104,13 @@ Phases; any failure prints its traceback and exits 1 without a result line:
               batch of 32): `cli.train.main --debug` (one update, then the
               val loop generates: 32 val rows with unique qids in
               extracted_answers_epoch0.json, val_counting in log.txt), then
-              `cli.evaluate.main` at --quantize none, w8a8, w4a8 and int4:
-              the launches per batch `gen_per_batch` derives from the code
-              (32 K1 in the prefill; 9 K3 or K8 per block in the prefill
-              and in each of the 30 decode steps, K8's on the adapter rows
-              and in the decode steps by its decode route, "k8d"),
-              similarities finite; (int4 untimed) s per
+              `cli.evaluate.main` at --quantize none, w8a8, w4a8, int4 and
+              w8a8g: the launches per batch `gen_per_batch` derives from
+              the code (32 K1 in the prefill; 9 K3, K7 or K8 per block in
+              the prefill and in each of the 30 decode steps, those on the
+              adapter rows and in the decode steps by the decode routes,
+              "k3d", "k7d", "k8d"),
+              similarities finite; (int4 and w8a8g untimed) s per
               batch, prefill ms and decode ms per token (CUDA events), peak
               memory and the decode step's bytes bound; the cached decode's
               logits against a re-forward of prompt and generated tokens,
@@ -404,7 +409,7 @@ N_LONG_ITEMS = 4                    # 4 updates at batch 1; 2 val examples
 # rows, one batch; at --quantize none, w8a8 and w4a8
 GEN_B, GEN_S = 32, 128
 N_GEN_ITEMS = 128
-GEN_RUNS = ("none", "w8a8", "w4a8", "int4")
+GEN_RUNS = ("none", "w8a8", "w4a8", "int4", "w8a8g")
 # the runs whose generated batch is also timed (`time_gen`); int4 generates
 # its batch and is held to the re-forward, untimed
 GEN_TIMED = ("none", "w8a8", "w4a8")
@@ -545,11 +550,12 @@ QUANT_ROW_SHAPE = "w1/w3"
 # example: M = the batch's 32 rows at the three block shapes, and the
 # adapter prefix's 10 rows through wk/wv (each step, and the prefill).
 # Timed in the timing phase beside a bf16 `F.linear` on the dequantized
-# weight (`time_decode_shape`); K8 takes its decode route there (x of at
-# most quant_matmul.DECODE_MAX_M rows, csrc/int4_decode.cu), held against
-# its plain version at each of these shapes and at M 1 and 64
-# (`check_k8_decode`); the paths' own inputs at these shapes are held
-# against the plain versions in the last phase.
+# weight (`time_decode_shape`); the three take their decode routes there
+# (x of at most quant_matmul.DECODE_MAX_M rows: csrc/int8_decode.cu for K3
+# and K7, csrc/int4_decode.cu for K8), held against their plain versions
+# at each of these shapes and at M 1 and 64 (`check_decode_routes`); the
+# paths' own inputs at these shapes are held against the plain versions in
+# the last phase.
 DECODE_SHAPES = {"decode wq/wk/wv/wo": (32, 4096, 4096),
                  "decode w1/w3": (32, 4096, 11008),
                  "decode w2": (32, 11008, 4096),
@@ -558,6 +564,17 @@ DECODE_SHAPES = {"decode wq/wk/wv/wo": (32, 4096, 4096),
 # of the 9 calls a block and step)
 DECODE_ROW_SHAPE = "decode wq/wk/wv/wo"
 K8D_SOURCE = "flipped_tpu_torch/csrc/int4_decode.cu"
+K37D_SOURCE = "flipped_tpu_torch/csrc/int8_decode.cu"
+# The tp-split block shapes phase 16's --tp 2 ranks hand the decode routes
+# (its ranks run in processes of their own, so `catch_quant_inputs` does
+# not see them): the adapter rows through wk/wv split by columns, and
+# generation's decode steps through wq/wk/wv (N 2048), wo (K 2048), w1/w3
+# (N 5504) and w2 (K 5504).
+TP_DECODE_SHAPES = {"tp 2 adapter wk/wv": (ADAPTER_LEN, 4096, 2048),
+                    "tp 2 decode wq/wk/wv": (32, 4096, 2048),
+                    "tp 2 decode wo": (32, 2048, 4096),
+                    "tp 2 decode w1/w3": (32, 4096, 5504),
+                    "tp 2 decode w2": (32, 5504, 4096)}
 # K3 and K7 against their plain versions: bitwise. Both compute the same
 # IEEE operations in the same order (explicit __fmul_rn/__fadd_rn/__fdiv_rn
 # in the kernels, one op per tensor pass in the plain versions, exact integer
@@ -598,8 +615,8 @@ K8_WO_REL = 2.0 ** -7
 
 # the quant kernels' keys: K8's two branches are held and timed apart
 QUANT_KERNELS = ("k3", "k7", "k4", "k8a", "k8w", "k9", "k10")
-# the worst |kernel - plain| a kernel showed: K8's decode route's apart
-QUANT_ERR_KEYS = QUANT_KERNELS + ("k8ad", "k8wd")
+# the worst |kernel - plain| a kernel showed: the decode routes' apart
+QUANT_ERR_KEYS = QUANT_KERNELS + ("k3d", "k7d", "k8ad", "k8wd")
 # (--quantize, one update only): 8 updates where the mode's kernels carry
 # the epoch's counts, one where an earlier run covers its kernels already
 TRAIN_RUNS = (("none", False), ("w8a8", False), ("w8a8g", True),
@@ -1564,8 +1581,8 @@ def hold_quant(torch, qm, kern, a, kq, scale, worst, extra=None):
     """One kernel call against its plain version on the same inputs (a is x,
     or g for K4, K9 and K10; kq is kq4 for K8 and K9): K3, K7, K8 w4a8 and
     K10 bitwise, K4, K8 weight-only and K9 within their bounds. Updates
-    worst[kern] (K8's decode route: worst[kern + "d"]) with |kernel -
-    plain| and returns a line for the log."""
+    worst[kern] (the decode routes of K3, K7 and K8: worst[kern + "d"])
+    with |kernel - plain| and returns a line for the log."""
     out = quant_call(qm, kern, False)(a, kq, scale, extra)
     torch.cuda.synchronize()
     ref = quant_call(qm, kern, True)(a, kq, scale, extra)
@@ -1577,8 +1594,10 @@ def hold_quant(torch, qm, kern, a, kq, scale, worst, extra=None):
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"{kern} non-finite at {where}")
     err = float((out.double() - ref.double()).abs().max())
-    decode = (kern in ("k8a", "k8w") and k // scale.shape[0] == qm.GROUP
-              and a.numel() // a.shape[-1] <= qm.DECODE_MAX_M)
+    rows = a.numel() // a.shape[-1]
+    decode = (kern in ("k3", "k7") and qm.takes_decode_route(rows)) or (
+        kern in ("k8a", "k8w")
+        and qm.takes_decode_route(rows, k // scale.shape[0]))
     key = kern + ("d" if decode else "")
     worst[key] = max(worst[key], err)
     label = kern.upper()
@@ -1650,37 +1669,45 @@ def check_quant(torch, qm, worst):
                            worst), flush=True)
 
 
-def check_k8_decode(torch, qm, worst):
-    """K8's decode route at every DECODE_SHAPES entry and at M 1 and 64 of
-    the wq shape: each branch called twice (the same bits both times) and
-    held against its plain version (`hold_quant`: w4a8 bitwise,
-    weight-only within K8_WO_REL), every call through int4_decode.cu
-    (`int4_matmul.decode_launches`) and none through int4_fwd.cu."""
+def check_decode_routes(torch, qm, worst):
+    """The decode routes (x of at most DECODE_MAX_M rows) of K3 and K7
+    (csrc/int8_decode.cu) and of K8's two branches (csrc/int4_decode.cu)
+    at every DECODE_SHAPES entry, at M 1 and 64 of the wq shape and at the
+    tp-split shapes of phase 16 (TP_DECODE_SHAPES): each called twice (the
+    same bits both times) and held against its plain version (`hold_quant`:
+    K3, K7 and K8 w4a8 bitwise, K8 weight-only within K8_WO_REL), every
+    call counted on its decode route (`decode_launches`) and none on the
+    routes of more rows."""
     cases = list(DECODE_SHAPES.items()) + [
         ("decode M 1", (1, 4096, 4096)),
-        ("decode M 64", (qm.DECODE_MAX_M, 4096, 4096))]
+        ("decode M 64", (qm.DECODE_MAX_M, 4096, 4096)),
+        *TP_DECODE_SHAPES.items()]
+    wrappers = (qm.int8_fwd, qm.grouped_matmul, qm.int4_matmul)
     for i, (name, (m, k, n)) in enumerate(cases):
-        x, kq4, sg, _ = int4_inputs(torch, m, k, n, 460 + i)
-        if m == 1:                       # int4_inputs zeroes row m // 2
-            gen = torch.Generator(device="cuda").manual_seed(470 + i)
-            x = torch.randn(1, k, device="cuda", generator=gen).to(
+        x, kq, scale, sg, _ = quant_inputs(torch, m, k, n, 460 + i)
+        x4, kq4, sg4, _ = int4_inputs(torch, m, k, n, 480 + i)
+        if m == 1:                       # the inputs zero row m // 2
+            gen = torch.Generator(device="cuda").manual_seed(500 + i)
+            x = x4 = torch.randn(1, k, device="cuda", generator=gen).to(
                 torch.bfloat16)
-        before = (qm.int4_matmul.launches, qm.int4_matmul.decode_launches)
+        before = [(f.launches, f.decode_launches) for f in wrappers]
         msg = []
-        for kern in ("k8a", "k8w"):
+        for kern, a, w, s in (("k3", x, kq, scale), ("k7", x, kq, sg),
+                              ("k8a", x4, kq4, sg4), ("k8w", x4, kq4, sg4)):
             call = quant_call(qm, kern, False)
-            first, second = call(x, kq4, sg, None), call(x, kq4, sg, None)
+            first, second = call(a, w, s, None), call(a, w, s, None)
             torch.cuda.synchronize()
             again = unequal(torch, first, second)
             if again:
                 raise AssertionError(f"{kern.upper()} decode at {name}: two "
                                      f"calls differ in {again} elements")
-            msg.append(hold_quant(torch, qm, kern, x, kq4, sg, worst))
-        after = (qm.int4_matmul.launches, qm.int4_matmul.decode_launches)
-        if after != (before[0], before[1] + 6):
-            raise AssertionError(f"K8 decode at {name}: launches {before} -> "
-                                 f"{after}, want 6 decode and no int4_fwd")
-        print(f"quant {name} (M {m}, K {k}, N {n}), decode route: "
+            msg.append(hold_quant(torch, qm, kern, a, w, s, worst))
+        after = [(f.launches, f.decode_launches) for f in wrappers]
+        want = [(l, d + c) for (l, d), c in zip(before, (3, 3, 6))]
+        if after != want:
+            raise AssertionError(f"decode routes at {name}: launches "
+                                 f"{before} -> {after}, want {want}")
+        print(f"quant {name} (M {m}, K {k}, N {n}), decode routes: "
               + ", ".join(msg) + "; two calls bit for bit equal", flush=True)
 
 
@@ -1977,6 +2004,12 @@ def print_quant_time(kern, name, m, k, n, t):
           f"{t['plain_host_us']:.1f} us", flush=True)
 
 
+def decode_row(t):
+    """K3's timing at a decode shape with bf16 `F.linear` as its library
+    call: the kernels line's yardstick for the decode routes."""
+    return {**t, "library_ms": t["linear_ms"]}
+
+
 def time_decode_shape(torch, qm, m, k, n):
     """K3, K7 and K8's two branches at one decode shape (M = the batch's
     rows): kernel and plain version (`timed`), the bound (at M 32 the
@@ -2036,11 +2069,12 @@ def attention_counters(fa):
 
 
 class DecodeCount:
-    """`int4_matmul.decode_launches` as a `launches` counter: K8's decode
-    route (csrc/int4_decode.cu), counted apart from int4_fwd.cu's."""
+    """A wrapper's `decode_launches` as a `launches` counter: the decode
+    route of K3, K7 or K8 (csrc/int8_decode.cu, csrc/int4_decode.cu),
+    counted apart from the route of more rows."""
 
-    def __init__(self, qm):
-        self.fn = qm.int4_matmul
+    def __init__(self, fn):
+        self.fn = fn
 
     @property
     def launches(self):
@@ -2053,10 +2087,14 @@ class DecodeCount:
 
 def counters(fa, qm):
     """Every kernel's wrapper, whose `launches` the main paths are read by:
-    "k8" counts int4_fwd.cu's launches, "k8d" K8's decode route's."""
+    "k3", "k7" and "k8" count the launches of int8_fwd.cu,
+    int8_grouped_fwd.cu and int4_fwd.cu, "k3d", "k7d" and "k8d" those of
+    the decode routes."""
     return {**attention_counters(fa),
-            "k3": qm.int8_fwd, "k7": qm.grouped_matmul, "k4": qm.quant_dx,
-            "k8": qm.int4_matmul, "k8d": DecodeCount(qm), "k9": qm.int4_dx,
+            "k3": qm.int8_fwd, "k3d": DecodeCount(qm.int8_fwd),
+            "k7": qm.grouped_matmul, "k7d": DecodeCount(qm.grouped_matmul),
+            "k4": qm.quant_dx, "k8": qm.int4_matmul,
+            "k8d": DecodeCount(qm.int4_matmul), "k9": qm.int4_dx,
             "k10": qm.int8_dgrad}
 
 
@@ -2088,20 +2126,24 @@ def per_update(quantize, blocks, streaming=False, policy="full"):
     backward launches K4 or K9 once each. At 7B width every block matmul
     passes K8's shape guard (model/int4.py). The LM head is weight-only (no
     kernel), chunked or not. A block backward runs K2 once, or K6a and K6b
-    once each in the streaming regime. K8's calls on the adapter rows
-    (ADAPTER_LEN of them, at most DECODE_MAX_M) take its decode route
-    ("k8d"), those on the stacked rows int4_fwd.cu ("k8")."""
+    once each in the streaming regime. The calls on the adapter rows
+    (ADAPTER_LEN of them, at most DECODE_MAX_M) take the decode routes
+    ("k3d", "k7d", "k8d"), those on the stacked rows int8_fwd.cu,
+    int8_grouped_fwd.cu and int4_fwd.cu ("k3", "k7", "k8")."""
     fwd = 2 * blocks
     attn = blocks if policy == "qkv" else fwd
     grouped = quantize in ("w8a8g", "w8a8o")
     int4 = quantize in INT4_MODES
+    channel = quantize in PER_CHANNEL_W8A8
     return {"k1": 0 if streaming else attn,
             "k2": 0 if streaming else blocks,
             "k5": attn if streaming else 0,
             "k6a": blocks if streaming else 0,
             "k6b": blocks if streaming else 0,
-            "k3": 9 * fwd if quantize in PER_CHANNEL_W8A8 else 0,
-            "k7": 9 * fwd if grouped else 0,
+            "k3": 7 * fwd if channel else 0,
+            "k3d": 2 * fwd if channel else 0,
+            "k7": 7 * fwd if grouped else 0,
+            "k7d": 2 * fwd if grouped else 0,
             "k4": 9 * blocks if grouped else 0,
             "k8": 7 * fwd if int4 else 0,
             "k8d": 2 * fwd if int4 else 0,
@@ -2324,13 +2366,12 @@ def eval_per_batch(quantize, blocks, long=False):
     prefill and its chunk extend each run every block once; K1 runs in the
     prefill only (K5 at S > MAX_SEQ_FWD = 4096: `long`), and each pass has
     9 quantized matmuls per block (K3 under w8a8, K8 under w4a8: the 2 on
-    the adapter rows by its decode route)."""
-    counts = {k: 0 for k in ("k2", "k6a", "k6b", "k3", "k7", "k4", "k8",
-                             "k8d", "k9", "k10")}
-    if quantize in INT4_MODES:
-        counts["k8"], counts["k8d"] = 14 * blocks, 4 * blocks
-    elif quantize != "none":
-        counts[forward_kernel(quantize)] = 18 * blocks
+    the adapter rows by their decode routes)."""
+    counts = {k: 0 for k in ("k2", "k6a", "k6b", "k3", "k3d", "k7", "k7d",
+                             "k4", "k8", "k8d", "k9", "k10")}
+    if quantize != "none":
+        kern = forward_kernel(quantize)
+        counts[kern], counts[kern + "d"] = 14 * blocks, 4 * blocks
     return {"k1": 0 if long else blocks, "k5": blocks if long else 0,
             **counts}
 
@@ -2440,19 +2481,18 @@ def gen_per_batch(quantize, blocks, long=False):
     and each of the MAX_NEW_TOKENS - 1 decode steps every block once on one
     token a row (plain decode attention, no attention kernel); each of
     those passes has 9 quantized matmuls a block (wq, wk, wv, wo, w1, w3,
-    w2 and the adapter rows' wk, wv: K3 under w8a8, K8 under w4a8 and int4,
-    whose decode route takes every call of at most DECODE_MAX_M rows: the
-    adapter rows' in the prefill and all 9 of each decode step); the LM
-    head is weight-only."""
+    w2 and the adapter rows' wk, wv: K3 under w8a8, K7 under w8a8g, K8 under
+    w4a8 and int4, whose decode routes take every call of at most
+    DECODE_MAX_M rows: the adapter rows' in the prefill and all 9 of each
+    decode step); the LM head is weight-only."""
     from flipped_tpu_torch.train.generation import MAX_NEW_TOKENS
 
-    counts = {k: 0 for k in ("k2", "k6a", "k6b", "k3", "k7", "k4", "k8",
-                             "k8d", "k9", "k10")}
-    if quantize in INT4_MODES:
-        counts["k8"] = 7 * blocks
-        counts["k8d"] = 2 * blocks + 9 * blocks * (MAX_NEW_TOKENS - 1)
-    elif quantize != "none":
-        counts[forward_kernel(quantize)] = 9 * blocks * MAX_NEW_TOKENS
+    counts = {k: 0 for k in ("k2", "k6a", "k6b", "k3", "k3d", "k7", "k7d",
+                             "k4", "k8", "k8d", "k9", "k10")}
+    if quantize != "none":
+        kern = forward_kernel(quantize)
+        counts[kern] = 7 * blocks
+        counts[kern + "d"] = 2 * blocks + 9 * blocks * (MAX_NEW_TOKENS - 1)
     return {"k1": 0 if long else blocks, "k5": blocks if long else 0,
             **counts}
 
@@ -4519,7 +4559,7 @@ def main() -> int:
     matmul.allow_bf16_reduced_precision_reduction = False
     quant_err = {k: 0.0 for k in QUANT_ERR_KEYS}
     check_quant(torch, qm, quant_err)
-    check_k8_decode(torch, qm, quant_err)
+    check_decode_routes(torch, qm, quant_err)
     check_quant_autograd(torch, qm, q8)
     check_int4_dgrad_autograd(torch, qm, q4, q8)
 
@@ -4676,6 +4716,12 @@ def main() -> int:
             ("int4_fwd (int4 weight-only)", K8_SOURCE, K8_REPLACES,
              launches["int4"]["k8"], quant_err["k8w"],
              quant_times["k8w"][QUANT_ROW_SHAPE]),
+            ("int8_decode (K3)", K37D_SOURCE, K3_REPLACES,
+             gen_launches["w8a8"]["k3d"], quant_err["k3d"],
+             decode_row(quant_times["k3"][DECODE_ROW_SHAPE])),
+            ("int8_grouped_decode (K7)", K37D_SOURCE, K7_REPLACES,
+             gen_launches["w8a8g"]["k7d"], quant_err["k7d"],
+             quant_times["k7"][DECODE_ROW_SHAPE]),
             ("int4_decode (w4a8)", K8D_SOURCE, K8_REPLACES,
              gen_launches["w4a8"]["k8d"], quant_err["k8ad"],
              quant_times["k8a"][DECODE_ROW_SHAPE]),

@@ -1,5 +1,6 @@
-"""Time K1, K2, K3, K5, K6a, K6b, K7, K4, K8 (both branches, both routes),
-K9 and K10 of this checkout and another on one card, in turns.
+"""Time K1, K2, K3 and K7 (both routes), K5, K6a, K6b, K4, K8 (both
+branches, both routes), K9 and K10 of this checkout and another on one
+card, in turns.
 
     python -m flipped_tpu_torch.cli.ab_kernels <other checkout>
 
@@ -10,16 +11,18 @@ at the training shape (B 24, S 128), K5 at the long training shape
 (`LONG_SHAPE`, B 3, S 4096) and K6a, K6b there on K5's lse and D, then
 K3, K7, K4, K8 (w4a8 "k8a", weight-only "k8w"), K9 and K10 at the three
 3072-row 7B shapes, K3 and K8 w4a8 at the eval's w1/w3 shapes
-(`K3_EVAL`), and K8 (both branches) at generation's decode shapes
-(`DECODE`: 32 rows through the three block shapes, 10 adapter rows; and
-1, 64, 65 and 128 rows at 4096 -> 4096, around the decode route's limit),
+(`K3_EVAL`), and K3, K7 and K8 (both branches) at generation's decode
+shapes (`DECODE`: 32 rows through the three block shapes, 10 adapter rows;
+and 1, 64, 65 and 128 rows at 4096 -> 4096, around the decode routes'
+limit),
 with that checkout's `chip_smoke.py` (`k1_inputs`, `k2_inputs`,
 `stream_inputs`, `quant_inputs`, `int4_inputs`, `device_ms`); the two launches of K3, K7, K8 w4a8 and K10 are also timed
 apart ("k3 quantize", "k3 gemm", and so on for "k7", "k8a" and "k10":
 device time by kernel name under torch.profiler, the names with
 "quantize" the first: K3's int8_fwd_quantize_kernel, K7's and K8's
 quantize_rows_kernel, K10's int8_dgrad_quantize_kernel; at the decode
-shapes K8 w4a8's too). Prints
+shapes K3's, K7's and K8 w4a8's too: K3's decode route's is
+int8_decode_quantize_kernel). Prints
 the card's name and power limit, then one JSON line per turn: device ms
 by shape and kernel, and under "clocks" the SM clock and power draw that
 nvidia-smi reads right before and right after each kernel's timing, so
@@ -39,8 +42,8 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SHAPES = ("wq/wk/wv/wo", "w1/w3", "w2")
-# generation's K8 calls, and the wq shape on both sides of K8's decode
-# route's limit (quant_matmul.DECODE_MAX_M, 64 rows): (M, K, N)
+# generation's K3, K7 and K8 calls, and the wq shape on both sides of the
+# decode routes' limit (quant_matmul.DECODE_MAX_M, 64 rows): (M, K, N)
 DECODE = {"decode wq/wk/wv/wo": (32, 4096, 4096),
           "decode w1/w3": (32, 4096, 11008),
           "decode w2": (32, 11008, 4096),
@@ -154,12 +157,16 @@ def time_checkout(root: str) -> dict:
             out[name][kern] = timed(f"{name} {kern}", call)
             out[name].update(launch_split(torch, kern, call))
     for name, (m, k, n) in DECODE.items():
+        x, kq, scale, sg, _ = cs.quant_inputs(torch, m, k, n, 400)
         x4, kq4, sg4, _ = cs.int4_inputs(torch, m, k, n, 410)
-        calls = {"k8a": lambda: qm.int4_matmul(x4, kq4, sg4, True),
+        calls = {"k3": lambda: qm.int8_fwd(x, kq, scale),
+                 "k7": lambda: qm.grouped_matmul(x, kq, sg),
+                 "k8a": lambda: qm.int4_matmul(x4, kq4, sg4, True),
                  "k8w": lambda: qm.int4_matmul(x4, kq4, sg4, False)}
         out[name] = {kern: timed(f"{name} {kern}", call)
                      for kern, call in calls.items()}
-        out[name].update(launch_split(torch, "k8a", calls["k8a"]))
+        for kern in ("k3", "k7", "k8a"):
+            out[name].update(launch_split(torch, kern, calls[kern]))
     out["clocks"] = clocks
     return out
 

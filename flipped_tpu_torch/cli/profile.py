@@ -21,11 +21,12 @@ the peak allocated device memory over the steps without it (the model and
 its weights included), device busy seconds per step (the union of kernel
 intervals) and its share of the profiled window's wall time, kernel
 launches per step, device time by kernel class (bf16 and f32 GEMMs, the
-port's flash kernels K1/K2 and the streaming K5/K6, its int8 GEMMs K3/K7,
-its quantized dx K4, K8's GEMMs (int4_fwd.cu's two and the decode
-route's int4_decode.cu), K9, K10's quantize pass and GEMM, other), and the
-top kernels by device time. The activation quantize
-pass that K7 and K8's w4a8 branch share counts in the K3/K7 class.
+port's flash kernels K1/K2 and the streaming K5/K6, its int8 GEMMs K3/K7
+(both routes: int8_fwd.cu and int8_grouped_fwd.cu, and the decode routes'
+int8_decode.cu), its quantized dx K4, K8's GEMMs (int4_fwd.cu's two and
+the decode route's int4_decode.cu), K9, K10's quantize pass and GEMM,
+other), and the top kernels by device time. The activation quantize pass
+that K7 and K8's w4a8 branch share counts in the K3/K7 class.
 `--quantize` builds the model it names, as the CLIs do, and the audio
 flags (`--audio --audio_merge ...`, `--audio --audio_only`) the merge
 they name, its batch read from the data root's audio features as the
@@ -64,8 +65,10 @@ def kernel_class(name: str) -> str:
         return "flash (K1/K2)"
     # before "gemm": K3 is int8_fwd_quantize_kernel and int8_fwd_wgmma_kernel,
     # K7 int8_grouped_wgmma_kernel and the grouped quantize pass (which K8's
-    # w4a8 branch runs too)
-    if ("int8_fwd" in low or "int8_grouped" in low
+    # w4a8 branch runs too); their decode routes int8_decode.cu's kernels
+    # (int8_decode_kernel, int8_decode_quantize_kernel,
+    # int8_grouped_decode_kernel)
+    if ("int8_fwd" in low or "int8_grouped" in low or "int8_decode" in low
             or "quantize_rows" in low):
         return "int8 GEMM (K3/K7)"
     if "quant_dx" in low:

@@ -1,10 +1,11 @@
 // Hopper building blocks shared by the TMA-fed wgmma kernels (K3 in
-// int8_fwd.cu, K7 in int8_grouped_fwd.cu, K8 in int4_fwd.cu, K10's GEMM in
+// int8_fwd.cu, K7 in int8_grouped_fwd.cu, their decode routes in
+// int8_decode.cu, K8 in int4_fwd.cu and int4_decode.cu, K10's GEMM in
 // wgmma_int8.cuh, K4 and K9 in dx_wgmma.cuh, K1 and K5 in
 // flash_fwd_wgmma.cuh, K2, K6a and K6b in flash_bwd_wgmma.cuh): mbarriers,
 // TMA tile loads, shared-memory matrix descriptors, the wgmma forms and
-// fences, the int4 dequantize into register operands, the host-side
-// tensor-map encoders and the shared-memory opt-in.
+// fences, named barriers, the int4 dequantize into register operands, the
+// host-side tensor-map encoders and the shared-memory opt-in.
 //
 // The tensor maps are built on the host per call with
 // cuTensorMapEncodeTiled, looked up at run time through
@@ -96,6 +97,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The same for one box of a 3-D tensor map at (c0 innermost, c1, c2) (the
+// decode routes, int4_decode.cu and int8_decode.cu: a stage's two 128-deep
+// chunks in one box).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -806,6 +821,16 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// Named barriers over two consumer warpgroups (256 threads) handing values
+// from one to the other (the decode routes' group folds, int4_decode.cu
+// and int8_decode.cu): the warpgroup that waits syncs, the other arrives.
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
 // Keeps the compiler from moving reads of an accumulator register across
 // the wgmma wait before it (the asm "writes" the register).
 __device__ __forceinline__ void fence_operand(float& r) {
@@ -934,6 +959,29 @@ inline cudaError_t make_map_2d(CUtensorMap* map, const void* base,
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t estr[2] = {1, 1};
   const CUresult r = fn(map, dtype, 2, const_cast<void*>(base), dims, strides,
+                        box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 3-D tensor map over global memory with dims (d0 innermost, d1, d2),
+// byte strides s1, s2 (multiples of 16, in any order) and boxes of (b0,
+// b1, b2).
+inline cudaError_t make_map_3d(CUtensorMap* map, const void* base,
+                               CUtensorMapDataType dtype, uint64_t d0,
+                               uint64_t d1, uint64_t d2, uint64_t s1,
+                               uint64_t s2, uint32_t b0, uint32_t b1,
+                               uint32_t b2, CUtensorMapSwizzle swizzle) {
+  const cudaError_t err = current_context();
+  if (err != cudaSuccess) return err;
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {b0, b1, b2};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, dtype, 3, const_cast<void*>(base), dims, strides,
                         box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -436,29 +436,7 @@ __device__ __forceinline__ float small_i2f(int d) {
   return __fsub_rn(__int_as_float(0x4B400000 + d), 12582912.f);
 }
 
-// One box of a 3-D tensor map at (c0 innermost, c1, c2) into shared memory,
-// its bytes completing a transaction on `bar`; elements outside the tensor
-// come in as zeros.
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(hopper::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(hopper::smem_addr(bar)),
-      "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// named barriers over the two consumer warpgroups (256 threads): the one
-// that waits syncs, the other arrives
-__device__ __forceinline__ void bar_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-// ids: 1 + b (slot b full), 3 + b (slot b empty)
+// named barrier ids: 1 + b (exchange slot b full), 3 + b (slot b empty)
 constexpr int BAR_FULL = 1, BAR_EMPTY = 3;
 
 // A consumer warpgroup (wg) of the steps (groups) [g_begin, g_end) of the
@@ -545,22 +523,22 @@ __device__ __forceinline__ void dec_consume(
     }
     if (DUAL && A8 && wg == 1) {
       const int b = l & 1;
-      if (l >= 2) bar_sync(BAR_EMPTY + b);
+      if (l >= 2) hopper::bar_sync(BAR_EMPTY + b);
 #pragma unroll
       for (int r = 0; r < NR; ++r) xch[(b * NR + r) * 128 + tid] = term[r];
-      bar_arrive(BAR_FULL + b);
+      hopper::bar_arrive(BAR_FULL + b);
       return;
     }
 #pragma unroll
     for (int r = 0; r < NR; ++r) acc[r] = __fadd_rn(acc[r], term[r]);
     if (DUAL && A8 && i + 1 < nk) {
       const int b = l & 1;
-      bar_sync(BAR_FULL + b);
+      hopper::bar_sync(BAR_FULL + b);
 #pragma unroll
       for (int r = 0; r < NR; ++r) {
         acc[r] = __fadd_rn(acc[r], xch[(b * NR + r) * 128 + tid]);
       }
-      if (l + 2 < n1) bar_arrive(BAR_EMPTY + b);
+      if (l + 2 < n1) hopper::bar_arrive(BAR_EMPTY + b);
     }
   };
   auto absorb = [&](Acc (&d)[NR], int l) {
@@ -690,9 +668,9 @@ __device__ __forceinline__ void dec_consume(
       if (wg == 1) {
 #pragma unroll
         for (int r = 0; r < NR; ++r) xch[r * 128 + tid] = acc[r];
-        bar_arrive(BAR_FULL);
+        hopper::bar_arrive(BAR_FULL);
       } else if (n1 > 0) {
-        bar_sync(BAR_FULL);
+        hopper::bar_sync(BAR_FULL);
 #pragma unroll
         for (int r = 0; r < NR; ++r) {
           acc[r] = __fadd_rn(acc[r], xch[r * 128 + tid]);
@@ -793,10 +771,10 @@ int4_decode_kernel(const __grid_constant__ CUtensorMap x_map,
         const int kb = g_begin + 2 * i;              // the first step
         float* aux = reinterpret_cast<float*>(st + C::AUX);
         hopper::mbar_arrive_expect_tx(&full[s], C::TX_BYTES);
-        tma_load_3d(st, &x_map, &full[s], 0, 0,
-                    kb * (A8 ? 1 : 2));              // x's chunk index
-        tma_load_3d(st + C::X_BYTES, &w_map, &full[s], 0, j0, kb);
-        tma_load_3d(aux, &s_map, &full[s], j0, 0, kb);
+        hopper::tma_load_3d(st, &x_map, &full[s], 0, 0,
+                            kb * (A8 ? 1 : 2));      // x's chunk index
+        hopper::tma_load_3d(st + C::X_BYTES, &w_map, &full[s], 0, j0, kb);
+        hopper::tma_load_3d(aux, &s_map, &full[s], j0, 0, kb);
         if constexpr (A8) hopper::tma_load_2d(aux + 128, &xs_map, &full[s], 0, kb);
       }
     }
@@ -852,30 +830,6 @@ int rows_rounded(int M) {
   return M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : 64;
 }
 
-// A 3-D tensor map over global memory with dims (d0 innermost, d1, d2) of
-// `elem`-byte elements, byte strides s1, s2 (multiples of 16, in any
-// order) and boxes of (b0, b1, b2).
-cudaError_t make_map_3d(CUtensorMap* map, const void* base,
-                        CUtensorMapDataType dtype, int elem, uint64_t d0,
-                        uint64_t d1, uint64_t d2, uint64_t s1, uint64_t s2,
-                        uint32_t b0, uint32_t b1, uint32_t b2,
-                        CUtensorMapSwizzle swizzle) {
-  cudaError_t err = hopper::current_context();
-  if (err != cudaSuccess) return err;
-  hopper::EncodeTiledFn fn = hopper::encode_tiled_fn();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {s1, s2};
-  const cuuint32_t box[3] = {b0, b1, b2};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  (void)elem;
-  const CUresult r = fn(map, dtype, 3, const_cast<void*>(base), dims, strides,
-                        box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // K8 for x of 1 to 64 rows. xq (M, K) int8 and xs (K / group, M rounded up
@@ -908,22 +862,25 @@ extern "C" int int4_decode(const void* x, const void* kq4,
   CUtensorMap maps[4];
   if (err == cudaSuccess) {
     err = act_quant
-              ? make_map_3d(&maps[0], xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
-                            128, M, K / 128, K, 128, 128, mp, 2,
-                            CU_TENSOR_MAP_SWIZZLE_128B)
-              : make_map_3d(&maps[0], x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                            64, M, K / 64, 2ull * K, 128, 64, mp, 4,
-                            CU_TENSOR_MAP_SWIZZLE_128B);
+              ? hopper::make_map_3d(&maps[0], xq,
+                                    CU_TENSOR_MAP_DATA_TYPE_UINT8, 128, M,
+                                    K / 128, K, 128, 128, mp, 2,
+                                    CU_TENSOR_MAP_SWIZZLE_128B)
+              : hopper::make_map_3d(&maps[0], x,
+                                    CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 64, M,
+                                    K / 64, 2ull * K, 128, 64, mp, 4,
+                                    CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (err == cudaSuccess) {
-    err = make_map_3d(&maps[1], kq4, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 128, nh,
-                      K / 128, K, 128, 128, DEC_P, 2,
-                      CU_TENSOR_MAP_SWIZZLE_128B);
+    err = hopper::make_map_3d(&maps[1], kq4, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                              128, nh, K / 128, K, 128, 128, DEC_P, 2,
+                              CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (err == cudaSuccess) {
-    err = make_map_3d(&maps[2], scale_g, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                      nh, 2, groups, 4ull * nh, 4ull * N, DEC_P, 2, 2,
-                      CU_TENSOR_MAP_SWIZZLE_NONE);
+    err = hopper::make_map_3d(&maps[2], scale_g,
+                              CU_TENSOR_MAP_DATA_TYPE_FLOAT32, nh, 2, groups,
+                              4ull * nh, 4ull * N, DEC_P, 2, 2,
+                              CU_TENSOR_MAP_SWIZZLE_NONE);
   }
   maps[3] = maps[2];
   if (err == cudaSuccess && act_quant) {

@@ -7,7 +7,9 @@
 | K6a flash_stream_dq | flipped_tpu/model/pallas/flash_attention.py:484 | csrc/flash_stream_bwd.cu | flash_attention.flash_streaming_dq |
 | K6b flash_stream_dkv | flipped_tpu/model/pallas/flash_attention.py:535 | csrc/flash_stream_bwd.cu | flash_attention.flash_streaming_dkv |
 | K3 int8_fwd | flipped_tpu/model/pallas/quant_matmul.py:603 | csrc/int8_fwd.cu | quant_matmul.int8_fwd |
+| K3 int8_decode (x of at most 64 rows) | flipped_tpu/model/pallas/quant_matmul.py:603 | csrc/int8_decode.cu | quant_matmul.int8_fwd |
 | K7 int8_grouped_fwd | flipped_tpu/model/pallas/quant_matmul.py:55 | csrc/int8_grouped_fwd.cu | quant_matmul.grouped_matmul |
+| K7 int8_grouped_decode (x of at most 64 rows) | flipped_tpu/model/pallas/quant_matmul.py:55 | csrc/int8_decode.cu | quant_matmul.grouped_matmul |
 | K4 quant_dx | flipped_tpu/model/pallas/quant_matmul.py:316 | csrc/quant_dx.cu | quant_matmul.quant_dx |
 | K8 int4_fwd | flipped_tpu/model/pallas/quant_matmul.py:160 | csrc/int4_fwd.cu | quant_matmul.int4_matmul |
 | K8 int4_decode (x of at most 64 rows) | flipped_tpu/model/pallas/quant_matmul.py:160 | csrc/int4_decode.cu | quant_matmul.int4_matmul |

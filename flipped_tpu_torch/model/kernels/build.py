@@ -86,12 +86,17 @@ class KernelLibrary:
             + [ctypes.c_float]                         # scale
             + [ctypes.c_void_p] * 2)   # the stream's item counter, stream
         self.lib.flash_stream_dkv.restype = ctypes.c_int
-        for fn in ("int8_fwd", "int8_grouped_fwd"):
+        for fn in ("int8_fwd", "int8_grouped_fwd", "int8_grouped_decode"):
             getattr(self.lib, fn).argtypes = (
                 [ctypes.c_void_p] * 6         # x kq scale xq xs out
                 + [ctypes.c_int] * 3          # M N K
                 + [ctypes.c_void_p])          # stream
             getattr(self.lib, fn).restype = ctypes.c_int
+        self.lib.int8_decode.argtypes = (
+            [ctypes.c_void_p] * 6             # x kq scale xq xs out
+            + [ctypes.c_int] * 4              # M N K runs
+            + [ctypes.c_void_p])              # stream
+        self.lib.int8_decode.restype = ctypes.c_int
         self.lib.quant_dx.argtypes = (
             [ctypes.c_void_p] * 4             # g kq scale_g dx
             + [ctypes.c_int] * 3              # M N K

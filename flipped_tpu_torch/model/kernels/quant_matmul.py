@@ -2,11 +2,14 @@
 
 - K3 `int8_fwd` replaces the TPU kernel `int8_fwd_pallas` → `_fwd_kernel`
   (flipped_tpu/model/pallas/quant_matmul.py:603-698); CUDA source
-  csrc/int8_fwd.cu. Per-row absmax round-to-nearest-even quantize of x
-  (scale amax·float32(1/127), a reciprocal multiply), int8×int8→int32,
-  then (d·xs)·scale rounded to x.dtype: the w8a8 per-channel forward.
+  csrc/int8_fwd.cu, and csrc/int8_decode.cu for x of at most DECODE_MAX_M
+  rows (generation's decode steps, the adapter prefix). Per-row absmax
+  round-to-nearest-even quantize of x (scale amax·float32(1/127), a
+  reciprocal multiply), int8×int8→int32, then (d·xs)·scale rounded to
+  x.dtype: the w8a8 per-channel forward.
 - K7 `grouped_matmul` replaces `grouped_matmul_pallas` → `_kernel`
-  (:55-145); CUDA source csrc/int8_grouped_fwd.cu. Per-(row, 128-group)
+  (:55-145); CUDA source csrc/int8_grouped_fwd.cu, and csrc/int8_decode.cu
+  for x of at most DECODE_MAX_M rows. Per-(row, 128-group)
   quantize with scale amax/127 (a division), one int32 dot per group and
   an f32 sum Σ_g (d_g·xs_g)·s_g taken over the groups in order: the
   w8a8g/w8a8o forward.
@@ -40,9 +43,11 @@ For each wrapper:
   `quant_dx_ref`, `int4_matmul_ref`, `int4_dx_ref`, `int8_dgrad_ref`), which
   is what the CPU tests hold against the JAX package;
 - `<wrapper>.launches` counts kernel launches; only the CUDA branch adds
-  to it. `int4_matmul` counts its two routes apart: `launches` the calls
-  that launch int4_fwd.cu's kernels, `decode_launches` those that launch
-  int4_decode.cu's.
+  to it. `int8_fwd`, `grouped_matmul` and `int4_matmul` count their two
+  routes apart (`takes_decode_route`): `launches` the calls that launch
+  the kernels of more rows (int8_fwd.cu, int8_grouped_fwd.cu,
+  int4_fwd.cu), `decode_launches` those that launch the decode route's
+  (int8_decode.cu, int4_decode.cu).
 
 The plain versions compute each int8 dot exactly, as a float64 product of
 integers (|Σ| ≤ 127²·K < 2^53; an f32 sum is not exact above K ≈ 1040), so
@@ -61,12 +66,19 @@ EPS = 1e-8                    # scale floor: all-zero rows quantize to 0
 INV127 = float.fromhex("0x1.020408p-7")  # float32(1/127), exact in f32
 GROUP = 128                   # the group width K7 and K4 are built for
 MASK32 = 0xFFFFFFFF
-# K8 takes its decode route (csrc/int4_decode.cu) up to this many rows of x
-# (at the model's group of 128; other groups take int4_fwd.cu)
+# K3, K7 and K8 take their decode routes (csrc/int8_decode.cu,
+# csrc/int4_decode.cu) up to this many rows of x (K8 at the model's group
+# of 128; other groups take int4_fwd.cu)
 DECODE_MAX_M = 64
-# the weight-only decode route splits the groups into runs until its
-# 64-column tiles times the runs reach this many blocks (the H100's SMs)
+# K3's and K8 weight-only's decode routes cut the contraction into runs
+# until their 64-column tiles times the runs reach this many blocks (the
+# H100's SMs)
 DECODE_FILL = 132
+# K3's decode route: the contraction of one of its pipeline stages, the
+# least a run takes, and the most runs (a tile's runs are one thread-block
+# cluster, at most the portable cluster size)
+DECODE_STAGE = 256
+DECODE_MAX_RUNS = 8
 
 
 def _lead(x: torch.Tensor):
@@ -299,9 +311,27 @@ def _device_ok(name, t):
                          f"{t.device}")
 
 
+def takes_decode_route(m: int, group: int = GROUP) -> bool:
+    """Whether a call of x with m rows (grouped scales of width `group`)
+    takes the decode route of K3, K7 or K8: at most DECODE_MAX_M rows, at
+    group 128 (K3 has no groups)."""
+    return m <= DECODE_MAX_M and group == GROUP
+
+
+def int8_decode_splits(n: int, k: int) -> int:
+    """Runs K3's decode route cuts the contraction into, each a block: as
+    many as bring its 64-column tiles times the runs to DECODE_FILL blocks,
+    at most one a DECODE_STAGE-deep stage of K and at most DECODE_MAX_RUNS
+    (its int32 sums are exact in any order)."""
+    tiles = -(-n // 64)
+    return max(1, min(-(-k // DECODE_STAGE), DECODE_MAX_RUNS,
+                      DECODE_FILL // tiles))
+
+
 def int8_fwd(x, kq, scale):
     """K3, w8a8 per-channel forward: x (..., K), kq (N, K) int8, scale (N,)
-    f32 → (..., N) in x.dtype."""
+    f32 → (..., N) in x.dtype. x of at most DECODE_MAX_M rows takes the
+    decode route."""
     if x.device.type == "cpu":
         return int8_fwd_ref(x, kq, scale)
     _device_ok("int8_fwd", x)
@@ -313,19 +343,27 @@ def int8_fwd(x, kq, scale):
     xs = torch.empty((m,), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
-        _launch("int8_fwd", x2.data_ptr(), kq.data_ptr(),
-                scale.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-                out.data_ptr(), m, n, k)
-    int8_fwd.launches += 1
+        if takes_decode_route(m):
+            _launch("int8_decode", x2.data_ptr(), kq.data_ptr(),
+                    scale.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+                    out.data_ptr(), m, n, k, int8_decode_splits(n, k))
+            int8_fwd.decode_launches += 1
+        else:
+            _launch("int8_fwd", x2.data_ptr(), kq.data_ptr(),
+                    scale.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+                    out.data_ptr(), m, n, k)
+            int8_fwd.launches += 1
     return out.reshape(*lead, n)
 
 
 int8_fwd.launches = 0
+int8_fwd.decode_launches = 0
 
 
 def grouped_matmul(x, kq, scale_g):
     """K7, w8a8 grouped forward: x (..., K), kq (N, K) int8, scale_g
-    (K/128, N) f32 → (..., N) in x.dtype."""
+    (K/128, N) f32 → (..., N) in x.dtype. x of at most DECODE_MAX_M rows
+    takes the decode route."""
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, kq, scale_g)
     _device_ok("grouped_matmul", x)
@@ -339,15 +377,20 @@ def grouped_matmul(x, kq, scale_g):
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     xs = _row_scales(m, k // GROUP, x.device)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    decode = takes_decode_route(m)
     with torch.cuda.device(x.device):
-        _launch("int8_grouped_fwd", x2.data_ptr(), kq.data_ptr(),
-                scale_g.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-                out.data_ptr(), m, n, k)
-    grouped_matmul.launches += 1
+        _launch("int8_grouped_decode" if decode else "int8_grouped_fwd",
+                x2.data_ptr(), kq.data_ptr(), scale_g.data_ptr(),
+                xq.data_ptr(), xs.data_ptr(), out.data_ptr(), m, n, k)
+    if decode:
+        grouped_matmul.decode_launches += 1
+    else:
+        grouped_matmul.launches += 1
     return out.reshape(*lead, n)
 
 
 grouped_matmul.launches = 0
+grouped_matmul.decode_launches = 0
 
 
 def quant_dx(g, kq, scale_g):
@@ -435,7 +478,7 @@ def int4_matmul(x, kq4, scale_g, act_quant: bool):
         xq = xs = x2                  # unused by the weight-only branch
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
-        if m <= DECODE_MAX_M and group == GROUP:
+        if takes_decode_route(m, group):
             if scale_g.data_ptr() % 16:    # the decode route's TMA needs it
                 scale_g = scale_g.clone()
             splits = decode_splits(n, k, act_quant)

@@ -502,6 +502,21 @@ def _bits(t):
     return torch.where(t == 0, torch.zeros_like(t), t).view(torch.int16)
 
 
+def _routes(wrapper):
+    """(launches of the route of more rows, of the decode route) of K3's,
+    K7's or K8's wrapper."""
+    return wrapper.launches, wrapper.decode_launches
+
+
+def _route_moved(wrapper, before, m, calls, group=128):
+    """`calls` launches of `wrapper` since `before`, all on the route M rows
+    take (`takes_decode_route`: the decode route up to DECODE_MAX_M rows,
+    K8 only at group 128)."""
+    moved = tuple(a - b for a, b in zip(_routes(wrapper), before))
+    decode = qm.takes_decode_route(m, group)
+    return moved == ((0, calls) if decode else (calls, 0))
+
+
 @pytest.mark.parametrize("m,k,n", [(10, 256, 136), (37, 384, 256),
                                    (130, 1024, 520)])
 def test_int8_fwd_and_grouped_bitwise_equal_plain(cuda, m, k, n):
@@ -509,12 +524,12 @@ def test_int8_fwd_and_grouped_bitwise_equal_plain(cuda, m, k, n):
     order on exact integer dots: bit for bit equal (chip_smoke.py states
     why)."""
     x, kq, scale, sg, _ = _quant_inputs(cuda, m, k, n, 3)
-    b3, b7 = qm.int8_fwd.launches, qm.grouped_matmul.launches
+    b3, b7 = _routes(qm.int8_fwd), _routes(qm.grouped_matmul)
     out3 = qm.int8_fwd(x.view(1, m, k), kq, scale)
     out7 = qm.grouped_matmul(x, kq, sg)
     torch.cuda.synchronize()
-    assert (qm.int8_fwd.launches, qm.grouped_matmul.launches) == (b3 + 1,
-                                                                  b7 + 1)
+    assert _route_moved(qm.int8_fwd, b3, m, 1)
+    assert _route_moved(qm.grouped_matmul, b7, m, 1)
     assert out3.shape == (1, m, n)
     assert torch.equal(_bits(out3[0]), _bits(qm.int8_fwd_ref(x, kq, scale)))
     assert torch.equal(_bits(out7), _bits(qm.grouped_matmul_ref(x, kq, sg)))
@@ -559,7 +574,9 @@ def test_quant_autograd_functions_on_card(cuda):
     from flipped_tpu_torch.model import int8 as q8
 
     x, kq, scale, sg, dy = _quant_inputs(cuda, 40, 256, 128, 6)
-    counts = lambda: (qm.int8_fwd.launches, qm.grouped_matmul.launches,
+    # 40 rows: K3 and K7 on their decode routes
+    counts = lambda: (qm.int8_fwd.decode_launches,
+                      qm.grouped_matmul.decode_launches,
                       qm.quant_dx.launches)
     before = counts()
     xa, xb = (x.detach().requires_grad_() for _ in range(2))
@@ -570,6 +587,64 @@ def test_quant_autograd_functions_on_card(cuda):
     w = qm.dequant(kq, scale, torch.bfloat16)
     assert torch.equal(xa.grad, dy @ w)
     assert bool(torch.isfinite(xb.grad).all())
+
+
+# --- the decode routes of K3 and K7 (int8_decode.cu) ---------------------------
+# x of at most DECODE_MAX_M (64) rows, and 65 on the routes of more rows; (K,
+# N): the 7B block shapes, their tp-2 halves (N 2048; K 2048 and 5504), and
+# a contraction that ends part-way through a stage past a ragged 64-column
+# tile (K3 only: K % 128 != 0), and one of 9 groups (an odd count).
+DECODE_ROUTE_M = (1, 10, 32, 63, 64, 65)
+DECODE_ROUTE_KN = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 2048),
+                   (2048, 4096), (5504, 4096), (400, 264), (1152, 136)]
+
+
+@pytest.mark.parametrize("m", DECODE_ROUTE_M)
+@pytest.mark.parametrize("k,n", DECODE_ROUTE_KN)
+def test_int8_decode_routes_bitwise(cuda, m, k, n):
+    """K3 and K7 at the decode route's row counts: bit for bit their plain
+    versions (K3's runs add exact int32 partials; K7 folds the groups in
+    order), two calls on the same inputs bit for bit equal, every launch
+    counted on the route its rows take."""
+    x, kq, scale, sg, _ = _quant_inputs(cuda, m, k, n, 31)
+    x = _edge_rows(x, m)
+    b3, b7 = _routes(qm.int8_fwd), _routes(qm.grouped_matmul)
+    out3 = qm.int8_fwd(x, kq, scale)
+    again3 = qm.int8_fwd(x, kq, scale)
+    calls7 = 0
+    if k % 128 == 0:
+        out7 = qm.grouped_matmul(x, kq, sg)
+        again7 = qm.grouped_matmul(x, kq, sg)
+        calls7 = 2
+    torch.cuda.synchronize()
+    assert _route_moved(qm.int8_fwd, b3, m, 2)
+    assert _route_moved(qm.grouped_matmul, b7, m, calls7)
+    assert torch.equal(_bits(out3), _bits(again3))
+    assert torch.equal(_bits(out3), _bits(qm.int8_fwd_ref(x, kq, scale)))
+    if calls7:
+        assert torch.equal(_bits(out7), _bits(again7))
+        assert torch.equal(_bits(out7),
+                           _bits(qm.grouped_matmul_ref(x, kq, sg)))
+
+
+def test_int8_decode_routes_raise_without_their_kernel(cuda, monkeypatch):
+    """No fallback: where the kernels cannot be built (or a launch fails),
+    K3's and K7's decode routes raise on a CUDA tensor instead of taking the
+    plain version or the route of more rows."""
+    from flipped_tpu_torch.model.kernels import build
+
+    x, kq, scale, sg, _ = _quant_inputs(cuda, 32, 256, 256, 32)
+
+    def no_build(force=False):
+        raise build.KernelBuildError("nvcc not found")
+
+    monkeypatch.setattr(build, "build", no_build)
+    before = _routes(qm.int8_fwd), _routes(qm.grouped_matmul)
+    with pytest.raises(build.KernelBuildError):
+        qm.int8_fwd(x, kq, scale)
+    with pytest.raises(build.KernelBuildError):
+        qm.grouped_matmul(x, kq, sg)
+    assert (_routes(qm.int8_fwd), _routes(qm.grouped_matmul)) == before
 
 
 # --- K8, K9, K10: the packed int4 GEMMs and the w8a8d dgrad -------------------
@@ -599,20 +674,6 @@ def _mma_bound(ref, a, w, terms):
             ) * (1 + 2.0 ** -8)
 
 
-def _k8_routes():
-    """(launches of int4_fwd.cu, of the decode route int4_decode.cu)."""
-    return qm.int4_matmul.launches, qm.int4_matmul.decode_launches
-
-
-def _k8_route_moved(before, m, calls, group=128):
-    """`calls` K8 launches since `before`, all on the route M rows take:
-    the decode route up to DECODE_MAX_M rows at group 128, int4_fwd.cu
-    otherwise."""
-    moved = tuple(a - b for a, b in zip(_k8_routes(), before))
-    decode = m <= qm.DECODE_MAX_M and group == qm.GROUP
-    return moved == ((0, calls) if decode else (calls, 0))
-
-
 # x rows around the decode route (at most DECODE_MAX_M, 64) and past it
 DECODE_M = (1, 10, 32, 64, 65)
 
@@ -632,13 +693,13 @@ def test_int4_matmul_matches_plain(cuda, m, k, n):
     x, codes, kq4, sg, _ = _int4_inputs(cuda, m, k, n, 7)
     if m == 1:                        # _int4_inputs zeroes row m // 2
         x = torch.randn(1, k, device=cuda).to(torch.bfloat16)
-    before = _k8_routes()
+    before = _routes(qm.int4_matmul)
     out8 = qm.int4_matmul(x.view(1, m, k), kq4, sg, True)
     again8 = qm.int4_matmul(x.view(1, m, k), kq4, sg, True)
     out4 = qm.int4_matmul(x, kq4, sg, False)
     again4 = qm.int4_matmul(x, kq4, sg, False)
     torch.cuda.synchronize()
-    assert _k8_route_moved(before, m, 4)
+    assert _route_moved(qm.int4_matmul, before, m, 4)
     assert out8.shape == (1, m, n)
     assert torch.equal(_bits(out8), _bits(again8))
     assert torch.equal(_bits(out4), _bits(again4))
@@ -666,11 +727,11 @@ def test_int4_decode_route_raises_without_its_kernel(cuda, monkeypatch):
         raise build.KernelBuildError("nvcc not found")
 
     monkeypatch.setattr(build, "build", no_build)
-    before = _k8_routes()
+    before = _routes(qm.int4_matmul)
     for act_quant in (True, False):
         with pytest.raises(build.KernelBuildError):
             qm.int4_matmul(x, kq4, sg, act_quant)
-    assert _k8_routes() == before
+    assert _routes(qm.int4_matmul) == before
 
 
 @pytest.mark.parametrize("m,k,n", [(10, 256, 256), (130, 1024, 1040)])
@@ -737,9 +798,9 @@ def test_int4_and_dgrad_autograd_functions_on_card(cuda):
     x, codes, kq4, sg, dy = _int4_inputs(cuda, 40, 256, 256, 11)
     kq = torch.randint(-127, 128, (256, 256), device=cuda, dtype=torch.int8)
     scale = torch.full((256,), 1e-3, device=cuda)
-    # 40 rows: K8 on its decode route
+    # 40 rows: K8 and K3 on their decode routes
     counts = lambda: (qm.int4_matmul.decode_launches, qm.int4_dx.launches,
-                      qm.int8_fwd.launches, qm.int8_dgrad.launches)
+                      qm.int8_fwd.decode_launches, qm.int8_dgrad.launches)
     before = counts()
     xa, xb, xc = (x.detach().requires_grad_() for _ in range(3))
     t4.int4_matmul(xa, kq4, sg).backward(dy)
@@ -778,11 +839,11 @@ def test_int4_weight_only_edge_tiles(cuda, m, n, k, group):
         x = torch.randn(1, k, device=cuda).to(torch.bfloat16)
     groups = k // group
     sg = sg[:groups].contiguous()
-    before = _k8_routes()
+    before = _routes(qm.int4_matmul)
     out = qm.int4_matmul(x, kq4, sg, False)
     again = qm.int4_matmul(x, kq4, sg, False)
     torch.cuda.synchronize()
-    assert _k8_route_moved(before, m, 2, group)
+    assert _route_moved(qm.int4_matmul, before, m, 2, group)
     assert torch.equal(_bits(out), _bits(again))
     ref = qm.int4_matmul_ref(x, kq4, sg, False)
     w = (codes.double().view(n, groups, group) * sg.t().double()[:, :, None]
@@ -913,10 +974,10 @@ def test_int8_fwd_edge_tiles_bitwise(cuda, m, n, k):
     x, kq, scale, _, _ = _quant_inputs(cuda, m, k, n, 18)
     if m == 1:                        # _quant_inputs zeroes row m // 2
         x = torch.randn(1, k, device=cuda).to(torch.bfloat16)
-    before = qm.int8_fwd.launches
+    before = _routes(qm.int8_fwd)
     out = qm.int8_fwd(x, kq, scale)
     torch.cuda.synchronize()
-    assert qm.int8_fwd.launches == before + 1
+    assert _route_moved(qm.int8_fwd, before, m, 1)
     assert torch.equal(_bits(out), _bits(qm.int8_fwd_ref(x, kq, scale)))
 
 
@@ -1005,10 +1066,10 @@ def _edge_rows(x, m):
 def test_grouped_fwd_edge_tiles_bitwise(cuda, m, n, k):
     x, kq, _, sg, _ = _quant_inputs(cuda, m, k, n, 21)
     x = _edge_rows(x, m)
-    before = qm.grouped_matmul.launches
+    before = _routes(qm.grouped_matmul)
     out = qm.grouped_matmul(x, kq, sg)
     torch.cuda.synchronize()
-    assert qm.grouped_matmul.launches == before + 1
+    assert _route_moved(qm.grouped_matmul, before, m, 1)
     assert torch.equal(_bits(out), _bits(qm.grouped_matmul_ref(x, kq, sg)))
 
 
@@ -1034,10 +1095,10 @@ def _grouped_int4(cuda, m, k, n, group, seed):
 def test_int4_w4a8_edge_tiles_bitwise(cuda, m, nh, k, group):
     x, kq4, sg = _grouped_int4(cuda, m, k, 2 * nh, group, 22)
     x = _edge_rows(x, m)
-    before = _k8_routes()
+    before = _routes(qm.int4_matmul)
     out = qm.int4_matmul(x, kq4, sg, True)
     torch.cuda.synchronize()
-    assert _k8_route_moved(before, m, 1, group)
+    assert _route_moved(qm.int4_matmul, before, m, 1, group)
     assert torch.equal(_bits(out),
                        _bits(qm.int4_matmul_ref(x, kq4, sg, True)))
 

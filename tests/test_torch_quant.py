@@ -26,8 +26,11 @@ from flipped_tpu.model.pallas.quant_matmul import (grouped_matmul_pallas,
 from flipped_tpu_torch.model import int8 as q8
 from flipped_tpu_torch.model.kernels import quant_matmul as qm
 
-# (leading dims, K, N); quant_dx_pallas takes only N % 128 == 0
-SHAPES = [((2, 12), 256, 256), ((37,), 384, 136), ((3, 5, 4), 1024, 128)]
+# (leading dims, K, N); quant_dx_pallas takes only N % 128 == 0. The last
+# two are the rows of K3's and K7's decode route on the card: one row, and
+# the adapter prefix's 10
+SHAPES = [((2, 12), 256, 256), ((37,), 384, 136), ((3, 5, 4), 1024, 128),
+          ((1,), 512, 256), ((10,), 256, 136)]
 DX_SHAPES = [((2, 12), 256, 256), ((37,), 384, 128), ((3, 5, 4), 1024, 128)]
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
           "bf16": (np.float32, jnp.bfloat16, torch.bfloat16)}
@@ -37,7 +40,8 @@ def _case(lead, k, n, seed):
     rs = np.random.RandomState(seed)
     x = rs.randn(*lead, k).astype(np.float32)
     x[..., 3] *= 25.0                      # one large column
-    x.reshape(-1, k)[1] = 0.0              # an all-zero row
+    if x.size > k:
+        x.reshape(-1, k)[1] = 0.0          # an all-zero row
     kq = rs.randint(-127, 128, (k, n)).astype(np.int8)       # JAX (K, N)
     base = 1.0 / (127.0 * np.sqrt(k))
     scale = ((rs.rand(n) + 0.5) * base).astype(np.float32)
@@ -88,7 +92,8 @@ def test_int8_fwd_ref_matches_jax_and_pallas(lead, k, n, dtype):
     assert got.dtype == tdt and tuple(got.shape) == (*lead, n)
     np.testing.assert_array_equal(_np(got), ref)
     np.testing.assert_array_equal(_np(got), pal)
-    assert not _np(got).reshape(-1, n)[1].any()          # the zero row
+    if x.size > k:
+        assert not _np(got).reshape(-1, n)[1].any()      # the zero row
 
 
 def _jit_group_codes(x, groups):
@@ -137,7 +142,8 @@ def test_grouped_matmul_ref_matches_jax_and_pallas(lead, k, n, dtype):
         bound = (flip_bound * (1 + rtol) + rtol * np.abs(want).reshape(-1, n)
                  + 1e-6)
         assert (err <= bound).all(), float((err / bound).max())
-    assert not got.reshape(-1, n)[1].any()
+    if x.size > k:
+        assert not got.reshape(-1, n)[1].any()
 
 
 @pytest.mark.parametrize("lead,k,n", DX_SHAPES)
@@ -200,11 +206,50 @@ def test_int8_matmul_grouped_dx_matches_jax_vjp(lead, k, n):
 def test_wrappers_count_nothing_on_the_cpu():
     """A CPU tensor takes the plain version and launches nothing."""
     x, kq, scale, sg, g = _case((8,), 256, 128, 6)
-    before = (qm.int8_fwd.launches, qm.grouped_matmul.launches,
-              qm.quant_dx.launches)
+    counts = lambda: (qm.int8_fwd.launches, qm.int8_fwd.decode_launches,
+                      qm.grouped_matmul.launches,
+                      qm.grouped_matmul.decode_launches,
+                      qm.quant_dx.launches)
+    before = counts()
     tkq = _kq_t(kq)
     qm.int8_fwd(torch.from_numpy(x), tkq, torch.from_numpy(scale))
     qm.grouped_matmul(torch.from_numpy(x), tkq, torch.from_numpy(sg))
     qm.quant_dx(torch.from_numpy(g), tkq, torch.from_numpy(sg))
-    assert (qm.int8_fwd.launches, qm.grouped_matmul.launches,
-            qm.quant_dx.launches) == before
+    assert counts() == before
+
+
+def test_decode_route_choice():
+    """K3, K7 and K8 take their decode routes for x of at most DECODE_MAX_M
+    (64) rows, K8 only at the model's group of 128."""
+    assert qm.DECODE_MAX_M == 64
+    assert all(qm.takes_decode_route(m) for m in (1, 10, 32, 63, 64))
+    assert not any(qm.takes_decode_route(m) for m in (65, 320, 3072))
+    assert qm.takes_decode_route(32, 128)
+    assert not qm.takes_decode_route(32, 256)
+
+
+# (N, K): the 7B block shapes, their tp-2 halves (N 2048; K 2048 and 5504),
+# and shapes with few tiles or a contraction of less than one stage
+SPLIT_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008), (2048, 4096),
+                (4096, 2048), (4096, 5504), (11008, 2048), (136, 16),
+                (264, 4096), (8, 1040)]
+
+
+@pytest.mark.parametrize("n,k", SPLIT_SHAPES)
+def test_int8_decode_splits_fill_the_card(n, k):
+    """K3's decode route cuts K into runs of whole 256-deep stages until its
+    64-column tiles times the runs reach DECODE_FILL (132) blocks: never
+    more runs than stages or than a cluster holds (DECODE_MAX_RUNS, 8), as
+    many as fit, and one run where the tiles alone fill the card; at the 7B
+    shapes 128 blocks."""
+    tiles = -(-n // 64)
+    stages = -(-k // qm.DECODE_STAGE)
+    runs = qm.int8_decode_splits(n, k)
+    assert 1 <= runs <= min(stages, qm.DECODE_MAX_RUNS)
+    assert tiles * runs <= max(tiles, qm.DECODE_FILL)
+    if tiles >= qm.DECODE_FILL:
+        assert runs == 1
+    elif runs < min(stages, qm.DECODE_MAX_RUNS):
+        assert tiles * (runs + 1) > qm.DECODE_FILL
+    if n in (2048, 4096) and k >= 2048:
+        assert tiles * runs == 128

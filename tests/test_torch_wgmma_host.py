@@ -57,6 +57,14 @@ def _function(src: str, name: str) -> str:
     ("void (anonymous namespace)::int8_grouped_wgmma_kernel<true>("
      "CUtensorMap_st, CUtensorMap_st, float const*, float const*, "
      "__nv_bfloat16*, int, int, int)", "int8 GEMM (K3/K7)"),
+    ("void (anonymous namespace)::int8_decode_kernel<32, true>("
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, "
+     "__nv_bfloat16*, int, int, int)", "int8 GEMM (K3/K7)"),
+    ("void (anonymous namespace)::int8_decode_quantize_kernel("
+     "__nv_bfloat16 const*, signed char*, float*, int)", "int8 GEMM (K3/K7)"),
+    ("void (anonymous namespace)::int8_grouped_decode_kernel<64, false>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "__nv_bfloat16*, int, int, int)", "int8 GEMM (K3/K7)"),
     ("void (anonymous namespace)::int4_w4a8_wgmma_kernel<false, true>("
      "CUtensorMap_st, CUtensorMap_st, float const*, float const*, "
      "__nv_bfloat16*, int, int, int, int)", "int4 GEMM (K8)"),
@@ -586,7 +594,7 @@ def test_shared_memory_opt_in_is_per_device():
              if "hopper::smem_opt_in(" in p.read_text()]
     assert users == ["dx_wgmma.cuh", "flash_bwd_wgmma.cuh",
                      "flash_fwd_wgmma.cuh", "int4_decode.cu", "int4_fwd.cu",
-                     "int8_fwd.cu", "int8_grouped_fwd.cu",
+                     "int8_decode.cu", "int8_fwd.cu", "int8_grouped_fwd.cu",
                      "wgmma_int8.cuh"], users
 
 
@@ -756,5 +764,100 @@ def test_decode_loop_is_tma_fed_wgmma_in_k7s_order():
             in fold)
     assert "acc[r] = __fadd_rn(acc[r], term[r]);" in fold
     assert "acc[r] = __fadd_rn(acc[r], xch[" in fold
-    assert src.count("tma_load_3d(") >= 4
+    assert src.count("hopper::tma_load_3d(") >= 3
+    common = (CSRC / "hopper_common.cuh").read_text()
+    assert "cp.async.bulk.tensor.3d" in _function(common, "tma_load_3d")
     assert "mbar_wait(&empty[s]" in src and "mma.sync" not in src
+
+
+def test_int8_decode_loops_are_tma_fed_ss_wgmma():
+    """int8_decode.cu, the decode routes of K3 and K7: SS wgmmas m64nNk32
+    (s8) for N = 8, 16, 32 and 64, both operands K-major int8 tiles in
+    shared memory (no register conversion of the weight), a run's first
+    with scale-d 0; a producer lane's TMA boxes into an mbarrier ring. K3's
+    GEMM is a programmatic dependent launch of its quantize pass (which
+    signals at once): it loads its first stages' weight before
+    griddepcontrol.wait and xq after; each 128-deep chunk's wgmmas are a
+    group of their own, and a stage goes back once its second chunk's
+    wgmmas are done (wgmma_wait<1>, as int8_fwd.cu); a tile's runs meet in
+    a cluster's shared memory, and the deep ring is taken where the runtime
+    says its clusters fit at once. K7 waits for the previous group's wgmmas
+    before it issues the next and folds the previous one while they run."""
+    src = (CSRC / "int8_decode.cu").read_text()
+    for n in (8, 16, 32, 64):
+        assert f"wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8" in src
+    assert "mma.sync" not in src and "_rs(" not in src
+    k3 = " ".join(_function(src, "int8_decode_kernel").split())
+    assert k3.index("for (int i = 0; i < pre; ++i) weights(i);") \
+        < k3.index("grid_wait();") \
+        < k3.index("hopper::tma_load_2d(st + c * C::X_CHUNK, &x_map")
+    issue = k3[k3.index("auto issue = [&]"):k3.index("issue(0, true);")]
+    assert issue.index("wgmma_fence()") < issue.index("ss_s8_zero(d, da, db)")
+    assert issue.index("ss_s8(d, da + 2 * ks") < issue.index(
+        "wgmma_commit()")
+    loop = k3[k3.index("issue(0, true);"):]
+    assert loop.index("issue(c, false);") < loop.index("wgmma_wait<1>();") \
+        < loop.index("hopper::mbar_arrive(&empty[")
+    assert loop.index("cluster_sync();") < loop.index("ld_cluster(") \
+        < loop.rindex("cluster_sync();") < loop.index("store_pairs(")
+    quantize = _function(src, "int8_decode_quantize_kernel")
+    assert "launch_dependents();" in quantize and "quant::INV127" in quantize
+    launch = src[src.index("struct K3Launch"):src.index("cudaError_t k3_deep")]
+    assert "cudaLaunchAttributeProgrammaticStreamSerialization" in launch
+    assert "cudaLaunchAttributeClusterDimension" in launch
+    assert "cudaOccupancyMaxActiveClusters" in _function(src, "k3_deep")
+    step = " ".join(src[src.index("auto step = [&]"):].split())
+    step = step[:step.index("};")]
+    assert step.index("wgmma_wait<0>()") < step.index("issue(") \
+        < step.index("absorb(")
+    assert "tma_load_3d(st, &x_map" in _function(
+        src, "int8_grouped_decode_kernel")
+
+
+def test_k7_decode_fold_keeps_the_plain_order():
+    """K7's decode fold is acc + ((float(d_g) * xs[m]) * s_g[n]), each step
+    rounded (__int2float_rn, __fmul_rn, __fmul_rn, __fadd_rn), the groups
+    in order into one f32 sum: warpgroup 0 adds its even group's term, then
+    the odd group's term that warpgroup 1 handed over (the accumulator's
+    rows are output columns: the row scale takes e & 1, the column scale
+    e >> 1). K3's epilogue keeps JAX's (float(d) * xs) * scale on the full
+    int32 sum, its runs' partials added first."""
+    src = (CSRC / "int8_decode.cu").read_text()
+    fold = " ".join(src[src.index("auto fold = [&]"):].split())
+    fold = fold[:fold.index("auto absorb")]
+    assert ("term[r] = __fmul_rn(__fmul_rn(__int2float_rn(d[r]), xv[e & 1]),"
+            " sv[e >> 1]);" in fold)
+    own = fold.index("acc[r] = __fadd_rn(acc[r], term[r]);")
+    assert own < fold.index("acc[r] = __fadd_rn(acc[r], xch[")
+    k3 = " ".join(_function(src, "int8_decode_kernel").split())
+    epilogue = ("v[r] = __fmul_rn(__fmul_rn(__int2float_rn(d[r]), xv), "
+                "sc[(r >> 1) & 1]);")
+    assert k3.index("d[r] += ld_cluster(") < k3.index(epilogue)
+
+
+@pytest.mark.parametrize("k", [16, 144, 400, 4096, 5504, 11008, 12304])
+@pytest.mark.parametrize("runs", [1, 2, 3, 4, 16])
+def test_int8_decode_runs_cover_k_once(k, runs):
+    """K3's decode route: run y of `runs` takes stages [all y / runs, all
+    (y + 1) / runs) of the ceil(K / 256) stages (int8_decode_kernel), each
+    at least one, and its 128-deep chunks up to K (a stage's second only
+    where it starts before K); together the runs' chunks cover [0, K) once,
+    so the runs' int32 partials add to the full dot."""
+    from flipped_tpu_torch.model.kernels import quant_matmul as qm
+
+    stage = qm.DECODE_STAGE
+    all_ = -(-k // stage)
+    if runs > all_:
+        return
+    starts = []
+    for y in range(runs):
+        s_begin = all_ * y // runs
+        nst = all_ * (y + 1) // runs - s_begin
+        assert nst >= 1
+        k_begin = s_begin * stage
+        nch = -(-(min(k, k_begin + nst * stage) - k_begin) // 128)
+        for i in range(nst):
+            for c in range(min(2, nch - 2 * i)):
+                starts.append(k_begin + i * stage + c * 128)
+    covered = sorted(starts)
+    assert covered == list(range(0, k, 128))
