@@ -3189,12 +3189,16 @@ def grads_rel(a, b):
 
 def check_trace(path, blocks, steps):
     """The Chrome trace of `--trace_dir`: spans `train step 1` ..
-    `train step {steps}`, and in them K1's kernel 2 x `blocks` times a step
-    and K2's two kernels `blocks` times each (one K2 call launches a dq and
-    a dk/dv kernel)."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    spans = {e["name"]: (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+    `train step {steps}`, and launched in them (the CUDA call with the
+    kernel's correlation id starts inside a step's span; a step's last
+    kernels may run after its host returns) K1's kernel 2 x `blocks` times
+    a step and K2's two kernels `blocks` times each (one K2 call launches
+    a dq and a dk/dv kernel)."""
+    from flipped_tpu_torch.scripts import analyze_trace as at
+
+    events = at.load_events(path)
+    spans = {e["name"]: (at.to_ns(e["ts"]),
+                         at.to_ns(float(e["ts"]) + float(e["dur"])))
              for e in events if e.get("cat") == "user_annotation"
              and e.get("name", "").startswith("train step")}
     want_spans = [f"train step {i}" for i in range(1, steps + 1)]
@@ -3204,13 +3208,14 @@ def check_trace(path, blocks, steps):
     lo = min(a for a, _ in spans.values())
     hi = max(b for _, b in spans.values())
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    found = {name: [e for e in kernels if name in e["name"]]
+    ops = at.device_ops(events)
+    found = {name: [o for o in ops if name in o.name]
              for name in (K1_KERNEL,) + K2_KERNELS}
     want = {K1_KERNEL: 2 * blocks * steps,
             **{k: blocks * steps for k in K2_KERNELS}}
     counts = {k: len(v) for k, v in found.items()}
-    outside = sum(not lo <= float(e["ts"]) <= hi
-                  for v in found.values() for e in v)
+    outside = sum(o.launch_ns is None or not lo <= o.launch_ns <= hi
+                  for v in found.values() for o in v)
     print(f"  trace {os.path.basename(path)}: {os.path.getsize(path)} "
           f"bytes, {len(kernels)} kernel events, spans "
           f"{sorted(spans)}; {counts} (want {want}), {outside} of them "

@@ -26,7 +26,17 @@ port's flash kernels K1/K2 and the streaming K5/K6, its int8 GEMMs K3/K7
 int8_decode.cu), its quantized dx K4, K8's GEMMs (int4_fwd.cu's two and
 the decode route's int4_decode.cu), K9, K10's quantize pass and GEMM,
 other), and the top kernels by device time. The activation quantize pass
-that K7 and K8's w4a8 branch share counts in the K3/K7 class.
+that K7 and K8's w4a8 branch share counts in the K3/K7 class. The
+profiled steps run with the program's span recorder open (utils/spans.py),
+and five fields give a step's share of each span name: each kernel, copy
+and set belongs to the innermost span open when the host launched it
+(nested spans count in their parents too; "(none)" outside every span):
+`device_ms_per_step_by_span`, `launches_per_step_by_span`,
+`host_ms_per_step_by_span` (the spans' summed host durations),
+`idle_ms_per_step_by_span` (the time inside each span's device interval,
+its first op's start to its last op's end, in which no op ran: for
+`gen.decode`, the card waiting on the host within a decode step), and
+`attributed_device_share`, the share of device time in some span.
 `--quantize` builds the model it names, as the CLIs do, and the audio
 flags (`--audio --audio_merge ...`, `--audio --audio_only`) the merge
 they name, its batch read from the data root's audio features as the
@@ -52,6 +62,7 @@ from ..train.builder import build_eval_state, build_train_state
 from ..train.generation import make_generation_step
 from ..train.optim import make_optimizer
 from ..train.step import make_eval_step, make_train_step
+from ..utils import spans
 from .evaluate import batch_to_device
 
 STEPS = 3
@@ -123,6 +134,23 @@ def summarize(prof, steps: int, wall: float, wall_plain: float) -> dict:
     }
 
 
+def by_span(recorded, ops, steps: int) -> dict:
+    """A step's device ms, launches, host ms and idle ms by program span
+    name."""
+    rolled = spans.rollup(recorded, ops)
+    return {
+        "device_ms_per_step_by_span": {n: 1e3 * e["device_s"] / steps
+                                       for n, e in rolled.items()},
+        "launches_per_step_by_span": {n: e["launches"] / steps
+                                      for n, e in rolled.items()},
+        "host_ms_per_step_by_span": {n: 1e3 * e["host_s"] / steps
+                                     for n, e in rolled.items()},
+        "idle_ms_per_step_by_span": {n: 1e3 * e["idle_s"] / steps
+                                     for n, e in rolled.items()},
+        "attributed_device_share": spans.attributed_share(rolled, ops),
+    }
+
+
 def main(argv=None) -> dict:
     extra = argparse.ArgumentParser(add_help=False)
     extra.add_argument("--mode", choices=["train", "eval", "generation"],
@@ -169,11 +197,12 @@ def main(argv=None) -> dict:
     peak = torch.cuda.max_memory_allocated(device)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(STEPS):
-            run()
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with spans.record() as rec:
+            t0 = time.perf_counter()
+            for _ in range(STEPS):
+                run()
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     if args.trace_dir:
         os.makedirs(args.trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
@@ -190,7 +219,8 @@ def main(argv=None) -> dict:
            "batch_size": run_cfg.data.batch_size,
            "quantize": run_cfg.train.quantize, "card": card,
            "peak_allocated_gib": peak / 2 ** 30,
-           **summarize(prof, STEPS, wall, wall_plain)}
+           **summarize(prof, STEPS, wall, wall_plain),
+           **by_span(rec.spans, spans.device_ops(prof), STEPS)}
     print(json.dumps(out))
     return out
 

@@ -73,8 +73,11 @@ card). `--trace_dir DIR` traces steps 1 to min(4, len - 1) of the first
 epoch run, as JAX does (cli/train.py:100-122; JAX compares with
 --start_epoch, so under --resume it traces nothing; the port traces the
 first epoch it runs), with `torch.profiler` (CPU activity, and CUDA on
-the card), each step a `train step N` span, into
-`DIR/train_epoch{N}.pt.trace.json` (Chrome trace format). A one-step
+the card), into `DIR/train_epoch{N}.pt.trace.json` (Chrome trace format),
+with the program's spans (utils/spans.py) over the traced steps written in
+on the trace's time base: each step's `train.step` span as `train step N`,
+the others under their own names (`train.forward`, `train.backward`,
+`train.update`), each with its span name and parent in `args`. A one-step
 epoch (--debug) writes no trace, as in JAX.
 """
 from __future__ import annotations
@@ -84,6 +87,7 @@ import json
 import math
 import os
 import sys
+import threading
 import time
 from typing import Dict
 
@@ -99,6 +103,7 @@ from ..data.pipeline import load_data, pinned_eval_span
 from ..train.builder import build_train_state
 from ..train.optim import make_optimizer
 from ..train.step import make_train_step
+from ..utils import spans
 from ..utils.logging import setup_for_distributed, write_log_line
 from ..utils.metrics import MetricLogger, SmoothedValue
 from .evaluate import (batch_to_device, make_val_steps, shard_leader,
@@ -122,21 +127,22 @@ def train_one_epoch(train_step, loader, epoch: int, device,
     print_freq = max(len(loader) // 4, 1)
     loader.set_epoch(epoch)
     trace_stop_it = min(4, max(len(loader) - 1, 1))
-    prof = None
+    tracing = contextlib.ExitStack()
+    prof = rec = None
     n_steps = 0
     try:
         for it, batch in enumerate(logger.log_every(
                 iter(loader), print_freq, f"Epoch: [{epoch}]")):
             if trace_dir and it == 1:
                 # skip step 0 (first calls: kernel loads, allocator warm-up)
-                prof = torch.profiler.profile(activities=_activities(device))
-                prof.start()
-            with (torch.profiler.record_function(f"train step {it}")
-                  if prof is not None else contextlib.nullcontext()):
-                m = train_step(batch_to_device(batch, device))
-                loss = float(m.loss)
+                prof = tracing.enter_context(torch.profiler.profile(
+                    activities=_activities(device)))
+                rec = tracing.enter_context(spans.record())
+            m = train_step(batch_to_device(batch, device))
+            loss = float(m.loss)
             if prof is not None and it >= trace_stop_it:
-                _stop_trace(prof, trace_dir, epoch)
+                tracing.close()
+                _write_trace(prof, rec, trace_dir, epoch)
                 prof = None
             if not math.isfinite(loss):
                 print(f"Loss is {loss}, stopping training")
@@ -151,7 +157,8 @@ def train_one_epoch(train_step, loader, epoch: int, device,
                 break
     finally:
         if prof is not None:
-            _stop_trace(prof, trace_dir, epoch)
+            tracing.close()
+            _write_trace(prof, rec, trace_dir, epoch)
     logger.synchronize_between_processes()
     print("Averaged stats:", logger)
     return {**logger.averages(), "steps": n_steps}
@@ -164,12 +171,31 @@ def _activities(device):
     return acts
 
 
-def _stop_trace(prof, trace_dir: str, epoch: int) -> None:
-    prof.stop()
+def _write_trace(prof, rec, trace_dir: str, epoch: int) -> None:
+    """The profile as a Chrome trace, with the recorder's spans added on
+    the trace's time base; the k-th `train.step` span is `train step k`,
+    as the traced steps start at step 1."""
     os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(trace_file(trace_dir, epoch))
-    print(f"wrote the trace of epoch {epoch} to "
-          f"{trace_file(trace_dir, epoch)}")
+    path = trace_file(trace_dir, epoch)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    steps = 0
+    for i, s in enumerate(rec.spans):
+        name = s.name
+        if name == "train.step":
+            steps += 1
+            name = f"train step {steps}"
+        trace["traceEvents"].append({
+            "ph": "X", "cat": "user_annotation", "name": name,
+            "pid": os.getpid(), "tid": threading.get_native_id(),
+            "ts": (s.start_ns - base) / 1e3,
+            "dur": (s.end_ns - s.start_ns) / 1e3,
+            "args": {"span": s.name, "index": i, "parent": s.parent}})
+    with open(path, "w") as f:
+        json.dump(trace, f)
+    print(f"wrote the trace of epoch {epoch} to {path}")
 
 
 def main(args):

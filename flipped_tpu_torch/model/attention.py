@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.spans import span
+
 NEG_INF = -1e30
 
 
@@ -139,23 +141,26 @@ def decode_attention(q, cache_k, cache_v, adapter_k, adapter_v, gate1, gate2,
     columns <= pos; video_start: (B,) int, -1 → no gate2 block; pos: (B,)
     int, the query's absolute position. Returns (B, 1, H*Dh).
     """
-    b, _, h, dh = q.shape
-    cd = q.dtype
-    s_max = cache_k.shape[1]
-    scores = torch.einsum("bohd,bthd->bhot", q.float(),
-                          cache_k.float()) * _scale(dh, cd)
-    cols = torch.arange(s_max, device=q.device)[None, None, None, :]
-    p = pos.long()[:, None, None, None]
-    vs = video_start.long()[:, None, None, None]
-    # the gate2 video block: a decoded row sits past vs + max_feats, so this
-    # is the whole block once the prompt holds video (JAX guards it too)
-    block = ((p >= vs + max_feats) & (cols >= vs) & (cols < vs + max_feats)
-             & (vs >= 0))
-    scores = scores + block.float() * gate2.float()[None, :, None, None]
-    scores = torch.where(cols <= p, scores, torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhot,bthd->bohd", probs.to(cd).float(),
-                       cache_v.float())
-    out = out + adapter_prefix_attention(q, adapter_k, adapter_v,
-                                         gate1).float()
-    return out.to(cd).reshape(b, 1, h * dh)
+    with span("model.decode_attention"):
+        b, _, h, dh = q.shape
+        cd = q.dtype
+        s_max = cache_k.shape[1]
+        scores = torch.einsum("bohd,bthd->bhot", q.float(),
+                              cache_k.float()) * _scale(dh, cd)
+        cols = torch.arange(s_max, device=q.device)[None, None, None, :]
+        p = pos.long()[:, None, None, None]
+        vs = video_start.long()[:, None, None, None]
+        # the gate2 video block: a decoded row sits past vs + max_feats, so
+        # this is the whole block once the prompt holds video (JAX guards it
+        # too)
+        block = ((p >= vs + max_feats) & (cols >= vs)
+                 & (cols < vs + max_feats) & (vs >= 0))
+        scores = scores + block.float() * gate2.float()[None, :, None, None]
+        scores = torch.where(cols <= p, scores,
+                             torch.full_like(scores, NEG_INF))
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhot,bthd->bohd", probs.to(cd).float(),
+                           cache_v.float())
+        out = out + adapter_prefix_attention(q, adapter_k, adapter_v,
+                                             gate1).float()
+        return out.to(cd).reshape(b, 1, h * dh)

@@ -10,7 +10,15 @@ steps (the `train step N` annotations, else `ProfilerStep#N`, else the
 first kernel's start to the last one's end), the top kernels, and a rollup
 by class. The classes are `cli.profile.kernel_class`'s, so both tools name
 a kernel the same way (K8's decode route, int4_decode_kernel and
-int4_decode_sum_kernel, under "int4 GEMM (K8)" with int4_fwd.cu's).
+int4_decode_sum_kernel, under "int4 GEMM (K8)" with int4_fwd.cu's). Where
+the trace holds the program's spans (events with a `span` in `args`, as
+`cli.train --trace_dir` writes them), it also prints by span name the
+device ms, launches, host ms, and idle ms (the time inside each span's
+device interval, its first op's start to its last op's end, in which no
+op ran): each kernel, copy and set belongs to the innermost span open when
+the CUDA runtime or driver call that launched it began (`args.correlation`
+ties the two; utils/spans.py `rollup`). A step's span ends when its host
+returns, so a step's wall runs to its last kernel's end.
 
     python -m flipped_tpu_torch.scripts.analyze_trace DIR_OR_FILE [--top 25]
 
@@ -28,11 +36,14 @@ import json
 import os
 import re
 import sys
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from ..cli.profile import kernel_class
+from ..utils.spans import (LAUNCH_CALLS, DeviceOp, Span, attributed_share,
+                           rollup)
 
 KERNEL_CATS = ("kernel",)
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 STEP_NAME = re.compile(r"^(train step \d+|ProfilerStep#\d+)$")
 
 
@@ -82,8 +93,11 @@ def analyze(events: List[dict]) -> Dict[str, dict]:
                  for e in kernels]
         busy = union_us(spans)
         if steps:
-            span = (max(float(s["ts"]) + float(s.get("dur", 0.0))
-                        for s in steps) - min(float(s["ts"]) for s in steps))
+            # a step's span ends where its host returns; its last kernels
+            # may end later
+            span = (max(max(float(s["ts"]) + float(s.get("dur", 0.0))
+                            for s in steps), max(b for _, b in spans))
+                    - min(float(s["ts"]) for s in steps))
             span_from = f"{len(steps)} step annotations"
         else:
             span = max(b for _, b in spans) - min(a for a, _ in spans)
@@ -102,6 +116,54 @@ def analyze(events: List[dict]) -> Dict[str, dict]:
                     "steps": len(steps), "by_class": dict(by_class),
                     "by_name": by_name}
     return out
+
+
+def to_ns(us) -> int:
+    """A Chrome trace's µs as ns on the trace's own time base."""
+    return int(round(float(us) * 1e3))
+
+
+def device_ops(events: List[dict]) -> List[DeviceOp]:
+    """The trace's kernels, copies and sets, each with the start of the
+    CUDA runtime or driver call that launched it (the event of that
+    category with the same `args.correlation`; None where there is none),
+    in ns on the trace's time base."""
+    launch = {e["args"]["correlation"]: to_ns(e["ts"]) for e in events
+              if e.get("cat") in LAUNCH_CALLS
+              and "correlation" in (e.get("args") or {})}
+    return [DeviceOp(e["name"], to_ns(e["ts"]),
+                     to_ns(float(e["ts"]) + float(e.get("dur", 0.0))),
+                     launch.get((e.get("args") or {}).get("correlation")))
+            for e in events
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+
+
+def span_rollup(events: List[dict]) -> Optional[dict]:
+    """`rollup` over the trace's program spans and device ops, with the
+    attributed share under "share"; None without program spans."""
+    marked = sorted((e for e in events if e.get("ph") == "X"
+                     and "span" in (e.get("args") or {})),
+                    key=lambda e: e["args"]["index"])
+    if not marked:
+        return None
+    recorded = [Span(e["args"]["span"], to_ns(e["ts"]),
+                     to_ns(float(e["ts"]) + float(e.get("dur", 0.0))),
+                     e["args"]["parent"]) for e in marked]
+    ops = device_ops(events)
+    rolled = rollup(recorded, ops)
+    return {"by_span": rolled, "share": attributed_share(rolled, ops)}
+
+
+def print_spans(rolled: dict) -> None:
+    print(f"\n== by program span ({100 * rolled['share']:.1f}% of device "
+          f"time launched in a span; nested spans count in their parents) ==")
+    print(f"  {'span':24s} {'count':>6s} {'device ms':>10s} "
+          f"{'launches':>9s} {'host ms':>10s} {'idle ms':>10s}")
+    for name, e in sorted(rolled["by_span"].items(),
+                          key=lambda kv: -kv[1]["device_s"]):
+        print(f"  {name:24s} {e['count']:6d} {1e3 * e['device_s']:10.3f} "
+              f"{e['launches']:9d} {1e3 * e['host_s']:10.3f} "
+              f"{1e3 * e['idle_s']:10.3f}")
 
 
 def print_report(summary: Dict[str, dict], top: int) -> None:
@@ -130,13 +192,17 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     path = trace_path(args.trace)
     print(f"# {path}", file=sys.stderr)
-    summary = analyze(load_events(path))
+    events = load_events(path)
+    summary = analyze(events)
     if not summary:
         print("NO DEVICE KERNEL in this trace: only host events were "
               "recorded (a CPU run, or a profiler without CUDA activity). "
               "Host time is not device time; nothing to attribute.")
         return 1
     print_report(summary, args.top)
+    rolled = span_rollup(events)
+    if rolled is not None:
+        print_spans(rolled)
     return 0
 
 

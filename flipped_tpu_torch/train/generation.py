@@ -16,6 +16,8 @@ from typing import Dict
 
 import torch
 
+from ..utils.spans import span
+
 MAX_NEW_TOKENS = 31  # positions prefix … prefix+30 (reference: model.py:439)
 
 
@@ -74,39 +76,48 @@ def make_generation_step(model, eos_id: int,
 
     @torch.inference_mode()
     def gen_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        with span("gen.step"):
+            return _gen_step(batch)
+
+    def _gen_step(batch):
         all_tokens = batch["vqa_tokens"]                 # (B, n_opt, S)
         prefix = batch["prefix"].long()                  # (B,)
         video_start = batch["vqa_video_start"]
         tokens = all_tokens[:, 0]                        # option 0 (model.py:385)
         b, s = tokens.shape
-        vf = model.fuse(batch.get("video"), batch.get("audio"))
-        h, cache_k, cache_v = model.prefill(tokens, vf, video_start,
-                                            batch["vqa_splice"],
-                                            s + max_new_tokens + 1)
-        rows = torch.arange(b, device=tokens.device)
-        h_last = h[rows, prefix - 1][:, None]            # (B, 1, D)
-        tok = model.lm_logits(h_last)[:, 0].argmax(-1)
+        with span("gen.prefill"):
+            vf = model.fuse(batch.get("video"), batch.get("audio"))
+            h, cache_k, cache_v = model.prefill(tokens, vf, video_start,
+                                                batch["vqa_splice"],
+                                                s + max_new_tokens + 1)
+            rows = torch.arange(b, device=tokens.device)
+            h_last = h[rows, prefix - 1][:, None]        # (B, 1, D)
+            tok = model.lm_logits(h_last)[:, 0].argmax(-1)
         generated = [tok]
         for i in range(max_new_tokens - 1):
-            logits, cache_k, cache_v = model.decode_step(
-                tok, cache_k, cache_v, prefix + i, video_start)
-            tok = logits.argmax(-1)
+            with span("gen.decode"):
+                logits, cache_k, cache_v = model.decode_step(
+                    tok, cache_k, cache_v, prefix + i, video_start)
+                tok = logits.argmax(-1)
             generated.append(tok)
         generated = torch.stack(generated, dim=1)        # (B, T)
 
-        # the generated answer's embedding (reference: model.py:476-505)
-        span_len = (batch["vqa_labels"][:, 0, 1:] != 0).sum(-1)   # (B,)
-        idx = torch.arange(max_new_tokens, device=tokens.device)[None]
-        after_eos = torch.cumsum((generated == eos_id).int(), dim=1) > 0
-        keep = (idx < span_len[:, None]) & ~after_eos
-        gen_emb = _masked_mean(_embed(model, generated), keep)    # (B, D)
-        # each option's answer-span embedding (model.py:552-576)
-        opt_emb = pool_option_embeddings(model, all_tokens, prefix, eos_id)
-        # cosine similarity → the first best option (model.py:596-623)
-        similarity = torch.einsum("bnd,bd->bn", _unit(opt_emb),
-                                  _unit(gen_emb))
+        with span("gen.match"):
+            # the generated answer's embedding (reference: model.py:476-505)
+            span_len = (batch["vqa_labels"][:, 0, 1:] != 0).sum(-1)   # (B,)
+            idx = torch.arange(max_new_tokens, device=tokens.device)[None]
+            after_eos = torch.cumsum((generated == eos_id).int(), dim=1) > 0
+            keep = (idx < span_len[:, None]) & ~after_eos
+            gen_emb = _masked_mean(_embed(model, generated), keep)    # (B, D)
+            # each option's answer-span embedding (model.py:552-576)
+            opt_emb = pool_option_embeddings(model, all_tokens, prefix,
+                                             eos_id)
+            # cosine similarity → the first best option (model.py:596-623)
+            similarity = torch.einsum("bnd,bd->bn", _unit(opt_emb),
+                                      _unit(gen_emb))
+            prediction = similarity.argmax(-1)
         return {"generated": generated, "similarity": similarity,
-                "prediction": similarity.argmax(-1)}
+                "prediction": prediction}
 
     return gen_step
 

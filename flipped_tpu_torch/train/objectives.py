@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import collectives as C
 from ..core.mesh import DPSP
+from ..utils.spans import span
 
 
 class Losses(NamedTuple):
@@ -221,38 +222,39 @@ def option_scores_cached(model, batch: Dict[str, torch.Tensor],
     b, n_opt, s = tokens.shape
     dev = tokens.device
 
-    vf = model.fuse(batch.get("video"), batch.get("audio"))
-    h, ck, cv = model.prefill(tokens[:, 0], vf, batch["vqa_video_start"],
-                              batch["vqa_splice"], s)
+    with span("eval.prefill"):
+        vf = model.fuse(batch.get("video"), batch.get("audio"))
+        h, ck, cv = model.prefill(tokens[:, 0], vf, batch["vqa_video_start"],
+                                  batch["vqa_splice"], s)
+        # the shared last prompt position predicts each option's first token
+        h_last = torch.gather(h, 1, (prefix - 1)[:, None, None].expand(
+            b, 1, h.shape[-1]))
+        first_logits = model.lm_logits(h_last)[:, 0]             # (B, V)
 
-    # the shared last prompt position predicts each option's first token
-    h_last = torch.gather(h, 1, (prefix - 1)[:, None, None].expand(
-        b, 1, h.shape[-1]))
-    first_logits = model.lm_logits(h_last)[:, 0]                 # (B, V)
+    with span("eval.extend"):
+        j = torch.arange(span_len, device=dev)
+        pos = prefix[:, None, None] + j[None, None]               # (B,1,L)
+        tok_idx = pos.clamp(0, s - 1).expand(b, n_opt, span_len)
+        span_tokens = torch.gather(tokens, 2, tok_idx)
+        span_tokens = torch.where(pos < s, span_tokens,
+                                  torch.zeros_like(span_tokens))
 
-    j = torch.arange(span_len, device=dev)
-    pos = prefix[:, None, None] + j[None, None]                   # (B,1,L)
-    tok_idx = pos.clamp(0, s - 1).expand(b, n_opt, span_len)
-    span_tokens = torch.gather(tokens, 2, tok_idx)
-    span_tokens = torch.where(pos < s, span_tokens,
-                              torch.zeros_like(span_tokens))
+        chunk_logits = model.extend_logits(
+            span_tokens, ck, cv, prefix, batch["vqa_video_start"])  # (B,n,L,V)
 
-    chunk_logits = model.extend_logits(span_tokens, ck, cv, prefix,
-                                       batch["vqa_video_start"])  # (B,n,L,V)
+        first_tgt = torch.gather(labels, 2, prefix[:, None, None].expand(
+            b, n_opt, 1))[..., 0]                                 # (B, n)
+        tgt_pos = pos + 1
+        span_tgts = torch.gather(labels, 2,
+                                 tgt_pos.clamp(0, s - 1).expand(b, n_opt,
+                                                                span_len))
+        span_tgts = torch.where(tgt_pos < s, span_tgts,
+                                torch.zeros_like(span_tgts))
 
-    first_tgt = torch.gather(labels, 2, prefix[:, None, None].expand(
-        b, n_opt, 1))[..., 0]                                     # (B, n)
-    tgt_pos = pos + 1
-    span_tgts = torch.gather(labels, 2,
-                             tgt_pos.clamp(0, s - 1).expand(b, n_opt,
-                                                            span_len))
-    span_tgts = torch.where(tgt_pos < s, span_tgts,
-                            torch.zeros_like(span_tgts))
-
-    l_first = token_ce_unreduced(
-        first_logits[:, None].expand(b, n_opt, first_logits.shape[-1]),
-        first_tgt)                                                # (B, n)
-    l_chunk = token_ce_unreduced(chunk_logits, span_tgts)        # (B, n, L)
-    total = l_first + l_chunk.sum(-1)
-    count = (l_first != 0).long() + (l_chunk != 0).sum(-1)
-    return total / count.clamp_min(1)
+        l_first = token_ce_unreduced(
+            first_logits[:, None].expand(b, n_opt, first_logits.shape[-1]),
+            first_tgt)                                            # (B, n)
+        l_chunk = token_ce_unreduced(chunk_logits, span_tgts)    # (B, n, L)
+        total = l_first + l_chunk.sum(-1)
+        count = (l_first != 0).long() + (l_chunk != 0).sum(-1)
+        return total / count.clamp_min(1)

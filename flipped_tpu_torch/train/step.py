@@ -37,6 +37,7 @@ from ..core.mesh import DPSP, GRADS, TP_AXIS
 from ..data.batching import eval_span
 from ..model.parallel import tp_partial_parameters
 from ..model.pipeline import loss_weight
+from ..utils.spans import span
 from .objectives import (compute_objective_losses, option_scores,
                          option_scores_cached)
 from .optim import Optimizer
@@ -70,29 +71,36 @@ def make_train_step(model, optimizer: Optimizer, vaq: bool, qav: bool,
     weight = loss_weight(model)
 
     def train_step(batch: Dict[str, torch.Tensor]) -> TrainMetrics:
+        with span("train.step"):
+            return _train_step(batch)
+
+    def _train_step(batch):
         accum = batch["vqa_tokens"].shape[0]
         optimizer.zero_grad()
         per_micro = []
         for i in range(accum):
-            losses = compute_objective_losses(
-                model, {k: v[i] for k, v in batch.items()}, vaq, qav,
-                lm_chunk=lm_chunk)
-            (losses.total * weight).backward()
+            with span("train.forward"):
+                losses = compute_objective_losses(
+                    model, {k: v[i] for k, v in batch.items()}, vaq, qav,
+                    lm_chunk=lm_chunk)
+            with span("train.backward"):
+                (losses.total * weight).backward()
             per_micro.append(torch.stack([losses.total.detach(),
                                           *(x.detach() for x in losses)]))
-        for p in optimizer.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in optimizer.params]
-        # first over tp, within the stage whose blocks split their heads
-        _sum_grads([p.grad for p in partial], tp)
-        _sum_grads(grads, across)
-        if accum > 1:
-            for g in grads:
-                g.div_(accum)
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        lr = optimizer.step(grad_norm)
+        with span("train.update"):
+            for p in optimizer.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in optimizer.params]
+            # first over tp, within the stage whose blocks split their heads
+            _sum_grads([p.grad for p in partial], tp)
+            _sum_grads(grads, across)
+            if accum > 1:
+                for g in grads:
+                    g.div_(accum)
+            grad_norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            lr = optimizer.step(grad_norm)
         per_micro = C.all_reduce(torch.stack(per_micro), dpsp)
         loss, vqa_loss, vaq_loss, qav_loss = per_micro.mean(0)
         return TrainMetrics(loss=loss, vqa_loss=vqa_loss, vaq_loss=vaq_loss,
@@ -146,6 +154,10 @@ def make_eval_step(model, cached: bool = True, span_len=None):
 
     @torch.inference_mode()
     def eval_step(batch, span_info: Optional[tuple] = None):
+        with span("eval.step"):
+            return _eval_step(batch, span_info)
+
+    def _eval_step(batch, span_info):
         if not cached:
             return finish(option_scores(model, batch))
         if span_len is not None:

@@ -250,6 +250,19 @@ def test_trace_dir_traces_steps_1_to_3(synth_root, tmp_path):
     steps = sorted({e["name"] for e in events
                     if e.get("name", "").startswith("train step")})
     assert steps == ["train step 1", "train step 2", "train step 3"]
+    # the program's spans, each step's phases inside its `train.step`
+    marked = [e for e in events if "span" in e.get("args", {})]
+    phases = [e["args"]["span"] for e in marked]
+    assert sorted(set(phases)) == ["train.backward", "train.forward",
+                                   "train.step", "train.update"]
+    assert all(phases.count(p) == 3 for p in phases)     # accum_iter 1
+    for e in marked:
+        p = e["args"]["parent"]
+        if p >= 0:
+            outer = next(o for o in marked if o["args"]["index"] == p)
+            assert outer["args"]["span"] == "train.step"
+            assert outer["ts"] <= e["ts"] <= e["ts"] + e["dur"] \
+                <= outer["ts"] + outer["dur"]
 
     class OneBatch:
         def __len__(self):
